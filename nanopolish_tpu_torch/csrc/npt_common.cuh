@@ -1,0 +1,33 @@
+// Shared helpers for the nanopolish_tpu_torch CUDA kernels.
+//
+// Every kernel is built with -fmad=false and IEEE division, and spells out
+// its roundings with the _rn intrinsics: the DP fills must reproduce the
+// plain PyTorch versions bit for bit, so a*b+c is fused exactly where the
+// reference's compiled f32 expression fuses it (__fmaf_rn) and nowhere else.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define NPT_FULL_MASK 0xffffffffu
+
+__device__ __forceinline__ float npt_neg_inf() { return __int_as_float(0xff800000); }
+
+__device__ __forceinline__ float npt_add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float npt_sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float npt_mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float npt_div(float a, float b) { return __fdiv_rn(a, b); }
+
+// max with the comparison semantics of torch.maximum on non-NaN inputs
+__device__ __forceinline__ float npt_max(float a, float b) { return a > b ? a : b; }
+
+// Gaussian log-density as the reference's compiled fills evaluate it:
+// a = (x - mu) / sigma; fma(-0.5*a, a, c) with c = LOG_INV_SQRT_2PI - log(sigma).
+__device__ __forceinline__ float npt_log_normal(float x, float mu, float sigma, float c) {
+    float a = npt_div(npt_sub(x, mu), sigma);
+    return __fmaf_rn(npt_mul(-0.5f, a), a, c);
+}
+
+__device__ __forceinline__ int npt_clampi(int v, int lo, int hi) {
+    return v < lo ? lo : (v > hi ? hi : v);
+}

@@ -1,0 +1,175 @@
+// R9 profile-HMM Viterbi fill with trace (kernel 3 of the Viterbi).
+//
+// Replaces: nanopolish_tpu/ops/pallas_profile_hmm.py _vit_kernel (:637).
+// Spec: profile_hmm_fill_generic_r9 (nanopolish_profile_hmm_r9.inl:265-433);
+// plain version: nanopolish_tpu_torch/ops/profile_hmm.py viterbi_fill_plain,
+// which this kernel matches bit for bit.
+//
+// What bounds it on the H100: the event rows are a serial chain and each row
+// is ~35 f32 operations per kmer over ~100-250 kmers, so a segment is bound
+// by the per-row latency (the K-skip chain's log2(KP) dependent levels and
+// their barriers), not by bytes (one trace byte per cell) or by arithmetic.
+// Design: one block per segment with one thread per kmer (KP = the batch's
+// kmer width rounded up to a power of two, 32..1024), looping over event
+// rows; the previous row's M/B/K scores sit in shared memory.  The K chain
+// K[k] = max(c[k], K[k-1] + lp_kk) is evaluated with the pairwise tree of
+// jax.lax.associative_scan (pairs (0,1),(2,3),... per level; up-sweep then
+// down-sweep), so each K value is rounded exactly as in the JAX scan and
+// the exact-tie trace decisions agree.  Every element of tree level l
+// carries a = lp_kk * 2^l, so only the max-plus values move through shared
+// memory.  The trace byte (trM | trB << 3 | trK << 4) is stored per cell,
+// coalesced across the block.  Many segments per launch fill the SMs.
+
+#include "npt_common.cuh"
+
+namespace {
+
+constexpr int FROM_SAME_M = 0, FROM_PREV_M = 1, FROM_SAME_B = 2,
+              FROM_PREV_B = 3, FROM_PREV_K = 4, FROM_SOFT = 5;
+
+__global__ void viterbi_fill_kernel(
+        const float* __restrict__ lev, int T,
+        const float* __restrict__ mu, const float* __restrict__ sig,
+        const float* __restrict__ cc, int KP,
+        const int* __restrict__ nev_a, const int* __restrict__ nk_a,
+        const float* __restrict__ trans, const uint8_t* __restrict__ clips,
+        float flank0, float clip_base, float clip_step, int B,
+        uint8_t* __restrict__ trace) {
+    extern __shared__ float smem[];
+    float* M_s = smem;              // previous row, then this row
+    float* B_s = M_s + KP;
+    float* K_s = B_s + KP;
+    float* V = K_s + KP;            // up-sweep levels: KP, KP/2, ..., 1
+    float* R = V + 2 * KP;          // down-sweep levels, same layout
+
+    const int b = blockIdx.x;
+    const int k = threadIdx.x;
+    if (b >= B) return;
+    const float NEG = npt_neg_inf();
+    const int nev = nev_a[b];
+    const float* tr = trans + (size_t)b * 8;
+    const float lp_mk = tr[0], lp_mb = tr[1], lp_mm_self = tr[2],
+                lp_mm_next = tr[3], lp_bb = tr[4], lp_b3 = tr[5],
+                lp_kk = tr[6], lp_km = tr[7];
+    const bool pre_clip = clips[(size_t)b * 2] != 0;
+    const float mu_k = mu[(size_t)b * KP + k];
+    const float sg_k = sig[(size_t)b * KP + k];
+    const float cc_k = cc[(size_t)b * KP + k];
+    const float* levb = lev + (size_t)b * T;
+    uint8_t* trb = trace + (size_t)b * T * KP;
+
+    M_s[k] = NEG;
+    B_s[k] = NEG;
+    K_s[k] = NEG;
+    __syncthreads();
+
+    for (int t = 1; t <= nev; ++t) {
+        const float em = npt_log_normal(__ldg(levb + t - 1), mu_k, sg_k, cc_k);
+        const float M = M_s[k], Bv = B_s[k];
+        const float Mp = k > 0 ? M_s[k - 1] : NEG;
+        const float Bp = k > 0 ? B_s[k - 1] : NEG;
+        const float Kp = k > 0 ? K_s[k - 1] : NEG;
+
+        // soft-clip entry into the first kmer (r9.inl:200-227)
+        float s_soft = NEG;
+        if (k == 0 && (pre_clip || t == 1)) {
+            const float i_f = (float)(t - 1);
+            s_soft = (t == 1) ? flank0
+                              : __fmaf_rn(npt_sub(i_f, 1.0f), clip_step, clip_base);
+        }
+        const float x0 = npt_add(lp_mm_self, M);
+        const float x1 = npt_add(lp_mm_next, Mp);
+        const float x2 = npt_add(lp_b3, Bv);
+        const float x3 = npt_add(lp_b3, Bp);
+        const float x4 = npt_add(lp_km, Kp);
+        const float x5 = s_soft;
+        const float m_in = npt_max(npt_max(npt_max(x0, x1), npt_max(x2, x3)),
+                                   npt_max(x4, x5));
+        // the LAST equal index wins (r9.inl:140-146)
+        uint32_t trM = FROM_SAME_M;
+        if (x1 == m_in) trM = FROM_PREV_M;
+        if (x2 == m_in) trM = FROM_SAME_B;
+        if (x3 == m_in) trM = FROM_PREV_B;
+        if (x4 == m_in) trM = FROM_PREV_K;
+        if (x5 == m_in) trM = FROM_SOFT;
+        const float M_new = npt_add(m_in, em);
+        const float b0 = npt_add(lp_mb, M);
+        const float b2 = npt_add(lp_bb, Bv);
+        const float B_new = npt_max(b0, b2);
+        const uint32_t trB = (b2 == B_new) ? 1u : 0u;
+
+        __syncthreads();                 // every read of the previous row done
+        M_s[k] = M_new;
+        B_s[k] = B_new;
+        __syncthreads();
+
+        const float cB = npt_add(lp_b3, k > 0 ? B_s[k - 1] : NEG);
+        const float cM = npt_add(lp_mk, k > 0 ? M_s[k - 1] : NEG);
+        V[k] = npt_max(cM, cB);
+        __syncthreads();
+
+        // K chain: associative-scan tree, up-sweep
+        float a = lp_kk;
+        int base = 0, n = KP;
+        while (n > 1) {
+            const int half = n >> 1;
+            if (k < half)
+                V[base + n + k] = npt_max(npt_add(V[base + 2 * k], a),
+                                          V[base + 2 * k + 1]);
+            __syncthreads();
+            base += n;
+            n = half;
+            a = npt_add(a, a);
+        }
+        // top level (one element): result = input
+        if (k == 0) R[base] = V[base];
+        __syncthreads();
+        // down-sweep: level l (size n, offset base) from level l+1
+        while (n < KP) {
+            const int n_lo = n << 1;
+            const int base_lo = base - n_lo;
+            a = a * 0.5f;                // exact: undoes the doubling
+            if (k < n_lo) {
+                float v;
+                if (k & 1) v = R[base + (k >> 1)];
+                else if (k == 0) v = V[base_lo];
+                else v = npt_max(npt_add(R[base + (k >> 1) - 1], a), V[base_lo + k]);
+                R[base_lo + k] = v;
+            }
+            __syncthreads();
+            base = base_lo;
+            n = n_lo;
+        }
+        const float K_new = R[k];
+        const float kk_prev = npt_add(k > 0 ? R[k - 1] : NEG, lp_kk);
+        uint32_t trK = FROM_PREV_M;
+        if (cB == K_new) trK = FROM_PREV_B;
+        if (kk_prev == K_new) trK = FROM_PREV_K;
+
+        trb[(size_t)(t - 1) * KP + k] = (uint8_t)(trM | (trB << 3) | (trK << 4));
+        K_s[k] = K_new;
+        __syncthreads();
+    }
+}
+
+}  // namespace
+
+extern "C" int npt_launch_viterbi_fill(
+        const float* lev, int T, const float* mu, const float* sig,
+        const float* cc, int KP, const int* nev, const int* nk,
+        const float* trans, const uint8_t* clips, float flank0,
+        float clip_base, float clip_step, int B, uint8_t* trace,
+        void* stream) {
+    const size_t smem = (size_t)7 * KP * sizeof(float);
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            viterbi_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    if (B > 0)
+        viterbi_fill_kernel<<<B, KP, smem, (cudaStream_t)stream>>>(
+            lev, T, mu, sig, cc, KP, nev, nk, trans, clips, flank0,
+            clip_base, clip_step, B, trace);
+    return (int)cudaGetLastError();
+}

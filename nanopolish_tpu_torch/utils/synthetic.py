@@ -1,0 +1,113 @@
+"""Synthetic squiggle generation for tests and benchmarks.
+
+The reference's unit tests build a fake SquiggleRead with known scalings and
+sample event levels from the scaled model Gaussians
+(reference: src/test/nanopolish_test.cpp:277-325).  This module generalizes
+that into a full fake-signal backend: sequence -> per-kmer dwell times ->
+raw samples / event tables, so every stage of the pipeline can be tested
+without real flowcell data.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+
+from ..models.pore_model import PoreModel
+from ..models.squiggle import EventTable, SquiggleRead, SquiggleScalings, SRNT_DNA, T_IDX
+
+
+def random_sequence(rng: np.random.Generator, length: int, bases: str = "ACGT") -> str:
+    return "".join(rng.choice(list(bases), size=length))
+
+
+def synthetic_events(
+    rng: np.random.Generator,
+    sequence: str,
+    model: PoreModel,
+    scalings: SquiggleScalings,
+    events_per_base: float = 1.8,
+    sample_rate: float = 4000.0,
+    samples_per_event: float = 8.0,
+) -> EventTable:
+    """Sample an event table from the scaled model Gaussians, with stays."""
+    k = model.k
+    ranks = model.alphabet.seq_to_kmer_ranks(sequence, k)
+    n_kmers = len(ranks)
+    counts = np.maximum(1, rng.poisson(events_per_base - 1, size=n_kmers) + 1)
+    kmer_idx = np.repeat(np.arange(n_kmers), counts)
+    r = ranks[kmer_idx]
+    mean_clean = scalings.scale * model.level_mean[r] + scalings.shift
+    stdv = model.level_stdv[r] * scalings.var
+    durations = np.maximum(1, rng.poisson(samples_per_event, size=len(r))) / sample_rate
+    start_time = np.concatenate([[0.0], np.cumsum(durations)[:-1]])
+    levels = rng.normal(mean_clean, stdv) + scalings.drift * start_time
+    ev_stdv = np.abs(rng.normal(1.0, 0.3, size=len(r))).astype(np.float32) + 0.3
+    return EventTable(
+        mean=levels.astype(np.float32),
+        stdv=ev_stdv,
+        start_time=start_time.astype(np.float32),
+        duration=durations.astype(np.float32),
+    )
+
+
+def synthetic_raw_signal(
+    rng: np.random.Generator,
+    sequence: str,
+    model: PoreModel,
+    scalings: SquiggleScalings,
+    sample_rate: float = 4000.0,
+    samples_per_base: float = 10.0,
+    noise_stdv_factor: float = 1.0,
+    leader: int = 0,
+    trailer: int = 0,
+) -> np.ndarray:
+    """Sequence -> raw pA samples (piecewise-constant levels + Gaussian noise).
+
+    Optional low-variance leader/trailer stalls exercise MAD trimming.
+    """
+    k = model.k
+    ranks = model.alphabet.seq_to_kmer_ranks(sequence, k)
+    nsamp = np.maximum(3, rng.poisson(samples_per_base, size=len(ranks)))
+    level = scalings.scale * model.level_mean[ranks] + scalings.shift
+    stdv = model.level_stdv[ranks] * scalings.var * noise_stdv_factor
+    sig = rng.normal(np.repeat(level, nsamp), np.repeat(stdv, nsamp))
+    parts = [sig]
+    if leader > 0:
+        parts.insert(0, rng.normal(100.0, 0.05, size=leader))
+    if trailer > 0:
+        parts.append(rng.normal(100.0, 0.05, size=trailer))
+    return np.concatenate(parts).astype(np.float32)
+
+
+def synthetic_read(
+    rng: np.random.Generator,
+    model: PoreModel,
+    sequence: Optional[str] = None,
+    seq_length: int = 500,
+    scalings: Optional[SquiggleScalings] = None,
+    events_per_base: float = 1.8,
+    read_name: str = "synthetic",
+) -> SquiggleRead:
+    """A fully-populated fake SquiggleRead (events pre-segmented)."""
+    if sequence is None:
+        sequence = random_sequence(rng, seq_length)
+    if scalings is None:
+        scalings = SquiggleScalings.from4(
+            shift=rng.uniform(-10, 10), scale=rng.uniform(0.9, 1.1),
+            drift=0.0, var=rng.uniform(0.9, 1.2))
+    ev = synthetic_events(rng, sequence, model, scalings, events_per_base)
+    read = SquiggleRead(
+        read_name=read_name,
+        read_sequence=sequence,
+        nucleotide_type=SRNT_DNA,
+        sample_rate=4000.0,
+    )
+    read.events[T_IDX] = ev
+    read.scalings[T_IDX] = scalings
+    read.base_model[T_IDX] = model
+    n_kmers = len(sequence) - model.k + 1
+    read.events_per_base[T_IDX] = len(ev) / n_kmers
+    return read

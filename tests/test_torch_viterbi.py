@@ -1,0 +1,164 @@
+"""nanopolish_tpu_torch profile-HMM Viterbi against the JAX package.
+
+The port's plain PyTorch fill + traceback (ops/profile_hmm.py, the plain
+version of csrc/viterbi_fill.cu and csrc/viterbi_backtrack.cu) must give
+the JAX scan path's (profile_hmm_viterbi + viterbi_backtrack) tracebacks
+exactly, for all four soft-clip flag combinations, and its trace cells
+bit for bit.  Both sides get the same numpy inputs and the same
+transition table.  The K-skip chain follows jax.lax.associative_scan's
+grouping, so even exactly tied optima resolve the same way.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nanopolish_tpu.models.pore_model import PoreModelSet
+from nanopolish_tpu.ops.profile_hmm import (BlockTransitions,
+                                            profile_hmm_viterbi,
+                                            viterbi_backtrack)
+from nanopolish_tpu_torch.ops import profile_hmm as ph
+from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
+
+torch.set_num_threads(2)
+
+
+def _batch(B, Kmax, Tmax, seed=0):
+    model = PoreModelSet.instance().get_model(
+        "r9.4_450bps", "nucleotide", "template", 6)
+    rng = np.random.default_rng(seed)
+    Ks = rng.integers(Kmax // 2, Kmax, B)
+    Ts = rng.integers(Tmax // 2, Tmax, B)
+    mu = np.zeros((B, Kmax), np.float32)
+    sd = np.ones((B, Kmax), np.float32)
+    lv = np.zeros((B, Tmax), np.float32)
+    for b in range(B):
+        ranks = rng.integers(0, 4096, Ks[b])
+        mu[b, :Ks[b]] = model.level_mean[ranks]
+        sd[b, :Ks[b]] = model.level_stdv[ranks]
+        reps = np.minimum((np.arange(Ts[b]) / (Ts[b] / Ks[b])).astype(int),
+                          Ks[b] - 1)
+        lv[b, :Ts[b]] = mu[b, reps] + rng.normal(0, 1, Ts[b]) * sd[b, reps]
+    epb = rng.uniform(1.5, 2.5, B).astype(np.float32)
+    return lv, Ts.astype(np.int32), mu, sd, Ks.astype(np.int32), epb
+
+
+def _jax_trans(table):
+    cols = (0, 1, 2, 3, 4, 5, 5, 5, 6, 7)     # BlockTransitions field order
+    return BlockTransitions(*[jnp.asarray(table[:, i]) for i in cols])
+
+
+def _same(a, b):
+    return (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+            and a[2] == b[2])
+
+
+@pytest.mark.parametrize("flags", [0, 1, 2, 3])
+def test_plain_matches_jax_scan(flags):
+    lv, Ts, mu, sd, Ks, epb = _batch(6, 120, 240, seed=flags)
+    table = ph.make_transitions(epb)
+    _, traces = profile_hmm_viterbi(lv, Ts, mu, sd, np.log(sd), Ks, epb,
+                                    flags=flags, with_trace=True,
+                                    trans=_jax_trans(table))
+    ref = viterbi_backtrack(np.asarray(traces), Ts, Ks)
+    got = pv.profile_hmm_viterbi_align(lv, Ts, mu, sd, Ks, epb, flags,
+                                       device="cpu")
+    assert all(_same(r, g) for r, g in zip(ref, got))
+    # trace cells, packed as the kernels pack them
+    jt = np.asarray(traces)                         # [T, B, K, (K, B, M)]
+    packed = (jt[..., 2] | ((jt[..., 1] == 2).astype(np.uint8) << 3)
+              | (jt[..., 0] << 4)).transpose(1, 0, 2)
+    x = pv.prepare_viterbi_inputs(lv, Ts, mu, sd, Ks, epb, flags,
+                                  device="cpu")
+    mine = pv.viterbi_fill(x["levels"], x["n_events"], x["mu"], x["sigma"],
+                           x["c"], x["n_kmers"], x["trans"],
+                           x["clips"]).numpy()
+    for b in range(len(Ts)):
+        np.testing.assert_array_equal(mine[b, :Ts[b], :Ks[b]],
+                                      packed[b, :Ts[b], :Ks[b]])
+
+
+def test_mixed_flags_one_batch():
+    lv, Ts, mu, sd, Ks, epb = _batch(8, 100, 200, seed=9)
+    flags = np.array([0, 1, 2, 3, 3, 2, 1, 0], np.int32)
+    got = pv.profile_hmm_viterbi_align(lv, Ts, mu, sd, Ks, epb, flags,
+                                       device="cpu")
+    table = ph.make_transitions(epb)
+    for b in range(8):
+        _, traces = profile_hmm_viterbi(
+            lv[b:b + 1], Ts[b:b + 1], mu[b:b + 1], sd[b:b + 1],
+            np.log(sd[b:b + 1]), Ks[b:b + 1], epb[b:b + 1],
+            flags=int(flags[b]), with_trace=True,
+            trans=_jax_trans(table[b:b + 1]))
+        ref = viterbi_backtrack(np.asarray(traces), Ts[b:b + 1], Ks[b:b + 1])
+        assert _same(ref[0], got[b])
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 31, 32, 33, 100, 128, 160])
+def test_kchain_grouping_is_associative_scans(n):
+    """The K chain is bit-identical to jax.lax.associative_scan's
+    max-plus recurrence, for odd and even widths."""
+    rng = np.random.default_rng(n)
+    c = rng.normal(-200, 30, (3, n)).astype(np.float32)
+    c[:, ::7] = -np.inf
+    lp_kk = np.array([np.log(0.3), np.log(0.25), np.log(0.7)], np.float32)
+
+    def combine(x, y):
+        return x[0] + y[0], jnp.maximum(x[1] + y[0], y[1])
+
+    a = jnp.broadcast_to(jnp.asarray(lp_kk)[:, None], c.shape)
+    _, ref = jax.lax.associative_scan(combine, (a, jnp.asarray(c)), axis=1)
+    got = ph.kstate_chain_max(torch.from_numpy(c), torch.from_numpy(lp_kk))
+    np.testing.assert_array_equal(np.asarray(ref).view(np.int32),
+                                  got.numpy().view(np.int32))
+
+
+def test_plain_matches_pallas_interpret():
+    """At one small shape, against the Pallas Viterbi in interpret mode.
+    Its closed-form K chain may resolve exactly tied optima differently
+    (ROADMAP: known divergences); this data has no such ties, so the
+    tracebacks must agree."""
+    from nanopolish_tpu.ops.pallas_profile_hmm import profile_hmm_viterbi_pallas
+    lv, Ts, mu, sd, Ks, epb = _batch(4, 100, 200, seed=21)
+    ref = profile_hmm_viterbi_pallas(lv, Ts, mu, sd, np.log(sd), Ks, epb, 3)
+    got = pv.profile_hmm_viterbi_align(lv, Ts, mu, sd, Ks, epb, 3,
+                                       device="cpu")
+    n_tie_diff = sum(not _same(r, g) for r, g in zip(ref, got))
+    print(f"segments differing from the Pallas kernel: {n_tie_diff}")
+    assert n_tie_diff == 0
+
+
+def test_kmer_width_limits():
+    assert pv.kmer_width(1) == 32 and pv.kmer_width(105) == 128
+    assert pv.kmer_width(1024) == 1024
+    with pytest.raises(ValueError):
+        pv.kmer_width(1025)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA Viterbi kernels have no "
+                    "CPU mode (their plain version is tested above)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_gpu(cuda_device):
+    lv, Ts, mu, sd, Ks, epb = _batch(16, 120, 260, seed=4)
+    flags = np.arange(16, dtype=np.int32) % 4
+    x = pv.prepare_viterbi_inputs(lv, Ts, mu, sd, Ks, epb, flags,
+                                  device=cuda_device)
+    args = (x["levels"], x["n_events"], x["mu"], x["sigma"], x["c"],
+            x["n_kmers"], x["trans"], x["clips"])
+    tk = pv.viterbi_fill(*args)
+    tp = ph.viterbi_fill_plain(*args)
+    for b in range(16):
+        assert torch.equal(tk[b, :Ts[b], :Ks[b]], tp[b, :Ts[b], :Ks[b]])
+    got = ph.paths_to_segments(
+        pv.viterbi_backtrack(tk, x["n_events"], x["n_kmers"]).cpu().numpy())
+    ref = ph.paths_to_segments(
+        ph.viterbi_backtrack_plain(tp, x["n_events"], x["n_kmers"]).cpu().numpy())
+    assert all(_same(r, g) for r, g in zip(ref, got))
