@@ -38,6 +38,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
+# the main path's corpus: reads x bases from a synthetic genome
+MAIN_READS, MAIN_READ_LEN, MAIN_GENOME_LEN = 64, 8000, 100_000
+
 # published peaks of one H100 SXM (dense, no sparsity)
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -264,6 +267,28 @@ def viterbi_batch(model, S, seed=0):
     return lv, nev, mu, sd, nk, epb, flags
 
 
+def path_max_abs_err(a, b) -> float:
+    """Largest difference in event offset, kmer index or state between
+    two tracebacks [B, 1 + L] over each path's length (inf where two
+    paths differ in length)."""
+    import torch
+    from nanopolish_tpu_torch.ops import profile_hmm as ph
+    if not bool(torch.equal(a[:, 0], b[:, 0])):
+        return float("inf")
+    a, b = a.long(), b.long()
+    step = torch.arange(a.shape[1] - 1, device=a.device)[None, :]
+    live = step < a[:, :1]
+    err = 0.0
+    for shift, mask in ((ph.PATH_EVENT_SHIFT, -1),
+                        (ph.PATH_KMER_SHIFT, ph.MAX_KMERS - 1), (0, 3)):
+        fa = (a[:, 1:] >> shift) & mask
+        fb = (b[:, 1:] >> shift) & mask
+        d = (fa - fb).abs()[live]
+        if d.numel():
+            err = max(err, float(d.max()))
+    return err
+
+
 def phase_viterbi(model, dev, report):
     import torch
     from nanopolish_tpu_torch.ops import profile_hmm as ph
@@ -318,7 +343,7 @@ def phase_viterbi(model, dev, report):
             ("viterbi_fill", fill_ms, fill_plain_ms, fill_bytes, cells * 27,
              max_abs_err(tk[live].float(), tp[live].float())),
             ("viterbi_backtrack", bt_ms, bt_plain_ms, bt_bytes,
-             float(np.sum(lens)) * 8, 0.0)):
+             float(np.sum(lens)) * 8, path_max_abs_err(pk, pp))):
         bms, by = bound(nbytes, flops)
         report[name].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                             max_abs_err=err)
@@ -383,30 +408,16 @@ def build_pipeline(d, genome_len, plan, read_len, seed, spb=10.0,
     return ref_fa, fastq, bam
 
 
-def golden_diff(got: str, want: str, numeric_cols):
-    """Rows that differ; raises unless each difference is confined to the
-    numeric columns and at most one unit in the last printed digit."""
+def same_as_golden(got: str, name: str) -> None:
+    """Fail unless got is byte for byte tests/golden/<name>."""
+    want = open(os.path.join(ROOT, "tests", "golden", name)).read()
+    if got == want:
+        return
     gl, wl = got.splitlines(), want.splitlines()
-    if len(gl) != len(wl):
-        fail(f"golden row count {len(gl)} != {len(wl)}")
-    n = 0
-    for g, w in zip(gl, wl):
-        if g == w:
-            continue
-        n += 1
-        gf, wf = g.split("\t"), w.split("\t")
-        if len(gf) != len(wf):
-            fail(f"golden row shape differs:\n{g}\n{w}")
-        for i, (a, b) in enumerate(zip(gf, wf)):
-            if a == b:
-                continue
-            if i not in numeric_cols or "." not in b:
-                fail(f"golden column {i} differs:\n{g}\n{w}")
-            digits = len(b.split(".")[1])
-            if abs(float(a) - float(b)) > 1.5 * 10 ** -digits:
-                fail(f"golden column {i} differs by more than one last "
-                     f"digit:\n{g}\n{w}")
-    return n
+    for i, (g, w) in enumerate(zip(gl, wl)):
+        if g != w:
+            fail(f"{name} line {i + 1} differs:\n{g}\n{w}")
+    fail(f"{name}: {len(gl)} lines, golden has {len(wl)}")
 
 
 def phase_golden(dev):
@@ -415,39 +426,40 @@ def phase_golden(dev):
     plan = [("gr0", 40, False), ("gr1", 420, True),
             ("gr2", 180, False), ("gr3", 560, True)]
     ref_fa, fastq, bam = build_pipeline(d, 900, plan, 300, seed=1234)
-    golden = os.path.join(ROOT, "tests", "golden")
     out = io.StringIO()
     summary = os.path.join(d, "summary.tsv")
     ea_app.main(["-r", fastq, "-b", bam, "-g", ref_fa, "--print-read-names",
                  "--summary", summary, "--device", dev.type], stdout=out)
-    n_tsv = golden_diff(out.getvalue(),
-                        open(os.path.join(golden, "eventalign.tsv")).read(),
-                        numeric_cols={6, 7, 8, 10, 11, 12})
-    n_sum = golden_diff(open(summary).read(),
-                        open(os.path.join(golden, "eventalign_summary.tsv")).read(),
-                        numeric_cols={9, 10, 11, 12, 13})
+    same_as_golden(out.getvalue(), "eventalign.tsv")
+    same_as_golden(open(summary).read(), "eventalign_summary.tsv")
     out = io.StringIO()
     ea_app.main(["-r", fastq, "-b", bam, "-g", ref_fa, "--sam",
                  "--device", dev.type], stdout=out)
-    if out.getvalue() != open(os.path.join(golden, "eventalign.sam")).read():
-        fail("eventalign --sam differs from tests/golden/eventalign.sam")
-    log(f"golden eventalign on {dev.type}: tsv rows differing {n_tsv} "
-        f"(last digit only), summary rows differing {n_sum}, sam identical")
+    same_as_golden(out.getvalue(), "eventalign.sam")
+    log(f"golden eventalign on {dev.type}: tsv, summary and sam identical "
+        f"to tests/golden/ byte for byte")
 
 
-def phase_main_path(dev, n_reads=64, read_len=8000, genome_len=100_000):
+def build_main_corpus(d):
+    """The main path's inputs under d: MAIN_READS reads of MAIN_READ_LEN
+    bases, placed at random on a MAIN_GENOME_LEN synthetic genome."""
+    rng = np.random.default_rng(2024)
+    plan = [(f"r{i:03d}", int(p), bool(rng.integers(0, 2)))
+            for i, p in enumerate(rng.integers(
+                0, MAIN_GENOME_LEN - MAIN_READ_LEN, MAIN_READS))]
+    return build_pipeline(d, MAIN_GENOME_LEN, plan, MAIN_READ_LEN, seed=99,
+                          sort_bam=True)
+
+
+def phase_main_path(dev):
     import torch
     from nanopolish_tpu_torch.apps import eventalign as ea_app
     from nanopolish_tpu_torch.utils import cuda_build
 
-    rng = np.random.default_rng(2024)
-    plan = [(f"r{i:03d}", int(p), bool(rng.integers(0, 2)))
-            for i, p in enumerate(rng.integers(0, genome_len - read_len,
-                                               n_reads))]
+    n_reads, read_len = MAIN_READS, MAIN_READ_LEN
     d = os.path.join(WORK, "main")
     t0 = time.perf_counter()
-    ref_fa, fastq, bam = build_pipeline(d, genome_len, plan, read_len,
-                                        seed=99, sort_bam=True)
+    ref_fa, fastq, bam = build_main_corpus(d)
     setup_s = time.perf_counter() - t0
     out_path = os.path.join(d, "eventalign.tsv")
     torch.cuda.synchronize()

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .emissions import LOG_INV_SQRT_2PI, fma32, log_normal_fused
 
 BANDWIDTH = 100          # ALN_BANDWIDTH (raw_loader.cpp:72)
@@ -345,10 +346,12 @@ def finish_banded(b2e_start, b2e_stop, sum_em, stats, n_kmers
 
 def prepare_banded_inputs(event_mean, n_events, mu, sigma, log_sigma,
                           n_kmers, lp_stay=None, lp_step=None, device=None):
-    """Arrays or tensors -> the f32/i32 tensors on ``device`` that both
-    implementations take.  The log terms are host-side numpy: the
-    emission constant ``LOG_INV_SQRT_2PI - log_sigma`` in f32 and the
-    transition terms of ``transition_params_f32``."""
+    """Arrays or tensors -> the f32/i32 tensors on ``device`` (``cuda``
+    unless ``cpu`` is asked) that both implementations take.  The log
+    terms are host-side numpy: the emission constant
+    ``LOG_INV_SQRT_2PI - log_sigma`` in f32 and the transition terms of
+    ``transition_params_f32``."""
+    device = resolve_device(device)
     def host(x):
         return x.detach().cpu().numpy() if torch.is_tensor(x) \
             else np.asarray(x)
@@ -373,9 +376,10 @@ def prepare_banded_inputs(event_mean, n_events, mu, sigma, log_sigma,
 
 
 def banded_align_batch(event_mean, n_events, mu, sigma, log_sigma, n_kmers,
-                       lp_stay=None, lp_step=None, device="cpu"
+                       lp_stay=None, lp_step=None, device=None
                        ) -> BandedAlignResult:
-    """Batched adaptive banded event alignment, plain PyTorch throughout.
+    """Batched adaptive banded event alignment, plain PyTorch throughout,
+    on ``device`` (``cuda`` unless ``cpu`` is asked).
 
     Args:
       event_mean: [B, T] float32 event current levels (drift-free, raw pA).

@@ -98,10 +98,10 @@ def banded_backtrack(trace, moves, ll_e_last, best_e, event_mean, mu, sigma,
 
 
 def banded_align_exact(event_mean, n_events, mu, sigma, log_sigma, n_kmers,
-                       lp_stay=None, lp_step=None, device="cuda"
+                       lp_stay=None, lp_step=None, device=None
                        ) -> BandedAlignResult:
     """Reference-exact batched adaptive banded event alignment on
-    ``device``: same arguments and result as
+    ``device`` (``cuda`` unless ``cpu`` is asked): same arguments and result as
     ``ops.banded_align.banded_align_batch``; kernels on CUDA, their plain
     versions on the CPU."""
     x = prepare_banded_inputs(event_mean, n_events, mu, sigma, log_sigma,

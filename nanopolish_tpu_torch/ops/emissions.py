@@ -15,9 +15,6 @@ import torch
 
 LOG_INV_SQRT_2PI = float(np.log(0.3989422804014327))
 
-# constant background emission (nanopolish_emissions.h:98-103)
-LOG_P_BACKGROUND = -3.0
-
 
 def fma32(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
     """f32 fused multiply-add ``a*b + c`` with a single rounding.
@@ -86,8 +83,3 @@ def z_score(drift_scaled_level, level_mean, level_stdv, shift, scale, var):
     mean = scale * level_mean + shift
     stdv = level_stdv * var
     return (drift_scaled_level - mean) / stdv
-
-
-def log_probability_background(shape=(), device=None):
-    return torch.full(shape, LOG_P_BACKGROUND, dtype=torch.float32,
-                      device=device)

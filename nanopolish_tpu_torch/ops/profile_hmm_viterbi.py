@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..utils import cuda_build
+from ..utils.device import resolve_device
 from .banded_align import emission_constant
 from .profile_hmm import (_CLIP_BASE, _CLIP_STEP, _LOG1M_CLIP,
                           HAF_ALLOW_POST_CLIP, HAF_ALLOW_PRE_CLIP, MAX_KMERS,
@@ -92,11 +93,13 @@ def viterbi_backtrack(trace, n_events, n_kmers):
 
 def prepare_viterbi_inputs(levels, n_events, mu, sigma, n_kmers,
                            events_per_base, flags, indel_bias: float = 1.0,
-                           trans=None, device="cpu"):
-    """Host arrays -> padded kernel tensors on ``device``.  levels [B, T]
+                           trans=None, device=None):
+    """Host arrays -> padded kernel tensors on ``device`` (``cuda`` unless
+    ``cpu`` is asked).  levels [B, T]
     and mu/sigma [B, K] numpy f32 with the valid prefix given by
     n_events/n_kmers; flags per segment (HAF_*).  The log terms stay numpy:
     ``c = LOG_INV_SQRT_2PI - log(sigma)`` and the transition table."""
+    device = resolve_device(device)
     levels = np.asarray(levels, np.float32)
     mu = np.asarray(mu, np.float32)
     sigma = np.asarray(sigma, np.float32)
@@ -136,7 +139,7 @@ def viterbi_paths(x) -> torch.Tensor:
 
 def profile_hmm_viterbi_align(levels, n_events, mu, sigma, n_kmers,
                               events_per_base, flags, indel_bias: float = 1.0,
-                              trans=None, device="cuda"
+                              trans=None, device=None
                               ) -> List[Tuple[np.ndarray, np.ndarray, str]]:
     """Batched Viterbi alignment; per-segment (event_offsets, kmer_idxs,
     state_string) in forward order, as ``viterbi_backtrack`` of the JAX

@@ -7,12 +7,11 @@ Specs:
     the Eigen normal-equation solve becomes a batched [B,n,n] solve.
 
 All functions take tensors and compute on their device.  The f32 row
-sums follow the reference's compiled order (``ordered_sum``) and the 2x2
-normal equations (shift, scale) are solved with the operation sequence
-of LAPACK's partial-pivoting LU (``solve2``), so ingest's scalings
-reproduce the JAX package's bits on the CPU.  The 3x3 system (with
-drift, used by calibration) goes to ``torch.linalg.solve`` and agrees to
-f32 rounding amplified by the system's condition.
+sums follow the reference's compiled order (``ordered_sum``) and the
+normal equations are solved with the operation sequence of LAPACK's
+partial-pivoting LU as the host BLAS evaluates it (``solve2`` for shift
+and scale, ``solve3`` with drift), so the scalings reproduce the JAX
+package's bits on the CPU.
 """
 
 from __future__ import annotations
@@ -73,6 +72,55 @@ def solve2(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     x1 = y1 * (1.0 / u11)
     x0 = fma32(-p01, x1, c0) * inv_p
     return torch.stack([x0, x1], dim=1)
+
+
+def solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched 3x3 solve A x = b ([B, 3, 3], [B, 3]) with the operation
+    sequence of the host BLAS's partial-pivoting LU and triangular solves:
+    pivots on the first largest |column| entry; multipliers by the
+    reciprocal pivot; column 1's update unfused, the last row's column-2
+    update as one fused two-term dot product subtracted once.  The forward
+    pass solves rows 0-1 with fused updates and updates row 2 by a fused
+    dot product subtracted once; the backward pass updates rows 0-1 from
+    row 2 unfused, then solves them with a fused update; every division
+    is a product with the reciprocal diagonal."""
+    def swap(sw, x, y):
+        return torch.where(sw, y, x), torch.where(sw, x, y)
+
+    r0, r1, r2 = A[:, 0, :], A[:, 1, :], A[:, 2, :]
+    c0, c1, c2 = b[:, 0], b[:, 1], b[:, 2]
+    m0, m1, m2 = r0[:, 0].abs(), r1[:, 0].abs(), r2[:, 0].abs()
+    first = (m0 >= m1) & (m0 >= m2)
+    pick1 = ~first & (m1 >= m2)
+    pick2 = ~first & ~pick1
+    r0, r1 = swap(pick1[:, None], r0, r1)
+    c0, c1 = swap(pick1, c0, c1)
+    r0, r2 = swap(pick2[:, None], r0, r2)
+    c0, c2 = swap(pick2, c0, c2)
+    u00, u01, u02 = r0.unbind(1)
+    inv0 = 1.0 / u00
+    l10 = r1[:, 0] * inv0
+    l20 = r2[:, 0] * inv0
+    b1 = r1[:, 1] - l10 * u01
+    b2 = r2[:, 1] - l20 * u01
+    sw = b2.abs() > b1.abs()
+    l10, l20 = swap(sw, l10, l20)
+    u11, b2 = swap(sw, b1, b2)
+    a12, a22 = swap(sw, r1[:, 2], r2[:, 2])
+    c1, c2 = swap(sw, c1, c2)
+    inv1 = 1.0 / u11
+    l21 = b2 * inv1
+    u12 = a12 - l10 * u02
+    u22 = a22 - fma32(l21, u12, l20 * u02)
+    y0 = c0
+    y1 = fma32(-l10, y0, c1)
+    y2 = c2 - fma32(l21, y1, l20 * y0)
+    x2 = y2 * (1.0 / u22)
+    y1 = y1 - u12 * x2
+    y0 = y0 - u02 * x2
+    x1 = y1 * inv1
+    x0 = fma32(-u01, x1, y0) * inv0
+    return torch.stack([x0, x1, x2], dim=1)
 
 
 def estimate_scalings_mom(event_mean, n_events, kmer_level_mean, n_kmers):
@@ -150,10 +198,7 @@ def recalibrate(levels, times, model_mean, model_stdv, mask,
     ok = count >= MIN_EVENTS_TO_RESCALE
     ridge = (1e-6 * (~ok).to(torch.float32))[:, None, None] * \
         torch.eye(n, dtype=torch.float32, device=dev)[None]
-    if n == 2:
-        x = solve2(A + ridge, b)                                  # [B, 2]
-    else:
-        x = torch.linalg.solve(A + ridge, b[..., None])[..., 0]   # [B, 3]
+    x = (solve2 if n == 2 else solve3)(A + ridge, b)              # [B, n]
 
     shift = x[:, 0]
     scale = x[:, 1]

@@ -22,7 +22,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -133,14 +133,12 @@ def kernel_fn(name: str):
     return _fns[name]
 
 
-def launch(name: str, *args, stream: Optional[int] = None) -> None:
+def launch(name: str, *args) -> None:
     """Call a kernel's C entry point on the current stream; raise if the
     launch was refused (its cudaGetLastError is not 0)."""
     import torch
 
-    if stream is None:
-        stream = torch.cuda.current_stream().cuda_stream
-    err = kernel_fn(name)(*args, stream)
+    err = kernel_fn(name)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch "
                            f"(cudaError {err})")

@@ -77,7 +77,8 @@ def test_plain_matches_jax_scan_bitwise(case):
     ref = jax_banded(ev, nev, mu, sigma, np.log(sigma), nk,
                      lp_stay=lp_stay, lp_step=lp_step)
     got = ba.banded_align_batch(ev, nev, mu, sigma, np.log(sigma), nk,
-                                lp_stay=lp_stay, lp_step=lp_step)
+                                lp_stay=lp_stay, lp_step=lp_step,
+                                device="cpu")
     _assert_identical(ref, got)
     # the wrapper takes the plain path for CPU tensors
     _assert_identical(ref, bx.banded_align_exact(
@@ -92,7 +93,8 @@ def test_garbage_reads_fail_qc_like_jax():
     lp_stay, lp_step = ba.transition_params_f32(nev, nk)
     ref = jax_banded(ev, nev, mu, sigma, np.log(sigma), nk,
                      lp_stay=lp_stay, lp_step=lp_step)
-    got = ba.banded_align_batch(ev, nev, mu, sigma, np.log(sigma), nk)
+    got = ba.banded_align_batch(ev, nev, mu, sigma, np.log(sigma), nk,
+                                device="cpu")
     _assert_identical(ref, got)
     assert bool(got.failed.all())
     assert bool((got.b2e_start == -1).all())
@@ -105,7 +107,8 @@ def test_plain_matches_pallas_interpret_tiny():
     nev = np.array([90, 90, 70, 90], np.int32)
     nk = np.array([40, 40, 35, 38], np.int32)
     ref = jax_exact(ev, nev, mu, sigma, np.log(sigma), nk, interpret=True)
-    got = ba.banded_align_batch(ev, nev, mu, sigma, np.log(sigma), nk)
+    got = ba.banded_align_batch(ev, nev, mu, sigma, np.log(sigma), nk,
+                                device="cpu")
     _assert_identical(ref, got)
 
 

@@ -68,6 +68,46 @@ def test_eventalign_without_cuda_exits_with_reason():
     assert resolve_device("cpu").type == "cpu"
 
 
+def _library_calls():
+    from nanopolish_tpu_torch.alignment.segments import viterbi_segments
+    from nanopolish_tpu_torch.models.read_builder import build_reads
+    from nanopolish_tpu_torch.ops import banded_align as ba
+    from nanopolish_tpu_torch.ops import banded_exact as bx
+    from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
+    ev = np.full((1, 8), 90.0, np.float32)
+    mu = np.full((1, 4), 90.0, np.float32)
+    sd = np.ones((1, 4), np.float32)
+    nev, nk = np.array([8], np.int32), np.array([4], np.int32)
+    banded = (ev, nev, mu, sd, np.log(sd), nk)
+    viterbi = (ev, nev, mu, sd, nk, np.array([2.0], np.float32), 0)
+    return {
+        "prepare_banded_inputs": lambda **kw: ba.prepare_banded_inputs(
+            *banded, **kw),
+        "banded_align_batch": lambda **kw: ba.banded_align_batch(
+            *banded, **kw),
+        "banded_align_exact": lambda **kw: bx.banded_align_exact(
+            *banded, **kw),
+        "prepare_viterbi_inputs": lambda **kw: pv.prepare_viterbi_inputs(
+            *viterbi, **kw),
+        "profile_hmm_viterbi_align": lambda **kw: pv.profile_hmm_viterbi_align(
+            *viterbi, **kw),
+        "viterbi_segments": lambda **kw: viterbi_segments([], **kw),
+        "build_reads": lambda **kw: build_reads([], **kw),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_library_calls()))
+def test_library_entry_points_default_to_cuda(name):
+    """A caller who names no device gets cuda, or an error saying why;
+    never a silent run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    call = _library_calls()[name]
+    with pytest.raises(DeviceUnavailable, match="device='cpu'"):
+        call()
+    call(device="cpu")
+
+
 def test_unported_subcommands_exit_2():
     r = subprocess.run([sys.executable, "-m", "nanopolish_tpu_torch",
                         "call-methylation"], cwd=ROOT, capture_output=True,

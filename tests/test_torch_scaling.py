@@ -1,15 +1,12 @@
 """nanopolish_tpu_torch scalings (MoM, WLS recalibration, 'M'-event
 selection) against nanopolish_tpu.ops.scaling on the same numpy inputs.
 
-Tolerance: rtol 1e-5 on shift/scale/var of the 2x2 system ingest
-solves.  The port sums in the reference's compiled f32 order and solves
-that system with LAPACK's operation sequence, so it usually agrees to
-the bit, but the JAX side's LU comes from the host's BLAS build; 1e-5
-covers an f32 rounding there.  The 3x3 system with drift (calibration,
-not on the eventalign path) is solved by torch.linalg.solve: one f32
-rounding, amplified by the normal equations' condition (~1e3 with event
-times next to ~100 pA levels), gives rtol 2e-4.  The ok/failure flags
-and the 'M' masks must be identical.
+Tolerance: rtol 1e-5 on shift/scale/drift/var.  The port sums in the
+reference's compiled f32 order and solves the 2x2 and 3x3 normal
+equations with the operation sequence of the host BLAS's LU, so it
+agrees to the bit here; but the JAX side's LU comes from whatever BLAS
+the host's scipy carries, and 1e-5 covers an f32 rounding there.  The
+ok/failure flags and the 'M' masks must be identical.
 """
 
 import numpy as np
@@ -78,11 +75,33 @@ def test_recalibrate_matches_jax(model, scale_drift):
     np.testing.assert_array_equal(got.recalibrated.numpy(),
                                   np.asarray(ref.recalibrated))
     ok = np.asarray(ref.recalibrated)
-    rtol = 2e-4 if scale_drift else 1e-5
     for f in ("shift", "scale", "drift", "var"):
         np.testing.assert_allclose(getattr(got, f).numpy()[ok],
                                    np.asarray(getattr(ref, f))[ok],
-                                   rtol=rtol, err_msg=f)
+                                   rtol=1e-5, err_msg=f)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_solve_is_the_host_lapack_sequence(n):
+    """solve2/solve3 against jnp.linalg.solve (LAPACK getrf + trsm on the
+    CPU) on well-conditioned systems whose rows come in random order, so
+    that every pivot choice occurs, some of them tied; reported, and held
+    to 1e-5."""
+    rng = np.random.default_rng(n)
+    B = 2000
+    A = 4.0 * np.eye(n) + rng.normal(0, 1, (B, n, n))
+    A = np.take_along_axis(A, rng.permuted(np.tile(np.arange(n), (B, 1)),
+                                           axis=1)[:, :, None], axis=1)
+    A = (A * 10.0 ** rng.uniform(-3, 3, (B, 1, 1))).astype(np.float32)
+    A[::9, 1, 0] = A[::9, 0, 0]                     # tied pivots
+    b = rng.normal(0, 100, (B, n)).astype(np.float32)
+    ref = np.asarray(jnp.linalg.solve(jnp.asarray(A),
+                                      jnp.asarray(b)[..., None]))[..., 0]
+    got = (tsc.solve2 if n == 2 else tsc.solve3)(_t(A), _t(b)).numpy()
+    n_diff = int(np.sum(np.any(got.view(np.int32) != ref.view(np.int32),
+                               axis=1)))
+    print(f"{n}x{n} systems not bit-identical to LAPACK: {n_diff} of {B}")
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-30)
 
 
 def test_mstate_events_matches_jax():

@@ -1,11 +1,10 @@
 #!/usr/bin/env python3
 """Where nanopolish_tpu_torch's eventalign spends its time on the card.
 
-    python3 tools/port_trace_eventalign.py [--reads 64] [--read-len 8000] [--summary]
-                                           [--trace-out PATH]
+    python3 tools/port_trace_eventalign.py [--summary]
 
-Builds the chip_smoke.py main-path corpus (synthetic reads from a 100 kb
-genome), runs `eventalign --device cuda` once to warm up (kernel build,
+Builds the chip_smoke.py main-path corpus (64 synthetic reads of 8 kb
+from a 100 kb genome), runs `eventalign --device cuda` once to warm up (kernel build,
 allocator), once more with wall-clock timers around the pipeline's
 stages, and a third time under torch.profiler for the device's kernel
 time (the profiler's own host overhead inflates that run's wall, so the
@@ -26,7 +25,7 @@ idle share is taken against the un-profiled wall):
 and prints one JSON line: wall and stage seconds (detect is summed over
 its worker threads), device kernel time by
 kernel, the device's busy and idle share of the wall.  The Chrome trace
-goes to --trace-out (default build/port_trace/trace.json).  Needs a GPU.
+goes to build/port_trace/trace.json.  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -44,7 +43,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -60,13 +58,8 @@ def main() -> int:
     from nanopolish_tpu_torch.ops import event_detect
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--reads", type=int, default=64)
-    ap.add_argument("--read-len", type=int, default=8000)
     ap.add_argument("--summary", action="store_true",
                     help="also write eventalign --summary")
-    ap.add_argument("--trace-out",
-                    default=os.path.join(ROOT, "build", "port_trace",
-                                         "trace.json"))
     args = ap.parse_args()
 
     totals = {}
@@ -90,14 +83,8 @@ def main() -> int:
     read_builder._process_chunk = timed("device", read_builder._process_chunk)
     ea_core.viterbi_segments = timed("viterbi", segments.viterbi_segments)
 
-    rng = np.random.default_rng(2024)
-    genome_len = 100_000
-    plan = [(f"r{i:03d}", int(p), bool(rng.integers(0, 2)))
-            for i, p in enumerate(rng.integers(
-                0, genome_len - args.read_len, args.reads))]
     d = os.path.join(ROOT, "build", "port_trace")
-    ref_fa, fastq, bam = chip_smoke.build_pipeline(
-        d, genome_len, plan, args.read_len, seed=99, sort_bam=True)
+    ref_fa, fastq, bam = chip_smoke.build_main_corpus(d)
     argv = ["-r", fastq, "-b", bam, "-g", ref_fa, "--device", "cuda"]
     out_path = os.path.join(d, "eventalign.tsv")
     if args.summary:
@@ -129,16 +116,15 @@ def main() -> int:
         if dev_us and ev.key and not ev.key.startswith(("cuda", "aten::")):
             kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e6
     busy = sum(kernels.values())
-    os.makedirs(os.path.dirname(os.path.abspath(args.trace_out)),
-                exist_ok=True)
-    prof.export_chrome_trace(args.trace_out)
+    prof.export_chrome_trace(os.path.join(d, "trace.json"))
     rows = sum(1 for _ in open(out_path)) - 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12])
     print(json.dumps({
-        "card": smi, "reads": args.reads, "read_len": args.read_len,
+        "card": smi, "reads": chip_smoke.MAIN_READS,
+        "read_len": chip_smoke.MAIN_READ_LEN,
         "summary": args.summary,
         "rows": rows, "wall_s": wall, "rows_per_s": rows / wall,
         "stages_s": {k: stages.get(k, 0.0) for k in
