@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. the card's name and power limit; build the four CUDA kernels from
+  1. the card's name and power limit; build the five CUDA kernels from
      nanopolish_tpu_torch/csrc/ (one nvcc per source, all at once);
   2. banded-alignment kernels (fill, backtrack) against their plain
      PyTorch versions on the card, bit for bit, on 32 reads x 2 kb plus
@@ -13,11 +13,22 @@ Phases (any failure exits non-zero; nothing is caught):
   3. profile-HMM Viterbi kernels (fill, backtrack) against their plain
      versions on 512 eventalign-shaped segments with all four soft-clip
      flag combinations (identical traces and tracebacks); then timing;
-  4. the main path on the card through the CLI entry points: the 4-read
-     golden pipeline of tests/test_golden_outputs.py (compared with
-     tests/golden/), then `index` + `eventalign` on 64 reads x 8 kb from a
-     100 kb synthetic genome, with every kernel's launch count;
-  5. one JSON line describing each kernel, then the result line.
+  4. the profile-HMM Forward kernel against its plain version on 2,048
+     call-methylation-shaped segments (17-221 kmers, 30-460 events, all
+     four clip flags) and 64 scorereads-shaped ones (501 x 250), within
+     2e-3 nats; then timing;
+  5. the goldens on the card through the CLI entry points: the 4-read
+     eventalign pipeline of tests/test_golden_outputs.py (byte for byte)
+     and the 3-read methylation pipeline (TSV and both modbam styles,
+     under the printed-output rule of tests/printed_output.py);
+  6. the main paths on the card, each with the launch counts reset just
+     before it and read just after: `index` + `eventalign` on 64 reads x
+     8 kb from a 100 kb synthetic genome, then `call-methylation` (with a
+     modbam) on 64 reads x 8 kb of which half carry cpg-methylated
+     signal; then `scorereads` on 8 of the eventalign reads and
+     `phase-reads` on a 2-read phased corpus, each held to the port's
+     CPU run under the printed-output rule;
+  7. one JSON line describing each kernel, then the result line.
 
 Everything it writes goes under build/chip_smoke/ in the checkout.
 """
@@ -40,6 +51,17 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 
 # the main path's corpus: reads x bases from a synthetic genome
 MAIN_READS, MAIN_READ_LEN, MAIN_GENOME_LEN = 64, 8000, 100_000
+# Forward kernel check: call-methylation-shaped and scorereads-shaped
+FWD_SEGMENTS, FWD_LONG = 2048, 64
+# f32 operations of the scan's Forward per (event, kmer) cell, with an
+# expf/log1pf pair counted as two and an fma as two: the emission (5),
+# the five M-term adds, nine logaddexps of six operations each (five for
+# M, one each for B, the K chain's input and its two tree combines),
+# the M add, four B/K-input adds and two tree adds; plus per event row
+# the end terms (three logaddexps, an add and the flank)
+FWD_OPS_CELL = 5 + 5 + 9 * 6 + 1 + 4 + 2
+FWD_OPS_ROW = 3 * 6 + 4
+LLR = 5          # log_lik_ratio column of the call-methylation TSV
 
 # published peaks of one H100 SXM (dense, no sparsity)
 PEAK_F32_FLOPS = 67e12
@@ -251,6 +273,14 @@ def viterbi_batch(model, S, seed=0):
     rng = np.random.default_rng(seed)
     nk = rng.integers(95, 116, S).astype(np.int32)
     nev = rng.integers(200, 261, S).astype(np.int32)
+    return hmm_batch(model, nk, nev, rng)
+
+
+def hmm_batch(model, nk, nev, rng):
+    """Segments of nk kmers and nev events: random 6-mers, event levels
+    drawn from their gaussians along a uniform path; epb in 1.6-2.4 and
+    clip flags cycling through 0-3."""
+    S = len(nk)
     K, T = int(nk.max()), int(nev.max())
     mu = np.zeros((S, K), np.float32)
     sd = np.ones((S, K), np.float32)
@@ -351,6 +381,59 @@ def phase_viterbi(model, dev, report):
 
 # ---------------------------------------------------------------- phase 4 --
 
+def forward_work(nev, nk):
+    """Bytes and f32 operations the Forward needs for these segments:
+    each level, kmer table entry and score moved once."""
+    nev = np.asarray(nev, np.float64)
+    nk = np.asarray(nk, np.float64)
+    nbytes = float(np.sum(nev * 4 + nk * 12 + 32 + 2 + 8 + 4))
+    flops = float(np.sum(nev * nk * FWD_OPS_CELL + nev * FWD_OPS_ROW))
+    return nbytes, flops
+
+
+def phase_forward(model, dev, report):
+    import torch
+    from nanopolish_tpu_torch.ops import profile_hmm as ph
+    from nanopolish_tpu_torch.ops import profile_hmm_forward as pf
+
+    rng = np.random.default_rng(17)
+    nk = rng.integers(17, 222, FWD_SEGMENTS).astype(np.int32)
+    nev = np.clip((nk * rng.uniform(1.6, 2.4, FWD_SEGMENTS)).astype(np.int32),
+                  30, 460).astype(np.int32)
+    cases = {
+        "call-methylation-shaped": hmm_batch(model, nk, nev, rng),
+        "scorereads-shaped": hmm_batch(
+            model, np.full(FWD_LONG, 250, np.int32),
+            np.full(FWD_LONG, 501, np.int32), rng),
+    }
+    errs, timed = [], None
+    for name, (lv, nev_c, mu, sd, nk_c, epb, flags) in cases.items():
+        x = pf.prepare_forward_inputs(lv, nev_c, mu, sd, nk_c, epb, flags,
+                                      device=dev)
+        args = (x["levels"], x["n_events"], x["mu"], x["sigma"], x["c"],
+                x["n_kmers"], x["trans"], x["clips"])
+        got = pf.forward_fill(*args)
+        plain_ms, ref = once_ms(lambda: ph.forward_fill_plain(*args))
+        err = max_abs_err(got, ref)
+        same = float((got.view(torch.int32) == ref.view(torch.int32))
+                     .float().mean())
+        if not err <= 2e-3:
+            fail(f"forward_fill differs from the plain version by {err} nats "
+                 f"on the {name} batch")
+        ms = cuda_ms(lambda: pf.forward_fill(*args))
+        nbytes, flops = forward_work(nev_c, nk_c)
+        bms, by = bound(nbytes, flops)
+        log(f"forward {name}: {len(nk_c)} segments, max_abs_err {err:.3g} "
+            f"nats, {same:.1%} bit-identical; kernel {ms:.3f} ms (plain "
+            f"{plain_ms:.1f} ms), bound {bms:.4f} ms ({by})")
+        errs.append(err)
+        if timed is None:                 # the main path's shape
+            timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    report["forward_fill"].update(max_abs_err=max(errs), **timed)
+
+
+# ---------------------------------------------------------------- phase 5 --
+
 def _write_fa(path, name, seq):
     with open(path, "w") as fh:
         fh.write(f">{name}\n")
@@ -362,25 +445,28 @@ def _adc(pa):
     return np.clip(pa * 8192.0 / 1400.0, -32000, 32000).astype(np.int16)
 
 
-def build_pipeline(d, genome_len, plan, read_len, seed, spb=10.0,
-                   sort_bam=False):
+def build_pipeline(d, genome_len, plan, read_len, seed, shift=1.5,
+                   scale=1.01, methylated=(), sort_bam=False):
     """Reference FASTA, basecalls, slow5 signal, readdb index and BAM for
     reads placed at plan = [(name, pos, is_rev)] (the layout of
     tests/test_golden_outputs.py; BAM records in plan order unless
-    sort_bam)."""
+    sort_bam).  Reads named in ``methylated`` carry signal drawn from the
+    cpg model over their CpG-methylated basecall."""
     from nanopolish_tpu_torch.apps import index as index_app
     from nanopolish_tpu_torch.io.bam import BamRecord, BamWriter
     from nanopolish_tpu_torch.io.slow5 import Slow5Writer
     from nanopolish_tpu_torch.models.pore_model import PoreModelSet
     from nanopolish_tpu_torch.models.squiggle import SquiggleScalings
-    from nanopolish_tpu_torch.utils.alphabet import DNA_ALPHABET
+    from nanopolish_tpu_torch.utils.alphabet import (DNA_ALPHABET,
+                                                     METHYL_CPG_ALPHABET)
     from nanopolish_tpu_torch.utils.synthetic import (random_sequence,
                                                       synthetic_raw_signal)
 
     os.makedirs(d, exist_ok=True)
     rng = np.random.default_rng(seed)
-    model = PoreModelSet.instance().get_model(
-        "r9.4_450bps", "nucleotide", "template", 6)
+    pms = PoreModelSet.instance()
+    model = pms.get_model("r9.4_450bps", "nucleotide", "template", 6)
+    cpg = pms.get_model("r9.4_450bps", "cpg", "template", 6)
     genome = random_sequence(rng, genome_len)
     ref_fa = os.path.join(d, "ref.fa")
     _write_fa(ref_fa, "tig1", genome)
@@ -390,10 +476,15 @@ def build_pipeline(d, genome_len, plan, read_len, seed, spb=10.0,
             seg = genome[pos:pos + read_len]
             basecall = DNA_ALPHABET.reverse_complement(seg) if is_rev else seg
             fq.write(f"@{name}\n{basecall}\n+\n{'I' * read_len}\n")
-            sc = SquiggleScalings.from4(1.5, 1.01, 0.0, 1.0)
-            pa = synthetic_raw_signal(rng, basecall, model, sc,
-                                      samples_per_base=spb, leader=400,
-                                      trailer=100)
+            sc = SquiggleScalings.from4(shift, scale, 0.0, 1.0)
+            if name in methylated:
+                pa = synthetic_raw_signal(
+                    rng, METHYL_CPG_ALPHABET.methylate(basecall), cpg, sc,
+                    samples_per_base=10.0, leader=400, trailer=100)
+            else:
+                pa = synthetic_raw_signal(rng, basecall, model, sc,
+                                          samples_per_base=10.0, leader=400,
+                                          trailer=100)
             sw.write(name, _adc(pa), 8192.0, 0.0, 1400.0, 4000.0)
     index_app.main([fastq, "--slow5", slow5])
     bam = os.path.join(d, "aln.bam")
@@ -420,8 +511,32 @@ def same_as_golden(got: str, name: str) -> None:
     fail(f"{name}: {len(gl)} lines, golden has {len(wl)}")
 
 
+def assert_agree(got: str, want: str, name: str, **kw):
+    """tests/printed_output.py's assert_agree, the module loaded by path:
+    an installed package named `tests` may shadow the repository's."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "printed_output", os.path.join(ROOT, "tests", "printed_output.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.assert_agree(got, want, name, **kw)
+
+
+def render_bam(path: str) -> str:
+    """Stable text rendering of a BAM (tests/test_golden_outputs.py:221)."""
+    from nanopolish_tpu_torch.io.bam import BamReader
+    r = BamReader(path)
+    lines = [r.header_text.rstrip("\n")]
+    for rec in r:
+        lines.append(rec.to_sam(r.references))
+    r.close()
+    return "\n".join(lines) + "\n"
+
+
 def phase_golden(dev):
+    from nanopolish_tpu_torch.apps import call_methylation as cm_app
     from nanopolish_tpu_torch.apps import eventalign as ea_app
+
     d = os.path.join(WORK, "golden")
     plan = [("gr0", 40, False), ("gr1", 420, True),
             ("gr2", 180, False), ("gr3", 560, True)]
@@ -439,22 +554,71 @@ def phase_golden(dev):
     log(f"golden eventalign on {dev.type}: tsv, summary and sam identical "
         f"to tests/golden/ byte for byte")
 
+    # the methylation golden recipe (tests/test_golden_outputs.py:123-155)
+    d = os.path.join(WORK, "golden_meth")
+    plan = [("gm0", 60, False), ("gu0", 380, False), ("gm1", 600, True)]
+    ref_fa, fastq, bam = build_pipeline(d, 1000, plan, 320, seed=77,
+                                        shift=0.5, scale=1.0,
+                                        methylated={"gm0", "gm1"},
+                                        sort_bam=True)
+    golden = os.path.join(ROOT, "tests", "golden")
+    for style in ("read", "reference"):
+        out = io.StringIO()
+        modbam = os.path.join(d, f"mods_{style}.bam")
+        cm_app.main(["-r", fastq, "-b", bam, "-g", ref_fa,
+                     "--modbam-output-name", modbam, "--modbam-style", style,
+                     "--device", dev.type], stdout=out)
+        assert_agree(out.getvalue(),
+                     open(os.path.join(golden, "methylation.tsv")).read(),
+                     f"golden methylation.tsv on {dev.type}",
+                     sign_cols=(LLR,))
+        assert_agree(render_bam(modbam),
+                     open(os.path.join(golden, f"modbam_{style}.sam")).read(),
+                     f"golden modbam_{style}.sam on {dev.type}", sam=True)
 
-def build_main_corpus(d):
-    """The main path's inputs under d: MAIN_READS reads of MAIN_READ_LEN
-    bases, placed at random on a MAIN_GENOME_LEN synthetic genome."""
+
+def main_plan():
+    """MAIN_READS reads of MAIN_READ_LEN bases placed at random on a
+    MAIN_GENOME_LEN synthetic genome: [(name, pos, is_rev)]."""
     rng = np.random.default_rng(2024)
-    plan = [(f"r{i:03d}", int(p), bool(rng.integers(0, 2)))
+    return [(f"r{i:03d}", int(p), bool(rng.integers(0, 2)))
             for i, p in enumerate(rng.integers(
                 0, MAIN_GENOME_LEN - MAIN_READ_LEN, MAIN_READS))]
-    return build_pipeline(d, MAIN_GENOME_LEN, plan, MAIN_READ_LEN, seed=99,
-                          sort_bam=True)
 
 
-def phase_main_path(dev):
+def main_methylated():
+    """Every other read of main_plan(): the reads whose signal the
+    call-methylation corpus draws from the cpg model."""
+    return {name for i, (name, _, _) in enumerate(main_plan()) if i % 2 == 0}
+
+
+def build_main_corpus(d, methylated=()):
+    """The main paths' inputs under d (build_pipeline over main_plan())."""
+    return build_pipeline(d, MAIN_GENOME_LEN, main_plan(), MAIN_READ_LEN,
+                          seed=99, methylated=methylated, sort_bam=True)
+
+
+def timed_run(fn, kernels):
+    """Run fn() with the launch counts set to 0 just before it and read
+    just after; fail unless each named kernel was launched.  Returns
+    (wall seconds, launches)."""
     import torch
-    from nanopolish_tpu_torch.apps import eventalign as ea_app
     from nanopolish_tpu_torch.utils import cuda_build
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_build.LAUNCHES)
+    for name in kernels:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on this path")
+    return wall, launches
+
+
+def phase_eventalign(dev):
+    from nanopolish_tpu_torch.apps import eventalign as ea_app
 
     n_reads, read_len = MAIN_READS, MAIN_READ_LEN
     d = os.path.join(WORK, "main")
@@ -462,16 +626,15 @@ def phase_main_path(dev):
     ref_fa, fastq, bam = build_main_corpus(d)
     setup_s = time.perf_counter() - t0
     out_path = os.path.join(d, "eventalign.tsv")
-    torch.cuda.synchronize()
-    cuda_build.reset_launch_counts()
-    t0 = time.perf_counter()
-    with open(out_path, "w") as fh:
-        ea_app.main(["-r", fastq, "-b", bam, "-g", ref_fa, "--device",
-                     dev.type, "--summary", os.path.join(d, "summary.tsv")],
-                    stdout=fh)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(cuda_build.LAUNCHES)
+
+    def run():
+        with open(out_path, "w") as fh:
+            ea_app.main(["-r", fastq, "-b", bam, "-g", ref_fa, "--device",
+                         dev.type, "--summary",
+                         os.path.join(d, "summary.tsv")], stdout=fh)
+
+    wall, launches = timed_run(run, ("banded_fill", "banded_backtrack",
+                                     "viterbi_fill", "viterbi_backtrack"))
     rows = 0
     bad = 0
     names = set()
@@ -492,14 +655,143 @@ def phase_main_path(dev):
         fail(f"main path output: {rows} rows, {bad} malformed")
     if len(names) < n_reads * 0.9:
         fail(f"only {len(names)} of {n_reads} reads were aligned")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
     log(f"main path eventalign {n_reads} reads x {read_len} bases on "
         f"{dev.type}: {rows} rows from {len(names)} reads in {wall:.2f} s "
         f"({rows / wall:.0f} rows/s, {n_reads / wall:.2f} reads/s; set-up "
         f"{setup_s:.1f} s); launches {json.dumps(launches)}")
+    return launches, (ref_fa, fastq, bam)
+
+
+def phase_call_methylation(dev):
+    from nanopolish_tpu_torch.apps import call_methylation as cm_app
+
+    methylated = main_methylated()
+    d = os.path.join(WORK, "main_meth")
+    t0 = time.perf_counter()
+    ref_fa, fastq, bam = build_main_corpus(d, methylated)
+    setup_s = time.perf_counter() - t0
+    out_path = os.path.join(d, "methylation.tsv")
+    modbam = os.path.join(d, "mods.bam")
+
+    def run():
+        with open(out_path, "w") as fh:
+            cm_app.main(["-r", fastq, "-b", bam, "-g", ref_fa,
+                         "--modbam-output-name", modbam,
+                         "--device", dev.type], stdout=fh)
+
+    wall, launches = timed_run(run, ("banded_fill", "banded_backtrack",
+                                     "forward_fill"))
+    llr = {True: [], False: []}
+    names = set()
+    with open(out_path) as fh:
+        header = fh.readline().rstrip("\n").split("\t")
+        for line in fh:
+            f = line.rstrip("\n").split("\t")
+            vals = [float(v) for v in f[5:8]]
+            if len(f) != len(header) or not all(map(math.isfinite, vals)):
+                fail(f"malformed call-methylation row: {line!r}")
+            names.add(f[4])
+            llr[f[4] in methylated].append(vals[0])
+    sites = len(llr[True]) + len(llr[False])
+    if len(names) < MAIN_READS * 0.9:
+        fail(f"only {len(names)} of {MAIN_READS} reads were called")
+    mean_m = float(np.mean(llr[True]))
+    mean_u = float(np.mean(llr[False]))
+    if not (mean_m > 0 > mean_u):
+        fail(f"mean log_lik_ratio {mean_m:.3f} on methylated reads, "
+             f"{mean_u:.3f} on the others")
+    n_mod = sum(not ln.startswith("@")
+                for ln in render_bam(modbam).splitlines())
+    if n_mod != MAIN_READS:
+        fail(f"modbam holds {n_mod} records for {MAIN_READS} reads")
+    log(f"main path call-methylation {MAIN_READS} reads x {MAIN_READ_LEN} "
+        f"bases on {dev.type} ({len(methylated)} with methylated signal): "
+        f"{sites} sites from {len(names)} reads in {wall:.2f} s "
+        f"({sites / wall:.0f} sites/s, {MAIN_READS / wall:.2f} reads/s; "
+        f"set-up {setup_s:.1f} s); mean log_lik_ratio {mean_m:.3f} "
+        f"methylated, {mean_u:.3f} unmethylated; launches "
+        f"{json.dumps(launches)}")
     return launches
+
+
+def build_phased(d):
+    """The phased corpus of tests/test_phase_scorereads_e2e.py:23-82: two
+    900-base reads over one SNP, one carrying the alt allele in its
+    signal only."""
+    from nanopolish_tpu_torch.apps import index as index_app
+    from nanopolish_tpu_torch.io.bam import BamRecord, BamWriter
+    from nanopolish_tpu_torch.io.slow5 import Slow5Writer
+    from nanopolish_tpu_torch.io.vcf import Variant, VcfWriter
+    from nanopolish_tpu_torch.models.pore_model import PoreModelSet
+    from nanopolish_tpu_torch.models.squiggle import SquiggleScalings
+    from nanopolish_tpu_torch.utils.synthetic import (random_sequence,
+                                                      synthetic_raw_signal)
+
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(21)
+    model = PoreModelSet.instance().get_model(
+        "r9.4_450bps", "nucleotide", "template", 6)
+    genome_len, read_len, pos0, snp = 1500, 900, 50, 300
+    genome = random_sequence(rng, genome_len)
+    ref_fa = os.path.join(d, "ref.fa")
+    _write_fa(ref_fa, "tig1", genome)
+    alt = {"A": "C", "C": "G", "G": "T", "T": "A"}[genome[snp]]
+    vcf = os.path.join(d, "vars.vcf")
+    with open(vcf, "w") as fh:
+        VcfWriter(fh).write_variant(Variant(
+            ref_name="tig1", ref_position=snp, ref_seq=genome[snp],
+            alt_seq=alt, quality=50, genotype="0/1"))
+    fastq, slow5 = os.path.join(d, "reads.fastq"), os.path.join(d, "sig.slow5")
+    seg = genome[pos0:pos0 + read_len]
+    with open(fastq, "w") as fq, Slow5Writer(slow5) as sw:
+        for name, has_alt in (("hap_alt", True), ("hap_ref", False)):
+            i = snp - pos0
+            true_seq = seg[:i] + alt + seg[i + 1:] if has_alt else seg
+            fq.write(f"@{name}\n{seg}\n+\n{'I' * read_len}\n")
+            pa = synthetic_raw_signal(
+                rng, true_seq, model, SquiggleScalings.from4(0.0, 1.0, 0.0,
+                                                             1.0),
+                samples_per_base=10.0, leader=500, trailer=100)
+            sw.write(name, _adc(pa), 8192.0, 0.0, 1400.0, 4000.0)
+    index_app.main([fastq, "--slow5", slow5])
+    bam = os.path.join(d, "aln.bam")
+    w = BamWriter(bam, "@HD\tVN:1.6\tSO:coordinate\n", ["tig1"], [genome_len])
+    for name in ("hap_alt", "hap_ref"):
+        w.write(BamRecord(qname=name, tid=0, pos=pos0, mapq=60,
+                          cigar=[(0, read_len)], seq=seg,
+                          qual=np.full(read_len, 30, np.uint8),
+                          tags={"NM": ("i", 0)}))
+    w.close()
+    return ref_fa, fastq, bam, vcf
+
+
+def phase_scorereads_phase(dev, ea_corpus):
+    """scorereads on 8 eventalign reads and phase-reads on the phased
+    corpus, on the card and on the CPU, held to each other under the
+    printed-output rule."""
+    from nanopolish_tpu_torch.apps import phase_reads as pr_app
+    from nanopolish_tpu_torch.apps import scorereads as sc_app
+
+    ref_fa, fastq, bam = ea_corpus
+    ref_fa2, fastq2, bam2, vcf = build_phased(os.path.join(WORK, "phase"))
+    runs = (("scorereads", sc_app, ["-r", fastq, "-b", bam, "-g", ref_fa,
+                                    "--max-reads", "8"], False,
+             ("banded_fill", "viterbi_fill", "forward_fill")),
+            ("phase-reads", pr_app, ["-r", fastq2, "-b", bam2, "-g", ref_fa2,
+                                     vcf], True, ("banded_fill",
+                                                  "forward_fill")))
+    for name, app, argv, sam, kernels in runs:
+        outs = {}
+        for d in (dev.type, "cpu"):
+            out = io.StringIO()
+            wall, launches = timed_run(
+                lambda: app.main(argv + ["--device", d], stdout=out),
+                kernels if d == dev.type else ())
+            outs[d] = out.getvalue()
+            log(f"{name} on {d}: {len(outs[d].splitlines())} lines in "
+                f"{wall:.2f} s; launches {json.dumps(launches)}")
+        assert_agree(outs[dev.type], outs["cpu"],
+                     f"{name} on {dev.type} vs the cpu", sam=sam)
 
 
 # ------------------------------------------------------------------- main --
@@ -533,14 +825,19 @@ def main() -> int:
         "r9.4_450bps", "nucleotide", "template", 6)
     phase_banded(model, dev, report)
     phase_viterbi(model, dev, report)
+    phase_forward(model, dev, report)
     phase_golden(dev)
-    launches = phase_main_path(dev)
+    launches, ea_corpus = phase_eventalign(dev)
+    # the Forward kernel's launches are those of its own slice's main path
+    launches["forward_fill"] = phase_call_methylation(dev)["forward_fill"]
+    phase_scorereads_phase(dev, ea_corpus)
 
     replaces = {
         "banded_fill": "nanopolish_tpu/ops/pallas_banded_exact.py:210",
         "banded_backtrack": "nanopolish_tpu/ops/pallas_banded_exact.py:441",
         "viterbi_fill": "nanopolish_tpu/ops/pallas_profile_hmm.py:637",
         "viterbi_backtrack": "nanopolish_tpu/ops/pallas_profile_hmm.py:758",
+        "forward_fill": "nanopolish_tpu/ops/pallas_profile_hmm.py:97",
     }
     kernels = []
     for name in cuda_build.KERNELS:

@@ -23,11 +23,13 @@ def _lazy(name):
 SUBCOMMANDS = {
     "index": _lazy("index"),
     "eventalign": _lazy("eventalign"),
+    "call-methylation": _lazy("call_methylation"),
+    "scorereads": _lazy("scorereads"),
+    "phase-reads": _lazy("phase_reads"),
 }
 
 # subcommands of nanopolish_tpu that this package does not run yet
-NOT_PORTED = ("variants", "call-methylation", "methyltrain", "scorereads",
-              "phase-reads", "vcf2fasta", "polya", "detect-polyi",
+NOT_PORTED = ("variants", "methyltrain", "vcf2fasta", "polya", "detect-polyi",
               "fast5-check", "train-poremodel-from-basecalls")
 
 

@@ -56,7 +56,7 @@ def banded_fill(event_mean, n_events, mu, sigma, c, n_kmers, lp_stay,
         float(np.float32(LP_SKIP)), float(np.float32(LP_TRIM)), B, n_bands,
         trace.data_ptr(), moves.data_ptr(), lle.data_ptr(), best_e.data_ptr(),
         best_s.data_ptr())
-    cuda_build.LAUNCHES["banded_fill"] += 1
+    cuda_build.count_launch("banded_fill")
     return trace, moves, lle, best_e, best_s
 
 
@@ -93,7 +93,7 @@ def banded_backtrack(trace, moves, ll_e_last, best_e, event_mean, mu, sigma,
         mu.data_ptr(), sigma.data_ptr(), c.data_ptr(), K, n_kmers.data_ptr(),
         B, n_bands, b2e_start.data_ptr(), b2e_stop.data_ptr(),
         sum_em.data_ptr(), stats.data_ptr())
-    cuda_build.LAUNCHES["banded_backtrack"] += 1
+    cuda_build.count_launch("banded_backtrack")
     return b2e_start, b2e_stop, sum_em, stats
 
 

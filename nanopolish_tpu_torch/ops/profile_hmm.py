@@ -1,4 +1,4 @@
-"""Profile HMM (R9) Viterbi — plain PyTorch version.
+"""Profile HMM (R9) Viterbi and Forward — plain PyTorch versions.
 
 Behavioral spec: ``profile_hmm_fill_generic_r9`` / ``profile_hmm_align_r9``
 (reference: src/hmm/nanopolish_profile_hmm_r9.{h,inl,cpp}): a 3-state-per-
@@ -24,6 +24,15 @@ outputs:
     1 + i the i-th visited cell in traceback order packed as
     ``event << 12 | kmer << 2 | state``.
 
+  * ``forward_fill_plain``: the Forward log-likelihood per segment
+    (profile_hmm_score_r9, r9.cpp:35-65), the plain version of
+    ``csrc/forward_fill.cu`` (wrapped by ``ops/profile_hmm_forward.py``).
+    It follows the JAX scan path (``_profile_hmm_scan``, viterbi=False)
+    operation for operation: the six M terms folded left to right with
+    ``utils.logsum.add_logs_exact``, the K chain on the same pairwise
+    tree as the Viterbi (``kstate_chain_logsum``), and the end terms
+    folded into the score only on the rows the clip flags allow.
+
 The emission follows the scan's f32 evaluation: ``a = (x - mu) / sigma``
 and ``fma(-0.5*a, a, c)`` with ``c = LOG_INV_SQRT_2PI - log(sigma)``
 computed on the host.
@@ -37,6 +46,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..utils.logsum import add_logs_exact
 from .emissions import fma32, log_normal_fused
 
 # movement types (nanopolish_profile_hmm_r9.h:61-71)
@@ -116,10 +126,10 @@ def _shift_prev(x):
     return torch.cat([torch.full_like(x[:, :1], NEG_INF), x[:, :-1]], dim=1)
 
 
-def kstate_chain_max(c: torch.Tensor, lp_kk: torch.Tensor) -> torch.Tensor:
-    """K[k] = max(c[k], K[k-1] + lp_kk) along dim 1, evaluated with the
+def _kstate_chain(c: torch.Tensor, lp_kk: torch.Tensor, op) -> torch.Tensor:
+    """K[k] = op(c[k], K[k-1] + lp_kk) along dim 1, evaluated with the
     pairwise tree of ``jax.lax.associative_scan``: combine((ax, vx),
-    (ay, vy)) = (ax + ay, max(vx + ay, vy)), elements paired (0,1),
+    (ay, vy)) = (ax + ay, op(vx + ay, vy)), elements paired (0,1),
     (2,3), ... at every level.  Every element of level l carries the same
     ``a = lp_kk * 2**l`` (doubling is exact), so only v is computed.  The
     value at k depends on elements <= k only, so any padding of K gives
@@ -129,10 +139,10 @@ def kstate_chain_max(c: torch.Tensor, lp_kk: torch.Tensor) -> torch.Tensor:
         n = v.shape[1]
         if n < 2:
             return v
-        red = torch.maximum(v[:, 0:-1:2] + a, v[:, 1::2])
+        red = op(v[:, 0:-1:2] + a, v[:, 1::2])
         odd = scan(red, a + a)
         tail = odd if n % 2 else odd[:, :-1]
-        even = torch.maximum(tail + a, v[:, 2::2])
+        even = op(tail + a, v[:, 2::2])
         out = torch.empty_like(v)
         out[:, 0] = v[:, 0]
         out[:, 2::2] = even
@@ -140,6 +150,16 @@ def kstate_chain_max(c: torch.Tensor, lp_kk: torch.Tensor) -> torch.Tensor:
         return out
 
     return scan(c, lp_kk[:, None])
+
+
+def kstate_chain_max(c: torch.Tensor, lp_kk: torch.Tensor) -> torch.Tensor:
+    """The Viterbi K chain: K[k] = max(c[k], K[k-1] + lp_kk)."""
+    return _kstate_chain(c, lp_kk, torch.maximum)
+
+
+def kstate_chain_logsum(c: torch.Tensor, lp_kk: torch.Tensor) -> torch.Tensor:
+    """The Forward K chain: K[k] = logaddexp(c[k], K[k-1] + lp_kk)."""
+    return _kstate_chain(c, lp_kk, add_logs_exact)
 
 
 def viterbi_fill_plain(levels, n_events, mu, sigma, c, n_kmers, trans,
@@ -211,6 +231,67 @@ def viterbi_fill_plain(levels, n_events, mu, sigma, c, n_kmers, trans,
         trace[:, t - 1, :] = trM | (trB << 3) | (trK << 4)
         M, Bs, Ks = M_new, B_new, K_new
     return trace
+
+
+def forward_fill_plain(levels, n_events, mu, sigma, c, n_kmers, trans,
+                       clips) -> torch.Tensor:
+    """Forward fill (r9.inl:265-433 with logsum), vectorized over segments.
+
+    Takes the inputs of ``viterbi_fill_plain``; returns the log-likelihood
+    lp_end [B] f32 (-inf for a segment without events).  Rows past a
+    segment's n_events and kmers past its n_kmers never reach its score.
+    """
+    B, T = levels.shape
+    K = mu.shape[1]
+    dev = levels.device
+    f32 = torch.float32
+    tr = trans.to(f32)
+    col = {name: tr[:, i:i + 1] for i, name in enumerate(TRANS_COLS)}
+    lp_kk = tr[:, 6]
+    pre_clip = clips[:, 0].to(torch.bool)
+    post_clip = clips[:, 1].to(torch.bool)
+    nev = n_events.to(torch.int64)
+    nev_f = n_events.to(f32)
+    last = (n_kmers.to(torch.int64) - 1).clamp(0, K - 1)[:, None]
+    add = add_logs_exact
+
+    M = torch.full((B, K), NEG_INF, dtype=f32, device=dev)
+    Bs = torch.full_like(M, NEG_INF)
+    Ks = torch.full_like(M, NEG_INF)
+    lp_end = torch.full((B,), NEG_INF, dtype=f32, device=dev)
+    k0 = (torch.arange(K, device=dev) == 0)[None, :]
+    t_max = int(nev.max()) if B else 0
+
+    for t in range(1, t_max + 1):
+        em = log_normal_fused(levels[:, t - 1:t], mu, sigma, c)
+
+        soft_ok = pre_clip | (t == 1)
+        pre_val = flank(torch.full((B,), float(t - 1), dtype=f32, device=dev))
+        s_soft = torch.where(k0 & (soft_ok & (t <= nev))[:, None],
+                             pre_val[:, None], NEG_INF)
+
+        x0 = col["lp_mm_self"] + M           # FROM_SAME_M
+        x1 = col["lp_mm_next"] + _shift_prev(M)   # FROM_PREV_M
+        x2 = col["lp_b3"] + Bs               # FROM_SAME_B
+        x3 = col["lp_b3"] + _shift_prev(Bs)  # FROM_PREV_B
+        x4 = col["lp_km"] + _shift_prev(Ks)  # FROM_PREV_K
+        x5 = s_soft                          # FROM_SOFT
+        m_in = add(add(add(add(add(x0, x1), x2), x3), x4), x5)
+        M_new = m_in + em
+        B_new = add(col["lp_mb"] + M, col["lp_bb"] + Bs)   # bad events emit 0
+
+        cM = col["lp_mk"] + _shift_prev(M_new)   # FROM_PREV_M (same row)
+        cB = col["lp_b3"] + _shift_prev(B_new)   # FROM_PREV_B
+        K_new = kstate_chain_logsum(add(cM, cB), lp_kk)
+
+        # end contributions (r9.inl:385-396); lp_ms = 0
+        s3 = add(add(M_new.gather(1, last)[:, 0], B_new.gather(1, last)[:, 0]),
+                 K_new.gather(1, last)[:, 0])
+        cand = s3 + flank(nev_f - float(t))       # post_flank[t-1]
+        allowed = torch.where(post_clip, t <= nev, t == nev)
+        lp_end = torch.where(allowed, add(lp_end, cand), lp_end)
+        M, Bs, Ks = M_new, B_new, K_new
+    return lp_end
 
 
 def viterbi_backtrack_plain(trace, n_events, n_kmers) -> torch.Tensor:

@@ -1,0 +1,79 @@
+"""Profile-HMM Forward scoring on the card.
+
+Counterpart of the Forward half of ``nanopolish_tpu/ops/pallas_profile_hmm.py``
+(``_fwd_kernel``, ``profile_hmm_forward_pallas``): the hand-written CUDA
+kernel ``csrc/forward_fill.cu``, one log-likelihood per segment.  It takes
+the same padded inputs as the Viterbi fill (``prepare_viterbi_inputs``):
+per-segment clip flags, so segments with different flags share a launch.
+
+``forward_fill`` takes tensors on one device.  For CPU tensors it runs the
+plain version (``ops/profile_hmm.forward_fill_plain``); for CUDA tensors it
+launches the kernel (building it at first use) or raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils import cuda_build
+from .profile_hmm import _CLIP_BASE, _CLIP_STEP, _LOG1M_CLIP, forward_fill_plain
+from .profile_hmm_viterbi import kmer_width, prepare_viterbi_inputs
+
+
+def forward_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips):
+    """Forward log-likelihood [B] f32 per segment; the kmer tables are
+    [B, KP] with KP from ``kmer_width`` (``forward_fill_plain`` contract)."""
+    if levels.device.type == "cpu":
+        return forward_fill_plain(levels, n_events, mu, sigma, c, n_kmers,
+                                  trans, clips)
+    cuda_build.require_cuda(levels)
+    dev = levels.device
+    B, T = levels.shape
+    KP = mu.shape[1]
+    if KP != kmer_width(KP):
+        raise ValueError(f"kmer width {KP} must be a power of two >= 32")
+    f32, i32 = torch.float32, torch.int32
+    cuda_build.check_tensor("levels", levels, f32, (B, T), dev)
+    for nm, t in (("mu", mu), ("sigma", sigma), ("c", c)):
+        cuda_build.check_tensor(nm, t, f32, (B, KP), dev)
+    cuda_build.check_tensor("n_events", n_events, i32, (B,), dev)
+    cuda_build.check_tensor("n_kmers", n_kmers, i32, (B,), dev)
+    cuda_build.check_tensor("trans", trans, f32, (B, 8), dev)
+    cuda_build.check_tensor("clips", clips, torch.uint8, (B, 2), dev)
+    scores = torch.empty(B, dtype=f32, device=dev)
+    cuda_build.launch(
+        "forward_fill", levels.data_ptr(), T, mu.data_ptr(), sigma.data_ptr(),
+        c.data_ptr(), KP, n_events.data_ptr(), n_kmers.data_ptr(),
+        trans.data_ptr(), clips.data_ptr(), float(np.float32(_LOG1M_CLIP)),
+        float(np.float32(_CLIP_BASE)), float(np.float32(_CLIP_STEP)), B,
+        scores.data_ptr())
+    cuda_build.count_launch("forward_fill")
+    return scores
+
+
+def prepare_forward_inputs(levels, n_events, mu, sigma, n_kmers,
+                           events_per_base, flags, indel_bias: float = 1.0,
+                           trans=None, device=None):
+    """Host arrays -> the padded kernel tensors on ``device`` (``cuda``
+    unless ``cpu`` is asked); the layout of ``prepare_viterbi_inputs``."""
+    return prepare_viterbi_inputs(levels, n_events, mu, sigma, n_kmers,
+                                  events_per_base, flags, indel_bias, trans,
+                                  device=device)
+
+
+def forward_scores(x) -> torch.Tensor:
+    """``forward_fill`` on the tensors of ``prepare_forward_inputs``."""
+    return forward_fill(x["levels"], x["n_events"], x["mu"], x["sigma"],
+                        x["c"], x["n_kmers"], x["trans"], x["clips"])
+
+
+def profile_hmm_forward(levels, n_events, mu, sigma, n_kmers,
+                        events_per_base, flags, indel_bias: float = 1.0,
+                        trans=None, device=None) -> np.ndarray:
+    """Batched Forward scores (profile_hmm_score_r9, r9.cpp:35-65) as a
+    host [B] f32 array; ``flags`` may differ per segment."""
+    x = prepare_forward_inputs(levels, n_events, mu, sigma, n_kmers,
+                               events_per_base, flags, indel_bias, trans,
+                               device=device)
+    return forward_scores(x).cpu().numpy()

@@ -30,14 +30,14 @@ MAX_THREADS = 1024
 
 
 def kmer_width(n_kmers_max: int) -> int:
-    """The kernels' kmer width: a power of two, 32..1024 (one thread per
-    kmer)."""
+    """The profile-HMM kernels' kmer width (Viterbi and Forward): a power
+    of two, 32..1024 (one thread per kmer)."""
     kp = 32
     while kp < n_kmers_max:
         kp *= 2
     if kp > min(MAX_THREADS, MAX_KMERS):
-        raise ValueError(f"{n_kmers_max} kmers exceed the Viterbi kernel's "
-                         f"{min(MAX_THREADS, MAX_KMERS)}-kmer width")
+        raise ValueError(f"{n_kmers_max} kmers exceed the profile-HMM "
+                         f"kernels' {min(MAX_THREADS, MAX_KMERS)}-kmer width")
     return kp
 
 
@@ -68,7 +68,7 @@ def viterbi_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips):
         trans.data_ptr(), clips.data_ptr(), float(np.float32(_LOG1M_CLIP)),
         float(np.float32(_CLIP_BASE)), float(np.float32(_CLIP_STEP)), B,
         trace.data_ptr())
-    cuda_build.LAUNCHES["viterbi_fill"] += 1
+    cuda_build.count_launch("viterbi_fill")
     return trace
 
 
@@ -87,7 +87,7 @@ def viterbi_backtrack(trace, n_events, n_kmers):
     cuda_build.launch("viterbi_backtrack", trace.data_ptr(), T, KP,
                       n_events.data_ptr(), n_kmers.data_ptr(), B,
                       path.data_ptr())
-    cuda_build.LAUNCHES["viterbi_backtrack"] += 1
+    cuda_build.count_launch("viterbi_backtrack")
     return path
 
 

@@ -2,15 +2,16 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C entry point
-(``npt_launch_<name>``), loaded with ``ctypes``.  All four sources are
+(``npt_launch_<name>``), loaded with ``ctypes``.  All sources are
 compiled concurrently (one ``nvcc`` each) at first use, into
 ``build/nanopolish_tpu_torch/`` at the repository root, and rebuilt when a
 source is newer than its library.  A failed build raises with the
 compiler's output; nothing falls back to another implementation.
 
 ``LAUNCHES`` holds one plain integer per kernel.  Each wrapper adds one
-where it launches its kernel and nowhere else, so a run can show which
-kernels its main path went through.
+(``count_launch``, under a lock: loader threads launch kernels too) where
+it launches its kernel and nowhere else, so a run can show which kernels
+its main path went through.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "nanopolish_tpu_torch")
 KERNELS = ("banded_fill", "banded_backtrack", "viterbi_fill",
-           "viterbi_backtrack")
+           "viterbi_backtrack", "forward_fill")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -47,16 +48,25 @@ _ARGTYPES = {
     "viterbi_fill": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _F, _F, _F, _I,
                      _P],
     "viterbi_backtrack": [_P, _I, _I, _P, _P, _I, _P],
+    "forward_fill": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _F, _F, _F, _I,
+                     _P],
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 BUILD_LOG: Dict[str, str] = {}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

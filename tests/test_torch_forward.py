@@ -1,0 +1,201 @@
+"""nanopolish_tpu_torch profile-HMM Forward against the JAX package.
+
+The port's plain Forward (ops/profile_hmm.forward_fill_plain, the plain
+version of csrc/forward_fill.cu) follows the JAX scan path
+(profile_hmm_forward) operation for operation, but logaddexp's exp and
+log1p are XLA's polynomials on one side and torch's on the other, so the
+scores may differ in the last bits.  The bar is the one the JAX package
+holds its own Pallas Forward to against the scan
+(tests/test_pallas_profile_hmm.py:39): atol 2e-3 nats, rtol 0.  Both
+sides get the same numpy inputs and the same transition table.  Within
+the port, bucketing and mixed clip flags must not change a score at all.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nanopolish_tpu.models.pore_model import PoreModelSet
+from nanopolish_tpu.ops.profile_hmm import (BlockTransitions, _kstate_scan,
+                                            profile_hmm_forward)
+from nanopolish_tpu_torch.alignment.segments import (HMMSegment,
+                                                     forward_arrays,
+                                                     forward_segments)
+from nanopolish_tpu_torch.ops import profile_hmm as ph
+from nanopolish_tpu_torch.ops import profile_hmm_forward as pf
+from nanopolish_tpu_torch.utils.logsum import add_logs_exact
+
+torch.set_num_threads(2)
+
+ATOL = 2e-3
+
+
+def _batch(B, Kmax, Tmax, seed=0, epb=None, full=False):
+    """B segments of Kmax/2..Kmax kmers and Tmax/2..Tmax events (all
+    Kmax x Tmax when full) with levels drawn along a uniform path."""
+    model = PoreModelSet.instance().get_model(
+        "r9.4_450bps", "nucleotide", "template", 6)
+    rng = np.random.default_rng(seed)
+    Ks = np.full(B, Kmax) if full else rng.integers(Kmax // 2, Kmax, B)
+    Ts = np.full(B, Tmax) if full else rng.integers(Tmax // 2, Tmax, B)
+    mu = np.zeros((B, Kmax), np.float32)
+    sd = np.ones((B, Kmax), np.float32)
+    lv = np.zeros((B, Tmax), np.float32)
+    for b in range(B):
+        ranks = rng.integers(0, 4096, Ks[b])
+        mu[b, :Ks[b]] = model.level_mean[ranks]
+        sd[b, :Ks[b]] = model.level_stdv[ranks]
+        reps = np.minimum((np.arange(Ts[b]) / (Ts[b] / Ks[b])).astype(int),
+                          Ks[b] - 1)
+        lv[b, :Ts[b]] = mu[b, reps] + rng.normal(0, 1, Ts[b]) * sd[b, reps]
+    if epb is None:
+        epb = rng.uniform(1.5, 2.5, B).astype(np.float32)
+    return lv, Ts.astype(np.int32), mu, sd, Ks.astype(np.int32), \
+        np.broadcast_to(np.float32(epb), (B,)).copy()
+
+
+def _jax_trans(table):
+    cols = (0, 1, 2, 3, 4, 5, 5, 5, 6, 7)     # BlockTransitions field order
+    return BlockTransitions(*[jnp.asarray(table[:, i]) for i in cols])
+
+
+def _report(got, ref):
+    d = np.abs(got.astype(np.float64) - np.asarray(ref, np.float64))
+    print(f"max |port - JAX| = {d.max():.3g} nats over {len(d)} segments, "
+          f"{np.mean(got == ref):.0%} bit-identical")
+
+
+@pytest.mark.parametrize("shape", [(8, 30, 60, False), (6, 150, 280, False),
+                                   (4, 250, 501, True)])
+@pytest.mark.parametrize("flags", [0, 1, 2, 3])
+def test_plain_matches_jax_scan(shape, flags):
+    """Small shapes, and the scorereads shape (501 events x 250 kmers)."""
+    B, K, T, full = shape
+    lv, Ts, mu, sd, Ks, epb = _batch(B, K, T, seed=flags, full=full)
+    table = ph.make_transitions(epb)
+    ref = np.asarray(profile_hmm_forward(lv, Ts, mu, sd, np.log(sd), Ks, epb,
+                                         flags=flags,
+                                         trans=_jax_trans(table)))
+    got = pf.profile_hmm_forward(lv, Ts, mu, sd, Ks, epb, flags,
+                                 device="cpu")
+    _report(got, ref)
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("flags", [0, 3])
+def test_plain_matches_pallas_interpret(flags):
+    """The shapes of tests/test_pallas_profile_hmm.py, against the Pallas
+    kernel in interpret mode (its own transitions: the same f64 table)."""
+    from nanopolish_tpu.ops.pallas_profile_hmm import profile_hmm_forward_pallas
+    lv, Ts, mu, sd, Ks, epb = _batch(6, 150, 280, seed=flags, epb=2.2)
+    ref = profile_hmm_forward_pallas(lv, Ts, mu, sd, np.log(sd), Ks, epb,
+                                     flags)
+    got = pf.profile_hmm_forward(lv, Ts, mu, sd, Ks, epb, flags,
+                                 device="cpu")
+    _report(got, ref)
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 32, 33, 100, 128, 221])
+def test_kchain_logsum_matches_associative_scan(n):
+    rng = np.random.default_rng(n)
+    c = rng.normal(-200, 30, (3, n)).astype(np.float32)
+    c[:, ::7] = -np.inf
+    lp_kk = np.array([np.log(0.3), np.log(0.25), np.log(0.7)], np.float32)
+    ref = np.asarray(_kstate_scan(jnp.asarray(c), jnp.asarray(lp_kk),
+                                  viterbi=False))
+    got = ph.kstate_chain_logsum(torch.from_numpy(c),
+                                 torch.from_numpy(lp_kk)).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+    assert np.array_equal(np.isneginf(got), np.isneginf(ref))
+
+
+def test_logaddexp_matches_jnp():
+    rng = np.random.default_rng(0)
+    x = rng.normal(-100, 40, 4096).astype(np.float32)
+    y = rng.normal(-100, 40, 4096).astype(np.float32)
+    x[:64] = -np.inf
+    y[32:96] = -np.inf
+    ref = np.asarray(jnp.logaddexp(x, y))
+    got = add_logs_exact(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    assert np.array_equal(np.isneginf(got), np.isneginf(ref))
+    fin = np.isfinite(ref)
+    np.testing.assert_allclose(got[fin], ref[fin], rtol=2e-7, atol=0)
+
+
+def test_mixed_flags_one_batch_bit_identical():
+    lv, Ts, mu, sd, Ks, epb = _batch(8, 120, 250, seed=9)
+    flags = np.array([0, 1, 2, 3, 3, 2, 1, 0], np.int32)
+    mixed = pf.profile_hmm_forward(lv, Ts, mu, sd, Ks, epb, flags,
+                                   device="cpu")
+    for f in range(4):
+        sel = flags == f
+        alone = pf.profile_hmm_forward(lv[sel], Ts[sel], mu[sel], sd[sel],
+                                       Ks[sel], epb[sel], f, device="cpu")
+        np.testing.assert_array_equal(mixed[sel], alone)
+
+
+def test_bucket_padding_bit_identical():
+    """Padding kmers (a wider bucket) or events changes no score
+    (compare tests/test_pallas_profile_hmm.py:74)."""
+    lv, Ts, mu, sd, Ks, epb = _batch(8, 40, 160, seed=9)
+    narrow = pf.profile_hmm_forward(lv, Ts, mu, sd, Ks, epb, 3, device="cpu")
+    mu2 = np.pad(mu, ((0, 0), (0, 160)))
+    sd2 = np.pad(sd, ((0, 0), (0, 160)), constant_values=1.0)
+    lv2 = np.pad(lv, ((0, 0), (0, 300)))
+    wide = pf.profile_hmm_forward(lv2, Ts, mu2, sd2, Ks, epb, 3,
+                                  device="cpu")
+    np.testing.assert_array_equal(narrow, wide)
+
+
+def test_forward_segments_match_direct_call():
+    """forward_segments buckets mixed-size segments by power-of-two shape;
+    each score equals the segment scored alone."""
+    lv, Ts, mu, sd, Ks, epb = _batch(10, 200, 400, seed=4)
+    segs = [HMMSegment(levels=lv[b, :Ts[b]], mu=mu[b, :Ks[b]],
+                       sigma=sd[b, :Ks[b]], events_per_base=float(epb[b]),
+                       flags=b % 4) for b in range(10)]
+    got = forward_segments(segs, device="cpu")
+    for b in range(len(segs)):
+        alone = pf.profile_hmm_forward(lv[b:b + 1], Ts[b:b + 1],
+                                       mu[b:b + 1], sd[b:b + 1], Ks[b:b + 1],
+                                       epb[b:b + 1], b % 4, device="cpu")
+        assert got[b] == alone[0]
+    arr = forward_arrays(lv, Ts, mu, sd, Ks, epb, np.arange(10) % 4,
+                         device="cpu")
+    np.testing.assert_array_equal(arr, got)
+
+
+def test_no_events_scores_neg_inf():
+    lv, Ts, mu, sd, Ks, epb = _batch(3, 40, 80, seed=2)
+    Ts[1] = 0
+    got = pf.profile_hmm_forward(lv, Ts, mu, sd, Ks, epb, 3, device="cpu")
+    assert got[1] == -np.inf and np.isfinite(got[[0, 2]]).all()
+
+
+def test_width_limit_raises():
+    lv, Ts, mu, sd, Ks, epb = _batch(1, 1025, 40, seed=1)
+    with pytest.raises(ValueError, match="1024-kmer width"):
+        pf.profile_hmm_forward(lv, Ts, mu, sd, Ks, epb, 0, device="cpu")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA Forward kernel has no CPU "
+                    "mode (its plain version is tested above)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_gpu(cuda_device):
+    lv, Ts, mu, sd, Ks, epb = _batch(64, 221, 460, seed=4)
+    flags = np.arange(64, dtype=np.int32) % 4
+    x = pf.prepare_forward_inputs(lv, Ts, mu, sd, Ks, epb, flags,
+                                  device=cuda_device)
+    got = pf.forward_scores(x)
+    ref = ph.forward_fill_plain(x["levels"], x["n_events"], x["mu"],
+                                x["sigma"], x["c"], x["n_kmers"], x["trans"],
+                                x["clips"])
+    torch.testing.assert_close(got, ref, atol=ATOL, rtol=0)

@@ -68,11 +68,27 @@ def test_eventalign_without_cuda_exits_with_reason():
     assert resolve_device("cpu").type == "cpu"
 
 
+@pytest.mark.parametrize("argv", [
+    ["call-methylation", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa"],
+    ["scorereads", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa"],
+    ["phase-reads", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa", "x.vcf"]])
+def test_forward_subcommands_without_cuda_exit_with_reason(argv):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, "-m", "nanopolish_tpu_torch", *argv],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "--device cpu" in r.stderr
+
+
 def _library_calls():
-    from nanopolish_tpu_torch.alignment.segments import viterbi_segments
+    from nanopolish_tpu_torch.alignment.segments import (forward_arrays,
+                                                         forward_segments,
+                                                         viterbi_segments)
     from nanopolish_tpu_torch.models.read_builder import build_reads
     from nanopolish_tpu_torch.ops import banded_align as ba
     from nanopolish_tpu_torch.ops import banded_exact as bx
+    from nanopolish_tpu_torch.ops import profile_hmm_forward as pf
     from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
     ev = np.full((1, 8), 90.0, np.float32)
     mu = np.full((1, 4), 90.0, np.float32)
@@ -92,6 +108,14 @@ def _library_calls():
         "profile_hmm_viterbi_align": lambda **kw: pv.profile_hmm_viterbi_align(
             *viterbi, **kw),
         "viterbi_segments": lambda **kw: viterbi_segments([], **kw),
+        "prepare_forward_inputs": lambda **kw: pf.prepare_forward_inputs(
+            *viterbi, **kw),
+        "profile_hmm_forward": lambda **kw: pf.profile_hmm_forward(
+            *viterbi, **kw),
+        "forward_segments": lambda **kw: forward_segments([], **kw),
+        "forward_arrays": lambda **kw: forward_arrays(
+            ev, nev, mu, sd, nk, np.array([2.0], np.float32),
+            np.zeros(1, np.int32), **kw),
         "build_reads": lambda **kw: build_reads([], **kw),
     }
 
@@ -110,7 +134,7 @@ def test_library_entry_points_default_to_cuda(name):
 
 def test_unported_subcommands_exit_2():
     r = subprocess.run([sys.executable, "-m", "nanopolish_tpu_torch",
-                        "call-methylation"], cwd=ROOT, capture_output=True,
+                        "variants"], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 2
     assert "not yet ported to nanopolish_tpu_torch" in r.stderr

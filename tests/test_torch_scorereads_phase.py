@@ -1,0 +1,175 @@
+"""nanopolish_tpu_torch `scorereads` and `phase-reads --device cpu` against
+the JAX package's apps, on the phased corpus of
+tests/test_phase_scorereads_e2e.py:23-82 rebuilt with the port's writers.
+
+Both subcommands Forward-score segments, so their printed numbers are
+held to the printed-output rule (tests/printed_output.py); the called
+bases of phase-reads (SAM SEQ) must be identical.
+"""
+
+import io
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from nanopolish_tpu_torch.apps import index as index_app
+from nanopolish_tpu_torch.apps import phase_reads as pr
+from nanopolish_tpu_torch.apps import scorereads as sc
+from nanopolish_tpu_torch.io.bam import BamRecord, BamWriter
+from nanopolish_tpu_torch.io.slow5 import Slow5Writer
+from nanopolish_tpu_torch.io.vcf import Variant, VcfWriter
+from nanopolish_tpu_torch.models.pore_model import PoreModelSet
+from nanopolish_tpu_torch.models.squiggle import SquiggleScalings
+from nanopolish_tpu_torch.utils.synthetic import (random_sequence,
+                                                  synthetic_raw_signal)
+from tests.printed_output import assert_agree
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GENOME_LEN = 1500
+READ_LEN = 900
+
+
+@pytest.fixture(scope="module")
+def phased_pipeline(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_phase")
+    rng = np.random.default_rng(21)
+    model = PoreModelSet.instance().get_model(
+        "r9.4_450bps", "nucleotide", "template", 6)
+    genome = random_sequence(rng, GENOME_LEN)
+    ref_fa = str(d / "ref.fa")
+    with open(ref_fa, "w") as fh:
+        fh.write(">tig1\n")
+        for i in range(0, GENOME_LEN, 60):
+            fh.write(genome[i:i + 60] + "\n")
+    snp_pos = 300
+    ref_base = genome[snp_pos]
+    alt_base = {"A": "C", "C": "G", "G": "T", "T": "A"}[ref_base]
+    vcf = str(d / "vars.vcf")
+    with open(vcf, "w") as fh:
+        VcfWriter(fh).write_variant(Variant(
+            ref_name="tig1", ref_position=snp_pos, ref_seq=ref_base,
+            alt_seq=alt_base, quality=50, genotype="0/1"))
+    # hap_alt carries the alt allele in its signal only; both basecalls
+    # agree with the reference
+    plan = [("hap_alt", True), ("hap_ref", False)]
+    fastq, slow5 = str(d / "reads.fastq"), str(d / "sig.slow5")
+    pos0 = 50
+    with open(fastq, "w") as fq, Slow5Writer(slow5) as sw:
+        for name, has_alt in plan:
+            seg = genome[pos0:pos0 + READ_LEN]
+            true_seq = seg
+            if has_alt:
+                i = snp_pos - pos0
+                true_seq = seg[:i] + alt_base + seg[i + 1:]
+            fq.write(f"@{name}\n{seg}\n+\n{'I' * READ_LEN}\n")
+            pa = synthetic_raw_signal(rng, true_seq, model,
+                                      SquiggleScalings.from4(0.0, 1.0, 0.0,
+                                                             1.0),
+                                      samples_per_base=10.0, leader=500,
+                                      trailer=100)
+            adc = np.clip(pa * 8192.0 / 1400.0, -32000, 32000).astype(np.int16)
+            sw.write(name, adc, 8192.0, 0.0, 1400.0, 4000.0)
+    index_app.main([fastq, "--slow5", slow5])
+    bam = str(d / "aln.bam")
+    w = BamWriter(bam, "@HD\tVN:1.6\tSO:coordinate\n", ["tig1"], [GENOME_LEN])
+    for name, _ in plan:
+        w.write(BamRecord(qname=name, tid=0, pos=pos0, mapq=60,
+                          cigar=[(0, READ_LEN)],
+                          seq=genome[pos0:pos0 + READ_LEN],
+                          qual=np.full(READ_LEN, 30, np.uint8),
+                          tags={"NM": ("i", 0)}))
+    w.close()
+    return {"fastq": fastq, "bam": bam, "ref_fa": ref_fa, "vcf": vcf,
+            "snp_pos": snp_pos, "pos0": pos0, "ref": ref_base,
+            "alt": alt_base}
+
+
+def _args(p):
+    return ["-r", p["fastq"], "-b", p["bam"], "-g", p["ref_fa"]]
+
+
+def _transitions(err: str) -> str:
+    return err[err.index("Transition parameters for 0"):]
+
+
+@pytest.mark.parametrize("opts", ["", "--calibrate", "--train-transitions"])
+def test_scorereads_matches_jax_app(phased_pipeline, opts, capsys):
+    from nanopolish_tpu.apps import scorereads as jax_app
+    args = _args(phased_pipeline) + opts.split()
+    want = io.StringIO()
+    jax_app.main(args, stdout=want)
+    want_err = capsys.readouterr().err
+    got = io.StringIO()
+    sc.main(args + ["--device", "cpu"], stdout=got)
+    got_err = capsys.readouterr().err
+    with capsys.disabled():
+        rep = assert_agree(got.getvalue(), want.getvalue(),
+                           f"scorereads {opts}")
+    lines = got.getvalue().splitlines()
+    assert rep["rows"] >= 4 and sum(ln.startswith("SEGMENT\t")
+                                    for ln in lines) >= 2
+    if opts == "--train-transitions":
+        assert_agree(_transitions(got_err), _transitions(want_err),
+                     "scorereads transition table")
+        assert "matches=0" not in _transitions(got_err).split(
+            "SUMMARY")[1].splitlines()[0]
+
+
+def test_scorereads_cli_scores_are_plausible(phased_pipeline):
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    r = subprocess.run([sys.executable, "-m", "nanopolish_tpu_torch",
+                        "scorereads", *_args(phased_pipeline), "--device",
+                        "cpu"], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr
+    score_lines = [ln.split() for ln in r.stdout.splitlines()
+                   if not ln.startswith("SEGMENT")]
+    assert len(score_lines) == 2
+    for f in score_lines:
+        assert f[1] == "template" and f[4] == "shift"
+        assert -4.0 < float(f[3]) < 0.0
+
+
+def test_phase_reads_matches_jax_app(phased_pipeline):
+    from nanopolish_tpu.apps import phase_reads as jax_app
+    p = phased_pipeline
+    args = _args(p) + [p["vcf"]]
+    want = io.StringIO()
+    jax_app.main(args, stdout=want)
+    got = io.StringIO()
+    pr.main(args + ["--device", "cpu"], stdout=got)
+    assert_agree(got.getvalue(), want.getvalue(), "phase-reads", sam=True)
+    calls = {}
+    for line in got.getvalue().splitlines():
+        if line.startswith("@"):
+            continue
+        f = line.split("\t")
+        i = p["snp_pos"] - p["pos0"]
+        calls[f[0]] = (f[9][i], ord(f[10][i]) - 33)
+    assert calls["hap_alt"][0] == p["alt"] and calls["hap_ref"][0] == p["ref"]
+    assert calls["hap_alt"][1] > 3 and calls["hap_ref"][1] > 3
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (Forward scoring through the CUDA "
+                    "kernel)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_phase_reads_gpu_matches_cpu(phased_pipeline, cuda_device):
+    p = phased_pipeline
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        out = io.StringIO()
+        pr.main(_args(p) + [p["vcf"], "--device", dev], stdout=out)
+        outs[dev] = out.getvalue()
+    assert_agree(outs["cuda"], outs["cpu"], "phase-reads", sam=True)

@@ -1,0 +1,180 @@
+#!/usr/bin/env python3
+"""Where nanopolish_tpu_torch spends its time on the card.
+
+    python3 tools/port_trace.py eventalign [--summary]
+    python3 tools/port_trace.py call-methylation
+
+Builds the chip_smoke.py main-path corpus (64 synthetic reads of 8 kb
+from a 100 kb genome; for call-methylation every other read carries
+cpg-methylated signal), runs the subcommand with `--device cuda` once to
+warm up (kernel build, allocator), once more with wall-clock timers
+around the pipeline's stages, and a third time under torch.profiler for
+the device's kernel time (the profiler's own host overhead inflates that
+run's wall, so the idle share is taken against the un-profiled wall).
+
+eventalign stages:
+  ingest      models.read_loader.load_squiggle_reads (signal load, event
+              detection on the host, the batched device chain)
+    detect    ops.event_detect.detect_events (host, per read, threaded)
+    device    models.read_builder._process_chunk (MoM, banded kernels,
+              WLS, one fetch)
+  align       alignment.eventalign.align_reads_to_ref (the wavefront)
+    viterbi   alignment.segments.viterbi_segments (per round: padding,
+              upload, two kernels, fetch, path expansion)
+  emit        the rest of apps.eventalign.main (TSV rendering, BAM
+              reading, and with --summary the per-read summary file,
+              which chip_smoke.py's main-path run writes)
+
+call-methylation stages (ingest and geometry run on the loader threads,
+resolve on a fetch thread; each is summed over its threads):
+  ingest      models.read_loader.load_squiggle_reads, as above
+    detect    ops.event_detect.detect_events
+    device    models.read_builder._process_chunk
+  geometry    apps.call_methylation.collect_read_tasks_native (motif
+              groups, event bounds, rank rows; native code) or its NumPy
+              twin
+  score       apps.call_methylation.score_batch_arrays on the main thread
+              (host gathers into padded matrices, upload, Forward
+              launches)
+  resolve     the score fetch and the per-site columns
+  write       TSV rows and modbam records
+
+Prints one JSON line: wall and stage seconds, device kernel time by
+kernel, the device's busy and idle share of the wall.  The Chrome trace
+goes to build/port_trace/<subcommand>/trace.json.  Needs a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a GPU: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from nanopolish_tpu_torch.alignment import eventalign as ea_core
+    from nanopolish_tpu_torch.alignment import segments
+    from nanopolish_tpu_torch.apps import call_methylation as cm_app
+    from nanopolish_tpu_torch.apps import eventalign as ea_app
+    from nanopolish_tpu_torch.models import read_builder, read_loader
+    from nanopolish_tpu_torch.ops import event_detect
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("subcommand", choices=("eventalign", "call-methylation"))
+    ap.add_argument("--summary", action="store_true",
+                    help="also write eventalign --summary")
+    args = ap.parse_args()
+
+    totals = {}
+    lock = threading.Lock()
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                with lock:
+                    totals[name] = totals.get(name, 0.0) + \
+                        time.perf_counter() - t0
+        return run
+
+    event_detect.detect_events = timed("detect", event_detect.detect_events)
+    read_builder._process_chunk = timed("device", read_builder._process_chunk)
+    ingest = timed("ingest", read_loader.load_squiggle_reads)
+    d = os.path.join(ROOT, "build", "port_trace", args.subcommand)
+    out_path = os.path.join(d, "out.tsv")
+    if args.subcommand == "eventalign":
+        ea_app.load_squiggle_reads = ingest
+        ea_app.align_reads_to_ref = timed("align", ea_core.align_reads_to_ref)
+        ea_core.viterbi_segments = timed("viterbi", segments.viterbi_segments)
+        ref_fa, fastq, bam = chip_smoke.build_main_corpus(d)
+        app, extra = ea_app, []
+        if args.summary:
+            extra = ["--summary", os.path.join(d, "summary.tsv")]
+        names = ("ingest", "detect", "device", "align", "viterbi")
+        inner = ("ingest", "align")
+    else:
+        cm_app.load_squiggle_reads = ingest
+        for fn in ("collect_read_tasks_native", "collect_read_tasks_arrays"):
+            setattr(cm_app, fn, timed("geometry", getattr(cm_app, fn)))
+        cm_app.score_batch_arrays = timed("score", cm_app.score_batch_arrays)
+        make_resolver = cm_app._make_resolver
+        cm_app._make_resolver = lambda *a: timed("resolve", make_resolver(*a))
+        for fn in ("write_read_sites_cols", "site_cols_to_map",
+                   "create_reference_modbam_record"):
+            setattr(cm_app, fn, timed("write", getattr(cm_app, fn)))
+        ref_fa, fastq, bam = chip_smoke.build_main_corpus(
+            d, chip_smoke.main_methylated())
+        app = cm_app
+        extra = ["--modbam-output-name", os.path.join(d, "mods.bam")]
+        names = ("ingest", "detect", "device", "geometry", "score",
+                 "resolve", "write")
+        inner = ()
+    argv = ["-r", fastq, "-b", bam, "-g", ref_fa, "--device", "cuda"] + extra
+
+    def run():
+        with open(out_path, "w") as fh:
+            app.main(argv, stdout=fh)
+        torch.cuda.synchronize()
+
+    run()                                            # warm-up
+    totals.clear()
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    stages = dict(totals)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+    wall_profiled = time.perf_counter() - t0
+
+    kernels = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0.0)
+        if dev_us and ev.key and not ev.key.startswith(("cuda", "aten::")):
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e6
+    busy = sum(kernels.values())
+    prof.export_chrome_trace(os.path.join(d, "trace.json"))
+    rows = sum(1 for _ in open(out_path)) - 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12])
+    result = {
+        "card": smi, "subcommand": args.subcommand,
+        "reads": chip_smoke.MAIN_READS, "read_len": chip_smoke.MAIN_READ_LEN,
+        "summary": args.summary,
+        "rows": rows, "wall_s": wall, "rows_per_s": rows / wall,
+        "stages_s": {k: stages.get(k, 0.0) for k in names},
+        "wall_profiled_s": wall_profiled,
+        "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
+        "kernels_s": top}
+    if inner:
+        result["emit_s"] = wall - sum(stages.get(k, 0.0) for k in inner)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
