@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. the card's name and power limit; build the five CUDA kernels from
+  1. the card's name and power limit; build the six CUDA kernels from
      nanopolish_tpu_torch/csrc/ (one nvcc per source, all at once);
   2. banded-alignment kernels (fill, backtrack) against their plain
      PyTorch versions on the card, bit for bit, on 32 reads x 2 kb plus
@@ -17,17 +17,30 @@ Phases (any failure exits non-zero; nothing is caught):
      call-methylation-shaped segments (17-221 kmers, 30-460 events, all
      four clip flags) and 64 scorereads-shaped ones (501 x 250), within
      2e-3 nats; then timing;
+  4b. the indexed Forward kernel (variants' drain) against its plain
+     version and against the flat Forward kernel on the same gathered
+     inputs, bit for bit: a screening-shaped batch (8,192 segments of 5-32
+     kmers and 10-80 events, ~10 sequences per event slice, one warp per
+     segment), every width 1-32, and a calling-shaped batch (512 segments
+     of 100-256 kmers, one block per segment); then timing;
   5. the goldens on the card through the CLI entry points: the 4-read
-     eventalign pipeline of tests/test_golden_outputs.py (byte for byte)
-     and the 3-read methylation pipeline (TSV and both modbam styles,
-     under the printed-output rule of tests/printed_output.py);
+     eventalign pipeline of tests/test_golden_outputs.py (byte for byte),
+     the 3-read methylation pipeline (TSV and both modbam styles) and the
+     12-read consensus pipeline (`variants --consensus`, plain and with
+     --fix-homopolymers), the last two under the printed-output rule of
+     tests/printed_output.py;
   6. the main paths on the card, each with the launch counts reset just
      before it and read just after: `index` + `eventalign` on 64 reads x
      8 kb from a 100 kb synthetic genome, then `call-methylation` (with a
      modbam) on 64 reads x 8 kb of which half carry cpg-methylated
      signal; then `scorereads` on 8 of the eventalign reads and
      `phase-reads` on a 2-read phased corpus, each held to the port's
-     CPU run under the printed-output rule;
+     CPU run under the printed-output rule; then `variants --consensus`
+     on a 50 kb draft window (250 reads x 2 kb of true signal, depth ~10,
+     332 planted substitutions: the corpus of tools/perf_e2e_variants.py
+     at NPT_E2E_WINDOW=50000, NPT_E2E_READS=250, NPT_E2E_READLEN=2000,
+     seed 41) with wall-clock stage timers and the card's busy time from
+     torch.profiler, and `vcf2fasta` on its VCF;
   7. one JSON line describing each kernel, then the result line.
 
 Everything it writes goes under build/chip_smoke/ in the checkout.
@@ -62,6 +75,11 @@ FWD_SEGMENTS, FWD_LONG = 2048, 64
 FWD_OPS_CELL = 5 + 5 + 9 * 6 + 1 + 4 + 2
 FWD_OPS_ROW = 3 * 6 + 4
 LLR = 5          # log_lik_ratio column of the call-methylation TSV
+# indexed Forward check: screening-shaped and calling-shaped batches
+IDX_SCREEN, IDX_CALL = 8192, 512
+# the variants main path: a draft window polished by tiled reads
+VAR_WINDOW, VAR_READS, VAR_READ_LEN = 50_000, 250, 2000
+SUB = {"A": "G", "C": "T", "G": "A", "T": "C"}
 
 # published peaks of one H100 SXM (dense, no sparsity)
 PEAK_F32_FLOPS = 67e12
@@ -124,6 +142,13 @@ def once_ms(fn):
     end.record()
     end.synchronize()
     return start.elapsed_time(end), out
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def bound(nbytes: float, flops: float):
@@ -432,6 +457,136 @@ def phase_forward(model, dev, report):
     report["forward_fill"].update(max_abs_err=max(errs), **timed)
 
 
+# --------------------------------------------------------------- phase 4b --
+
+def indexed_batch(model, rng, n_seg, k_lo, k_hi, t_lo, t_hi, per_ev,
+                  n_reads=64, widths=None):
+    """Indexed Forward inputs (ops/profile_hmm_indexed.py): n_seg segments
+    of k_lo..k_hi kmers (or the given widths, cycled) against event rows
+    of t_lo..t_hi levels, per_ev segments per event row; per-read tables
+    of the model under random scalings; levels drawn along one of the
+    row's candidate windows, every other row stored reversed."""
+    from nanopolish_tpu_torch.ops import profile_hmm as ph
+    from nanopolish_tpu_torch.ops.banded_align import emission_constant
+    S = model.num_states
+    shift = rng.uniform(-2, 2, n_reads)
+    scale = rng.uniform(0.95, 1.05, n_reads)
+    var = rng.uniform(0.9, 1.3, n_reads)
+    mu = (scale[:, None] * model.level_mean[None] + shift[:, None]
+          ).astype(np.float32)
+    sig = (model.level_stdv[None] * var[:, None]).astype(np.float32)
+    tabs = np.stack([mu, sig, emission_constant(np.log(sig))])
+    E = -(-n_seg // per_ev)
+    U = max(n_seg // 4, 1)
+    n_km_u = (np.resize(np.asarray(widths, np.int32), U) if widths is not None
+              else rng.integers(k_lo, k_hi + 1, U).astype(np.int32))
+    Kc = int(n_km_u.max())
+    rank_mat = np.zeros((U, Kc), np.int32)
+    for u in range(U):
+        rank_mat[u, :n_km_u[u]] = rng.integers(0, S, n_km_u[u])
+    read_of = rng.integers(0, n_reads, E)
+    seg_ev = np.repeat(np.arange(E), per_ev)[:n_seg]
+    seg_u = rng.integers(0, U, n_seg)
+    n_ev_u = np.zeros(E, np.int32)
+    first_u = np.zeros(E, np.int64)
+    first_u[seg_ev[::-1]] = seg_u[::-1]
+    for e in range(E):
+        w = int(n_km_u[first_u[e]])
+        lo = max(t_lo, w) if t_lo is not None else int(1.6 * w)
+        hi = max(t_hi, lo) if t_hi is not None else int(2.4 * w)
+        n_ev_u[e] = rng.integers(lo, hi + 1)
+    Tc = int(n_ev_u.max())
+    levels_u = np.zeros((E, Tc), np.float32)
+    for e in range(E):
+        u, t, r = first_u[e], int(n_ev_u[e]), read_of[e]
+        w = int(n_km_u[u])
+        ks = rank_mat[u, np.minimum((np.arange(t) * w / t).astype(int),
+                                    w - 1)]
+        row = mu[r, ks] + rng.normal(0, 1, t) * sig[r, ks]
+        levels_u[e, :t] = row[::-1] if e % 2 else row
+    epb = rng.uniform(1.6, 2.4, n_reads).astype(np.float32)
+    trans_u = ph.make_transitions(epb, 0.9)
+    ids = np.stack([seg_ev, read_of[seg_ev], seg_u, read_of[seg_ev]],
+                   axis=1).astype(np.int32)
+    return levels_u, n_ev_u, tabs, rank_mat, n_km_u, trans_u, ids
+
+
+def indexed_work(levels_u, n_ev_u, tabs, rank_mat, n_km_u, trans_u, ids):
+    """Bytes and f32 operations of the indexed Forward on this batch: each
+    event row, rank row, table entry and transition row the segments use
+    read once, the ids and clips read and the scores written; the
+    operations of forward_work on each segment's (events, kmers)."""
+    ev_u, rk_u, tr_u = (np.unique(ids[:, c]) for c in (0, 2, 3))
+    nk = n_km_u[ids[:, 2]].astype(np.int64)
+    kmask = np.arange(rank_mat.shape[1])[None, :] < n_km_u[rk_u][:, None]
+    pairs = np.unique(np.concatenate([
+        (ids[ids[:, 2] == u, 1][:, None].astype(np.int64) * tabs.shape[2] +
+         rank_mat[u, :n_km_u[u]][None, :]).ravel() for u in rk_u]))
+    nbytes = float(np.sum(n_ev_u[ev_u].astype(np.float64) * 4 + 4) +
+                   np.sum(kmask) * 4 + len(rk_u) * 4 + len(pairs) * 12 +
+                   len(tr_u) * 32 + len(ids) * (16 + 2 + 4))
+    _, flops = forward_work(n_ev_u[ids[:, 0]], nk)
+    return nbytes, flops
+
+
+def phase_forward_indexed(model, dev, report):
+    import torch
+    import torch.nn.functional as F
+    from nanopolish_tpu_torch.ops import profile_hmm as ph
+    from nanopolish_tpu_torch.ops import profile_hmm_forward as pf
+    from nanopolish_tpu_torch.ops import profile_hmm_indexed as pi
+    from nanopolish_tpu_torch.ops.profile_hmm_viterbi import kmer_width
+
+    rng = np.random.default_rng(23)
+    cases = {
+        "screening-shaped": indexed_batch(model, rng, IDX_SCREEN, 5, 32, 10,
+                                          80, per_ev=10),
+        "widths 1-32": indexed_batch(model, rng, 1024, 1, 32, 10, 80,
+                                     per_ev=8, widths=np.arange(1, 33)),
+        "calling-shaped": indexed_batch(model, rng, IDX_CALL, 100, 256, None,
+                                        None, per_ev=4),
+    }
+    errs, timed = [], None
+    for name, arrays in cases.items():
+        pi.check_indexed(*arrays)
+        dts = (torch.float32, torch.int32, torch.float32, torch.int32,
+               torch.int32, torch.float32, torch.int32)
+        t = [torch.as_tensor(a, dtype=d, device=dev)
+             for a, d in zip(arrays, dts)]
+        n = t[6].shape[0]
+        clips = torch.ones((n, 2), dtype=torch.uint8, device=dev)
+        kp = kmer_width(int(arrays[4].max()))
+        got = pi.forward_indexed(*t, clips, kp=kp)
+        plain_ms, ref = once_ms(lambda: ph.forward_indexed_plain(*t, clips))
+        lv, nev, mu, sg, c, nk, tr = ph.gather_indexed(*t)
+        pad = kp - mu.shape[1]
+        flat = pf.forward_fill(lv.contiguous(), nev.contiguous(),
+                               F.pad(mu, (0, pad)).contiguous(),
+                               F.pad(sg, (0, pad), value=1.0).contiguous(),
+                               F.pad(c, (0, pad), value=ph.PAD_C).contiguous(),
+                               nk.contiguous(), tr.contiguous(), clips)
+        err = max(max_abs_err(got, ref), max_abs_err(got, flat))
+        same = float((got.view(torch.int32) == ref.view(torch.int32))
+                     .float().mean())
+        if not (bits_equal(got, ref) and bits_equal(got, flat)):
+            fail(f"forward_indexed differs from its plain version or from "
+                 f"forward_fill on the {name} batch (max_abs_err {err}, "
+                 f"{same:.2%} bit-identical)")
+        ms = cuda_ms(lambda: pi.forward_indexed(*t, clips, kp=kp))
+        nbytes, flops = indexed_work(*arrays)
+        bms, by = bound(nbytes, flops)
+        log(f"forward_indexed {name}: {n} segments, kmer width {kp} "
+            f"({'warp' if kp == 32 else 'block'} per segment), "
+            f"{len(arrays[1])} event rows, {len(arrays[4])} rank rows; "
+            f"max_abs_err {err} vs plain and vs forward_fill, {same:.1%} "
+            f"bit-identical; kernel {ms:.3f} ms (plain {plain_ms:.1f} ms), "
+            f"bound {bms:.4f} ms ({by})")
+        errs.append(err)
+        if timed is None:                 # the main path's dominant shape
+            timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    report["forward_indexed"].update(max_abs_err=max(errs), **timed)
+
+
 # ---------------------------------------------------------------- phase 5 --
 
 def _write_fa(path, name, seq):
@@ -575,6 +730,64 @@ def phase_golden(dev):
         assert_agree(render_bam(modbam),
                      open(os.path.join(golden, f"modbam_{style}.sam")).read(),
                      f"golden modbam_{style}.sam on {dev.type}", sam=True)
+
+    # the consensus golden recipe (tests/test_golden_outputs.py:166-208)
+    from nanopolish_tpu_torch.apps import variants as va_app
+    from nanopolish_tpu_torch.utils.synthetic import random_sequence
+    rng = np.random.default_rng(31)
+    truth = random_sequence(rng, 300)
+    draft = truth[:130] + SUB[truth[130]] + truth[131:]
+    d = os.path.join(WORK, "golden_cons")
+    draft_fa, fastq, bam = build_variants_corpus(
+        d, rng, draft, [(f"gc{i}", truth, 0) for i in range(12)], leader=400)
+    for extra in ([], ["--fix-homopolymers"]):
+        out = io.StringIO()
+        va_app.main(["-r", fastq, "-b", bam, "-g", draft_fa, "-w",
+                     "tig1:0-299", "--consensus", "-d", "5", "--device",
+                     dev.type] + extra, stdout=out)
+        assert_agree(out.getvalue(),
+                     open(os.path.join(golden, "consensus.vcf")).read(),
+                     f"golden consensus.vcf on {dev.type} {' '.join(extra)}")
+
+
+def build_variants_corpus(d, rng, draft, reads, leader=450):
+    """Draft FASTA, basecalls, blow5 signal, readdb index and BAM for
+    reads = [(name, true sequence, draft position)], each aligned without
+    gaps: the layout of tools/perf_e2e_variants.py and
+    tests/test_golden_outputs.py (signal at 9 samples/base under a random
+    shift per read, drawn from rng in read order)."""
+    from nanopolish_tpu_torch.apps import index as index_app
+    from nanopolish_tpu_torch.io.bam import BamRecord, BamWriter
+    from nanopolish_tpu_torch.io.slow5 import Blow5Writer
+    from nanopolish_tpu_torch.models.pore_model import PoreModelSet
+    from nanopolish_tpu_torch.models.squiggle import SquiggleScalings
+    from nanopolish_tpu_torch.utils.synthetic import synthetic_raw_signal
+
+    os.makedirs(d, exist_ok=True)
+    model = PoreModelSet.instance().get_model(
+        "r9.4_450bps", "nucleotide", "template", 6)
+    draft_fa = os.path.join(d, "draft.fa")
+    _write_fa(draft_fa, "tig1", draft)
+    fastq, slow5 = os.path.join(d, "reads.fastq"), os.path.join(d, "sig.blow5")
+    with open(fastq, "w") as fq, Blow5Writer(slow5) as sw:
+        for name, seq, _ in reads:
+            fq.write(f"@{name}\n{seq}\n+\n{'I' * len(seq)}\n")
+            sc = SquiggleScalings.from4(float(rng.uniform(-2, 2)), 1.0,
+                                        0.0, 1.0)
+            pa = synthetic_raw_signal(rng, seq, model, sc,
+                                      samples_per_base=9.0, leader=leader,
+                                      trailer=90)
+            sw.write(name, _adc(pa), 8192.0, 0.0, 1400.0, 4000.0)
+    index_app.main([fastq, "--slow5", slow5])
+    bam = os.path.join(d, "aln.bam")
+    w = BamWriter(bam, "@HD\tVN:1.6\tSO:coordinate\n", ["tig1"],
+                  [len(draft)])
+    for name, seq, pos in sorted(reads, key=lambda r: r[2]):
+        w.write(BamRecord(qname=name, tid=0, pos=pos, mapq=60,
+                          cigar=[(0, len(seq))], seq=seq,
+                          qual=np.full(len(seq), 30, np.uint8)))
+    w.close()
+    return draft_fa, fastq, bam
 
 
 def main_plan():
@@ -794,6 +1007,116 @@ def phase_scorereads_phase(dev, ea_corpus):
                      f"{name} on {dev.type} vs the cpu", sam=sam)
 
 
+def variants_corpus(d, window, n_reads, read_len):
+    """tools/perf_e2e_variants.py's corpus: a random truth (seed 41) whose
+    draft carries a substitution every 150 bases from 120, polished by
+    n_reads evenly staggered reads of read_len true bases."""
+    from nanopolish_tpu_torch.utils.synthetic import random_sequence
+    rng = np.random.default_rng(41)
+    truth = random_sequence(rng, window)
+    subs = list(range(120, window - 120, 150))
+    draft = list(truth)
+    for p in subs:
+        draft[p] = SUB[draft[p]]
+    draft = "".join(draft)
+    span = window - read_len
+    reads = [(f"r{i}", truth[pos:pos + read_len], pos)
+             for i, pos in ((i, span * i // (n_reads - 1))
+                            for i in range(n_reads))]
+    return build_variants_corpus(d, rng, draft, reads), truth, draft, subs
+
+
+def phase_variants(dev, window=VAR_WINDOW, n_reads=VAR_READS,
+                   read_len=VAR_READ_LEN):
+    """variants --consensus on the 50 kb window, then vcf2fasta; stage
+    timers around the pipeline's stages, the card's busy time from
+    torch.profiler (CUDA activity only).  Returns the launch counts."""
+    import torch
+    from nanopolish_tpu_torch.alignment.alignment_db import AlignmentDB
+    from nanopolish_tpu_torch.apps import variants as va_app
+    from nanopolish_tpu_torch.apps import vcf2fasta as v2f_app
+
+    d = os.path.join(WORK, "main_variants")
+    t0 = time.perf_counter()
+    (draft_fa, fastq, bam), truth, draft, subs = variants_corpus(
+        d, window, n_reads, read_len)
+    setup_s = time.perf_counter() - t0
+    vcf = os.path.join(d, "polished.vcf")
+    stages = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                stages[name] = stages.get(name, 0.0) + time.perf_counter() - t
+        return run
+
+    patched = [(AlignmentDB, "load_region"),
+               (va_app, "generate_candidate_single_base_edits"),
+               (va_app, "screen_variants_by_score"),
+               (va_app, "call_haplotype_from_candidates"),
+               (va_app, "expand_variants")]
+    saved = [getattr(o, a) for o, a in patched]
+    for (o, a), fn in zip(patched, saved):
+        setattr(o, a, timed(a, fn))
+
+    def run():
+        va_app.main(["-r", fastq, "-b", bam, "-g", draft_fa, "-w",
+                     f"tig1:0-{window - 1}", "--consensus", "-o", vcf, "-d",
+                     "10", "--device", dev.type])
+
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            wall, launches = timed_run(run, ("banded_fill", "banded_backtrack",
+                                             "forward_indexed"))
+    finally:
+        for (o, a), fn in zip(patched, saved):
+            setattr(o, a, fn)
+    busy = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us and ev.key and not ev.key.startswith(("cuda", "aten::")):
+            busy[ev.key] = busy.get(ev.key, 0.0) + us / 1e6
+    busy_s = sum(busy.values())
+    top = {k: round(v, 4) for k, v in
+           sorted(busy.items(), key=lambda kv: -kv[1])[:6]}
+
+    keys = set()
+    for line in open(vcf):
+        if not line.startswith("#"):
+            f = line.split("\t")
+            keys.add((int(f[1]) - 1, f[3], f[4]))
+    recovered = sum((p, draft[p], truth[p]) in keys for p in subs)
+    elsewhere = len(keys) - recovered
+    out = io.StringIO()
+    v2f_app.main(["-g", draft_fa, vcf], stdout=out)
+    polished = out.getvalue().splitlines()[1]
+    diff = sum(a != b for a, b in zip(polished, truth)) \
+        if len(polished) == len(truth) else None
+    log(f"main path variants --consensus {window} bases, {n_reads} reads x "
+        f"{read_len} bases on {dev.type} ({card()}): {wall:.2f} s, "
+        f"{window / wall:.1f} bases/s (set-up {setup_s:.1f} s); planted "
+        f"substitutions recovered {recovered} of {len(subs)}, calls "
+        f"elsewhere {elsewhere}; vcf2fasta: {len(polished)} bases, "
+        f"{diff} differ from the truth; stages "
+        f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}; card "
+        f"busy {busy_s:.3f} s (idle share {1 - busy_s / wall:.4f}), by "
+        f"kernel {json.dumps(top)}; launches {json.dumps(launches)}")
+    if recovered < len(subs) - 2 or elsewhere > 6:
+        fail(f"variants recovered {recovered} of {len(subs)} planted "
+             f"substitutions with {elsewhere} calls elsewhere")
+    if abs(len(polished) - len(truth)) > elsewhere or \
+            (diff is not None and diff > len(subs) - recovered + elsewhere):
+        fail(f"vcf2fasta: {len(polished)} bases for a {len(truth)}-base "
+             f"truth, {diff} differing")
+    return launches
+
+
 # ------------------------------------------------------------------- main --
 
 def main() -> int:
@@ -806,10 +1129,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     shutil.rmtree(WORK, ignore_errors=True)     # inputs are made anew
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    log(card())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     build_s = cuda_build.build_kernels(force=True, verbose=True)
@@ -826,11 +1146,13 @@ def main() -> int:
     phase_banded(model, dev, report)
     phase_viterbi(model, dev, report)
     phase_forward(model, dev, report)
+    phase_forward_indexed(model, dev, report)
     phase_golden(dev)
     launches, ea_corpus = phase_eventalign(dev)
     # the Forward kernel's launches are those of its own slice's main path
     launches["forward_fill"] = phase_call_methylation(dev)["forward_fill"]
     phase_scorereads_phase(dev, ea_corpus)
+    launches["forward_indexed"] = phase_variants(dev)["forward_indexed"]
 
     replaces = {
         "banded_fill": "nanopolish_tpu/ops/pallas_banded_exact.py:210",
@@ -838,6 +1160,7 @@ def main() -> int:
         "viterbi_fill": "nanopolish_tpu/ops/pallas_profile_hmm.py:637",
         "viterbi_backtrack": "nanopolish_tpu/ops/pallas_profile_hmm.py:758",
         "forward_fill": "nanopolish_tpu/ops/pallas_profile_hmm.py:97",
+        "forward_indexed": "nanopolish_tpu/ops/pallas_profile_hmm.py:987",
     }
     kernels = []
     for name in cuda_build.KERNELS:

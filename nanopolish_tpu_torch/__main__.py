@@ -26,11 +26,13 @@ SUBCOMMANDS = {
     "call-methylation": _lazy("call_methylation"),
     "scorereads": _lazy("scorereads"),
     "phase-reads": _lazy("phase_reads"),
+    "variants": _lazy("variants"),
+    "vcf2fasta": _lazy("vcf2fasta"),
 }
 
 # subcommands of nanopolish_tpu that this package does not run yet
-NOT_PORTED = ("variants", "methyltrain", "vcf2fasta", "polya", "detect-polyi",
-              "fast5-check", "train-poremodel-from-basecalls")
+NOT_PORTED = ("methyltrain", "polya", "detect-polyi", "fast5-check",
+              "train-poremodel-from-basecalls")
 
 
 def main(argv=None):

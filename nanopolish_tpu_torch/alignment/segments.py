@@ -7,11 +7,15 @@ kernels batched, and unpacks per-segment results — the batched
 replacement for the reference's per-call profile_hmm_align and
 profile_hmm_score (src/hmm/nanopolish_profile_hmm.cpp:14-65).  Soft-clip
 flags are per-segment kernel inputs, so segments with different flags
-share a launch.
+share a launch.  ``ScoreBatcher`` pools variants' (sequence set, event
+range) units and drains them through the indexed Forward
+(``ops/profile_hmm_indexed``), which gathers each segment from shared
+inputs instead of padded per-segment copies.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -19,8 +23,11 @@ import numpy as np
 import torch
 
 from ..models.squiggle import SquiggleRead
-from ..ops.profile_hmm import paths_to_segments
+from ..ops.banded_align import emission_constant
+from ..ops.profile_hmm import (HAF_ALLOW_POST_CLIP, HAF_ALLOW_PRE_CLIP,
+                               make_transitions, paths_to_segments)
 from ..ops.profile_hmm_forward import forward_scores, prepare_forward_inputs
+from ..ops.profile_hmm_indexed import forward_indexed_scores
 from ..ops.profile_hmm_viterbi import prepare_viterbi_inputs, viterbi_paths
 from ..utils.device import resolve_device
 
@@ -114,6 +121,21 @@ def _model_tables(read: SquiggleRead, strand: int, model
     return entry[2], entry[3]
 
 
+def model_table_rows(read: SquiggleRead, strand: int, model) -> np.ndarray:
+    """[3, S] f32 rows mu, sigma, c of the indexed Forward's per-read tables
+    (``ops/profile_hmm_indexed``): ``_model_tables`` and
+    ``c = LOG_INV_SQRT_2PI - log(sigma)`` as ``prepare_viterbi_inputs``
+    computes it, cached like ``_model_tables``."""
+    mu, sig = _model_tables(read, strand, model)
+    cache = _read_cache(read, "_indexed_table_cache")
+    key = (strand, id(model))
+    entry = cache.get(key)
+    if entry is None or entry[0] is not mu:
+        entry = (mu, np.stack([mu, sig, emission_constant(np.log(sig))]))
+        cache[key] = entry
+    return entry[1]
+
+
 def make_segment(read: SquiggleRead, strand: int, ranks: np.ndarray,
                  event_start: int, event_stop: int, model=None,
                  flags: int = 0, levels: Optional[np.ndarray] = None
@@ -161,12 +183,13 @@ def _buckets(segments: Sequence[HMMSegment], max_batch: int):
 def viterbi_segments(segments: Sequence[HMMSegment],
                      indel_bias: float = 1.0,
                      max_batch: int = 1024,
-                     device=None,
+                     device=None, probs: Optional[dict] = None,
                      ) -> List[Tuple[np.ndarray, np.ndarray, str]]:
     """Viterbi-align each segment on ``device`` (``cuda`` unless ``cpu``
     is asked); returns per-segment (event_offsets, kmer_idxs,
     state_string) in forward order (profile_hmm_align_r9 semantics,
-    r9.cpp:73-204)."""
+    r9.cpp:73-204).  ``probs`` overrides make_transitions' p_skip, p_bad,
+    p_skip_self and p_bad_self."""
     dev = resolve_device(device)
     results: List[Optional[Tuple]] = [None] * len(segments)
     for tp, chunk in _buckets(segments, max_batch):
@@ -189,8 +212,9 @@ def viterbi_segments(segments: Sequence[HMMSegment],
             n_kmers[bi] = nk
             epb[bi] = s.events_per_base
             flags[bi] = s.flags
-        x = prepare_viterbi_inputs(levels, n_events, mu, sigma, n_kmers, epb,
-                                   flags, indel_bias, device=dev)
+        x = prepare_viterbi_inputs(
+            levels, n_events, mu, sigma, n_kmers, epb, flags, indel_bias,
+            make_transitions(epb, indel_bias, **(probs or {})), device=dev)
         backs = paths_to_segments(viterbi_paths(x).cpu().numpy())
         for bi, si in enumerate(chunk):
             results[si] = backs[bi]
@@ -201,7 +225,7 @@ def forward_arrays_async(levels_mat: np.ndarray, n_events: np.ndarray,
                          mu_mat: np.ndarray, sigma_mat: np.ndarray,
                          n_kmers: np.ndarray, epb: np.ndarray,
                          flags: np.ndarray, indel_bias: float = 1.0,
-                         device=None):
+                         device=None, probs: Optional[dict] = None):
     """Forward-score n segments given as padded arrays (levels_mat
     [n, Tmax], mu/sigma_mat [n, Kmax], n_events/n_kmers [n] i32, epb [n]
     f32, flags [n] i32) on ``device`` (``cuda`` unless ``cpu`` is asked).
@@ -209,7 +233,8 @@ def forward_arrays_async(levels_mat: np.ndarray, n_events: np.ndarray,
     closure makes one device-to-host copy of the concatenated scores and
     returns them as [n] f32.  Rows are bucketed by power-of-two event
     length and kmer width, at most FORWARD_BATCH per launch; a score does
-    not depend on its bucket's padding."""
+    not depend on its bucket's padding.  ``probs`` as in
+    ``viterbi_segments``."""
     dev = resolve_device(device)
     n = len(n_events)
     out = np.zeros(n, np.float32)
@@ -219,6 +244,7 @@ def forward_arrays_async(levels_mat: np.ndarray, n_events: np.ndarray,
     n_kmers = np.asarray(n_kmers, np.int32)
     epb = np.asarray(epb, np.float32)
     flags = np.broadcast_to(np.asarray(flags, np.int32), (n,))
+    trans = make_transitions(epb, indel_bias, **(probs or {}))
     buckets: dict = {}
     for i, key in enumerate(zip(n_events.tolist(), n_kmers.tolist())):
         buckets.setdefault(_bucket_key(*key), []).append(i)
@@ -231,7 +257,7 @@ def forward_arrays_async(levels_mat: np.ndarray, n_events: np.ndarray,
             x = prepare_forward_inputs(
                 levels_mat[ii, :T], n_events[ii], mu_mat[ii, :K],
                 sigma_mat[ii, :K], n_kmers[ii], epb[ii], flags[ii],
-                indel_bias, device=dev)
+                indel_bias, trans[ii], device=dev)
             pending.append(forward_scores(x))
             order.append(ii)
     cat = torch.cat(pending)
@@ -248,18 +274,20 @@ def forward_arrays(levels_mat: np.ndarray, n_events: np.ndarray,
                    mu_mat: np.ndarray, sigma_mat: np.ndarray,
                    n_kmers: np.ndarray, epb: np.ndarray,
                    flags: np.ndarray, indel_bias: float = 1.0,
-                   device=None) -> np.ndarray:
+                   device=None, probs: Optional[dict] = None) -> np.ndarray:
     """``forward_arrays_async`` resolved at once: [n] f32 scores."""
     return forward_arrays_async(levels_mat, n_events, mu_mat, sigma_mat,
                                 n_kmers, epb, flags, indel_bias,
-                                device=device)()
+                                device=device, probs=probs)()
 
 
 def forward_segments(segments: Sequence[HMMSegment],
-                     indel_bias: float = 1.0, device=None) -> np.ndarray:
+                     indel_bias: float = 1.0, device=None,
+                     probs: Optional[dict] = None) -> np.ndarray:
     """Forward-score each segment on ``device`` (``cuda`` unless ``cpu``
     is asked); returns [n_segments] float32 log-likelihoods
-    (profile_hmm_score_r9 semantics, r9.cpp:35-65)."""
+    (profile_hmm_score_r9 semantics, r9.cpp:35-65).  ``probs`` as in
+    ``viterbi_segments``."""
     n = len(segments)
     T = max((len(s.levels) for s in segments), default=1)
     K = max((len(s.mu) for s in segments), default=1)
@@ -280,4 +308,209 @@ def forward_segments(segments: Sequence[HMMSegment],
         epb[i] = s.events_per_base
         flags[i] = s.flags
     return forward_arrays(levels, n_events, mu, sigma, n_kmers, epb, flags,
-                          indel_bias, device=device)
+                          indel_bias, device=device, probs=probs)
+
+
+def seq_set_key(sequences) -> tuple:
+    """Memo-key fragment for a sequence set, cached per HMMInputSequence
+    (they are not modified once built)."""
+    frags = []
+    for hs in sequences:
+        f = getattr(hs, "_seq_key", None)
+        if f is None:
+            f = hs._seq_key = (hs.seq, hs.alphabet.name)
+        frags.append(f)
+    return tuple(frags)
+
+
+def event_key(data) -> tuple:
+    """Identity of an event range (read, strand, rc, start, stop), cached
+    on the EventSequence: the polishing loop rebuilds the objects every
+    round, but they describe the same slices."""
+    dk = getattr(data, "_memo_frag", None)
+    if dk is None:
+        dk = data._memo_frag = (data.sr.read_name, data.strand, data.rc,
+                                data.event_start_idx, data.event_stop_idx)
+    return dk
+
+
+class ScoreBatcher:
+    """Pools (sequence set, event range) scoring units; ``flush()`` scores
+    every pending segment, both soft clips allowed (the scoring of
+    profile_hmm_score_set), in one indexed drain on ``device`` and resolves
+    each unit to its profile_hmm_score_set value (the log-mean over the
+    alternative sequences, profile_hmm.cpp:32-56).
+
+    With a ``memo`` dict (AlignmentDB.score_memo) resolved unit scores are
+    cached by (sequence set, read, strand, event range): the polishing
+    loop re-screens every candidate each round and scores the shared base
+    haplotype once per candidate edit at a position; both are fixed for a
+    loaded region, so repeats skip the device.  Identical units added
+    before a flush resolve to one unit (in-flight dedup).  ``probs`` as in
+    ``viterbi_segments``."""
+
+    def __init__(self, indel_bias: float = 1.0,
+                 memo: Optional[dict] = None, device=None,
+                 probs: Optional[dict] = None):
+        self._device = resolve_device(device)
+        self._probs = probs or {}
+        # pending segments as (sequence, event range); the heavy work
+        # (rank rows, level slices, tables) happens once in flush()
+        self._pend: List[Tuple] = []
+        # unit -> (start, count, memo_key) pending, or (None, value, None)
+        self._units: List[Tuple] = []
+        self._results: Optional[np.ndarray] = None
+        self._indel_bias = indel_bias
+        self._memo = memo
+        self._inflight: dict = {}
+
+    def add(self, sequences, data, frags: Optional[tuple] = None) -> int:
+        """Enqueue one scoring unit; ``frags`` is seq_set_key(sequences)
+        when the caller has it already."""
+        key = None
+        if self._memo is not None:
+            if frags is None:
+                frags = seq_set_key(sequences)
+            key = (frags, event_key(data), self._indel_bias)
+            hit = self._memo.get(key)
+            if hit is not None:
+                self._units.append((None, hit, None))
+                return len(self._units) - 1
+            prev = self._inflight.get(key)
+            if prev is not None:
+                return prev
+        start = len(self._pend)
+        for hs in sequences:
+            self._pend.append((hs, data))
+        self._units.append((start, len(sequences), key))
+        idx = len(self._units) - 1
+        if key is not None:
+            self._inflight[key] = idx
+        return idx
+
+    def flush(self):
+        scores = self._score_pending() if self._pend \
+            else np.zeros(0, np.float32)
+        out = np.zeros(len(self._units), np.float64)
+        memo = self._memo
+        if all(count == 1 for start, count, _ in self._units
+               if start is not None):
+            # no methylation alternatives: a unit's score is its segment's
+            starts = np.array([s if s is not None else -1
+                               for s, _, _ in self._units], np.int64)
+            pend = starts >= 0
+            out[~pend] = [c for s, c, _ in self._units if s is None]
+            out[pend] = scores[starts[pend]].astype(np.float64)
+            if memo is not None:
+                for i in np.flatnonzero(pend):
+                    memo[self._units[i][2]] = out[i]
+        else:
+            for i, (start, count, key) in enumerate(self._units):
+                if start is None:           # memo hit recorded in add()
+                    out[i] = count
+                    continue
+                vals = scores[start:start + count].astype(np.float64)
+                m = vals.max()
+                out[i] = m + math.log(np.exp(vals - m).sum()) - math.log(count)
+                if memo is not None:
+                    memo[key] = out[i]
+        self._results = out
+
+    def _score_pending(self) -> np.ndarray:
+        """Score every pending segment through the indexed drain
+        (``ops/profile_hmm_indexed.forward_indexed_scores``): the unique
+        event slices, per-read tables, kmer-rank rows and transition rows
+        go to the device once, plus four ids per segment."""
+        n = len(self._pend)
+        ids = np.empty((n, 4), np.int32)
+        ev_rows: List[Tuple] = []      # (sr, strand, e1, e2)
+        tab_rows: List[Tuple] = []     # (sr, strand, model)
+        rank_rows: List[np.ndarray] = []
+        trans_rows: List[float] = []   # events per base per (sr, strand)
+        ev_ids: dict = {}
+        tab_ids: dict = {}
+        trans_ids: dict = {}
+        # a flush sees each EventSequence and HMMInputSequence many times
+        # (a position's ~18 screening units share one event list); their
+        # row ids are cached on the objects under a per-flush epoch
+        epoch = object()
+        for i, (hs, data) in enumerate(self._pend):
+            st = getattr(data, "_flush_st", None)
+            if st is None or st[0] is not epoch:
+                ekey = (id(data.sr), data.strand, data.event_start_idx,
+                        data.event_stop_idx)
+                ei = ev_ids.get(ekey)
+                if ei is None:
+                    ei = ev_ids[ekey] = len(ev_rows)
+                    ev_rows.append((data.sr, data.strand,
+                                    data.event_start_idx,
+                                    data.event_stop_idx))
+                xkey = (id(data.sr), data.strand)
+                xi = trans_ids.get(xkey)
+                if xi is None:
+                    xi = trans_ids[xkey] = len(trans_rows)
+                    trans_rows.append(
+                        float(data.sr.events_per_base[data.strand]))
+                st = data._flush_st = (epoch, ei, xi, {})
+            _, ei, xi, tmap = st
+            aname = hs.alphabet.name
+            tm = tmap.get(aname)
+            if tm is None:
+                model = data.sr.get_model(data.strand, aname) \
+                    if aname != "nucleotide" \
+                    else data.sr.base_model[data.strand]
+                tkey = (id(data.sr), data.strand, id(model))
+                ti = tab_ids.get(tkey)
+                if ti is None:
+                    ti = tab_ids[tkey] = len(tab_rows)
+                    tab_rows.append((data.sr, data.strand, model))
+                tm = tmap[aname] = (ti, model)
+            ti, model = tm
+            rst = getattr(hs, "_flush_rids", None)
+            if rst is None or rst[0] is not epoch:
+                rst = hs._flush_rids = (epoch, {})
+            rkey = (data.rc, model.k)
+            ri = rst[1].get(rkey)
+            if ri is None:
+                ri = rst[1][rkey] = len(rank_rows)
+                rank_rows.append(hs.kmer_ranks(model.k, data.rc))
+            ids[i] = (ei, ti, ri, xi)
+
+        n_ev_u = np.array([abs(e2 - e1) + 1 for _, _, e1, e2 in ev_rows],
+                          np.int32)
+        n_km_u = np.array([len(r) for r in rank_rows], np.int32)
+        levels_u = np.zeros((len(ev_rows), int(n_ev_u.max())), np.float32)
+        for e, (sr, strand, e1, e2) in enumerate(ev_rows):
+            levels_u[e, :n_ev_u[e]] = segment_levels(sr, strand, e1, e2)
+        rank_mat = np.zeros((len(rank_rows), max(int(n_km_u.max()), 1)),
+                            np.int32)
+        for r, rk in enumerate(rank_rows):
+            rank_mat[r, :len(rk)] = rk
+        tabs = table_stack([model_table_rows(sr, strand, model)
+                            for sr, strand, model in tab_rows])
+        trans_u = make_transitions(np.array(trans_rows, np.float32),
+                                   self._indel_bias, **self._probs)
+        return forward_indexed_scores(levels_u, n_ev_u, tabs, rank_mat,
+                                      n_km_u, trans_u, ids,
+                                      HAF_ALLOW_PRE_CLIP | HAF_ALLOW_POST_CLIP,
+                                      device=self._device)
+
+    def get(self, unit_idx: int) -> float:
+        return float(self._results[unit_idx])
+
+    @property
+    def scores(self) -> np.ndarray:
+        """All unit scores (valid after flush)."""
+        return self._results
+
+
+def table_stack(rows: Sequence[np.ndarray]) -> np.ndarray:
+    """[3, R, S] tables from per-read [3, S_r] rows (``model_table_rows``),
+    padded to the widest model with mu 0, sigma 1 and the c of sigma 1."""
+    S = max(r.shape[1] for r in rows)
+    tabs = np.zeros((3, len(rows), S), np.float32)
+    tabs[1] = 1.0
+    tabs[2] = emission_constant(np.zeros(1, np.float32))[0]
+    for t, r in enumerate(rows):
+        tabs[:, t, :r.shape[1]] = r
+    return tabs

@@ -32,6 +32,11 @@ outputs:
     ``utils.logsum.add_logs_exact``, the K chain on the same pairwise
     tree as the Viterbi (``kstate_chain_logsum``), and the end terms
     folded into the score only on the rows the clip flags allow.
+  * ``forward_indexed_plain``: the same Forward from indexed inputs (each
+    segment four ids into shared event rows, per-read tables, kmer-rank
+    rows and transition rows), the plain version of
+    ``csrc/forward_indexed.cu`` (wrapped by ``ops/profile_hmm_indexed.py``):
+    ``gather_indexed`` builds the flat inputs, then ``forward_fill_plain``.
 
 The emission follows the scan's f32 evaluation: ``a = (x - mu) / sigma``
 and ``fma(-0.5*a, a, c)`` with ``c = LOG_INV_SQRT_2PI - log(sigma)``
@@ -47,7 +52,7 @@ import numpy as np
 import torch
 
 from ..utils.logsum import add_logs_exact
-from .emissions import fma32, log_normal_fused
+from .emissions import LOG_INV_SQRT_2PI, fma32, log_normal_fused
 
 # movement types (nanopolish_profile_hmm_r9.h:61-71)
 HMT_FROM_SAME_M = 0
@@ -86,6 +91,9 @@ PATH_KMER_SHIFT = 2
 MAX_KMERS = 1 << (PATH_EVENT_SHIFT - PATH_KMER_SHIFT)
 
 NEG_INF = float("-inf")
+
+# c of a padding kmer (sigma 1): f32(LOG_INV_SQRT_2PI) - log(1)
+PAD_C = float(np.float32(LOG_INV_SQRT_2PI))
 
 
 def make_transitions(events_per_base, indel_bias: float = 1.0,
@@ -292,6 +300,48 @@ def forward_fill_plain(levels, n_events, mu, sigma, c, n_kmers, trans,
         lp_end = torch.where(allowed, add(lp_end, cand), lp_end)
         M, Bs, Ks = M_new, B_new, K_new
     return lp_end
+
+
+def gather_indexed(levels_u, n_ev_u, tabs, rank_mat, n_km_u, trans_u, ids):
+    """The flat per-segment inputs of ``forward_fill_plain`` gathered from
+    the indexed ones (``forward_indexed_plain``): levels [n, Tc],
+    n_events [n], mu/sigma/c [n, Kc], n_kmers [n], trans [n, 8].  Kmers
+    past a segment's n_kmers get mu 0, sigma 1 and the c of sigma 1, the
+    padding of ``prepare_viterbi_inputs``."""
+    ids = ids.long()
+    ev, tab, rid, tid = ids[:, 0], ids[:, 1], ids[:, 2], ids[:, 3]
+    S = tabs.shape[2]
+    n_km = n_km_u[rid]
+    kmask = torch.arange(rank_mat.shape[1], device=ids.device)[None, :] < \
+        n_km[:, None].long()
+    flat = tab[:, None] * S + rank_mat[rid].long()
+
+    def take(row, pad):
+        return torch.where(kmask, tabs[row].reshape(-1)[flat],
+                           torch.tensor(pad, dtype=torch.float32,
+                                        device=ids.device))
+
+    return (levels_u[ev], n_ev_u[ev], take(0, 0.0), take(1, 1.0),
+            take(2, PAD_C), n_km, trans_u[tid])
+
+
+def forward_indexed_plain(levels_u, n_ev_u, tabs, rank_mat, n_km_u, trans_u,
+                          ids, clips) -> torch.Tensor:
+    """Forward log-likelihood [n] f32 per segment from indexed inputs: the
+    plain version of ``csrc/forward_indexed.cu``.
+
+    Args (tensors on one device): levels_u [E, Tc] f32 drift-corrected
+    levels in traversal order, n_ev_u [E] i32, tabs [3, R, S] f32 per-read
+    mu / sigma / c (``c = LOG_INV_SQRT_2PI - log(sigma)``, as
+    ``prepare_viterbi_inputs`` computes it), rank_mat [U, Kc] i32 kmer
+    ranks (padding entries must be valid ranks, e.g. 0), n_km_u [U] i32,
+    trans_u [R2, 8] f32 (TRANS_COLS), ids [n, 4] i32 (event row, table
+    row, rank row, transition row), clips [n, 2] (pre-clip, post-clip).
+    A segment's score equals ``forward_fill_plain`` on its gathered flat
+    inputs bit for bit, whatever Tc, Kc and batch it is scored in."""
+    lv, nev, mu, sigma, c, nk, trans = gather_indexed(
+        levels_u, n_ev_u, tabs, rank_mat, n_km_u, trans_u, ids)
+    return forward_fill_plain(lv, nev, mu, sigma, c, nk, trans, clips)
 
 
 def viterbi_backtrack_plain(trace, n_events, n_kmers) -> torch.Tensor:

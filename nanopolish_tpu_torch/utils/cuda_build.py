@@ -30,7 +30,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "nanopolish_tpu_torch")
 KERNELS = ("banded_fill", "banded_backtrack", "viterbi_fill",
-           "viterbi_backtrack", "forward_fill")
+           "viterbi_backtrack", "forward_fill", "forward_indexed")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -50,6 +50,8 @@ _ARGTYPES = {
     "viterbi_backtrack": [_P, _I, _I, _P, _P, _I, _P],
     "forward_fill": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _F, _F, _F, _I,
                      _P],
+    "forward_indexed": [_P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _F,
+                        _F, _F, _F, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -89,8 +91,9 @@ def _stale(name: str) -> bool:
     if not os.path.exists(out):
         return True
     built = os.path.getmtime(out)
-    srcs = [os.path.join(CSRC_DIR, f"{name}.cu"),
-            os.path.join(CSRC_DIR, "npt_common.cuh")]
+    srcs = [os.path.join(CSRC_DIR, f"{name}.cu")] + [
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+        if f.endswith(".cuh")]
     return any(os.path.getmtime(s) > built for s in srcs)
 
 

@@ -71,7 +71,9 @@ def test_eventalign_without_cuda_exits_with_reason():
 @pytest.mark.parametrize("argv", [
     ["call-methylation", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa"],
     ["scorereads", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa"],
-    ["phase-reads", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa", "x.vcf"]])
+    ["phase-reads", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa", "x.vcf"],
+    ["variants", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa", "-w",
+     "tig1:0-100", "--consensus"]])
 def test_forward_subcommands_without_cuda_exit_with_reason(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -82,13 +84,15 @@ def test_forward_subcommands_without_cuda_exit_with_reason(argv):
 
 
 def _library_calls():
-    from nanopolish_tpu_torch.alignment.segments import (forward_arrays,
+    from nanopolish_tpu_torch.alignment.segments import (ScoreBatcher,
+                                                         forward_arrays,
                                                          forward_segments,
                                                          viterbi_segments)
     from nanopolish_tpu_torch.models.read_builder import build_reads
     from nanopolish_tpu_torch.ops import banded_align as ba
     from nanopolish_tpu_torch.ops import banded_exact as bx
     from nanopolish_tpu_torch.ops import profile_hmm_forward as pf
+    from nanopolish_tpu_torch.ops import profile_hmm_indexed as pi
     from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
     ev = np.full((1, 8), 90.0, np.float32)
     mu = np.full((1, 4), 90.0, np.float32)
@@ -117,6 +121,12 @@ def _library_calls():
             ev, nev, mu, sd, nk, np.array([2.0], np.float32),
             np.zeros(1, np.int32), **kw),
         "build_reads": lambda **kw: build_reads([], **kw),
+        "forward_indexed_scores": lambda **kw: pi.forward_indexed_scores(
+            ev, nev, np.stack([mu, sd, sd]), np.arange(4, dtype=np.int32)[None],
+            nk,
+            np.zeros((1, 8), np.float32), np.zeros((1, 4), np.int32), 3,
+            **kw),
+        "ScoreBatcher": lambda **kw: ScoreBatcher(**kw),
     }
 
 
@@ -134,7 +144,7 @@ def test_library_entry_points_default_to_cuda(name):
 
 def test_unported_subcommands_exit_2():
     r = subprocess.run([sys.executable, "-m", "nanopolish_tpu_torch",
-                        "variants"], cwd=ROOT, capture_output=True,
+                        "polya"], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 2
     assert "not yet ported to nanopolish_tpu_torch" in r.stderr
