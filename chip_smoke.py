@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. the card's name and power limit; build the six CUDA kernels from
+  1. the card's name and power limit; build the eight CUDA kernels from
      nanopolish_tpu_torch/csrc/ (one nvcc per source, all at once);
   2. banded-alignment kernels (fill, backtrack) against their plain
      PyTorch versions on the card, bit for bit, on 32 reads x 2 kb plus
@@ -23,12 +23,19 @@ Phases (any failure exits non-zero; nothing is caught):
      kmers and 10-80 events, ~10 sequences per event slice, one warp per
      segment), every width 1-32, and a calling-shaped batch (512 segments
      of 100-256 kmers, one block per segment); then timing;
+  4c. the segmentation kernels (Viterbi fill, backtrack with the summary
+     fused) against their plain versions, bit for bit (backpointer
+     bytes, final scores, labels, summary), with the polya and the
+     detect-polyi parameters: the three batches of
+     tests/test_pallas_segmentation.py and a mixed-length batch of 512
+     reads x 2,000-65,536 samples; then timing on that batch;
   5. the goldens on the card through the CLI entry points: the 4-read
      eventalign pipeline of tests/test_golden_outputs.py (byte for byte),
      the 3-read methylation pipeline (TSV and both modbam styles) and the
      12-read consensus pipeline (`variants --consensus`, plain and with
      --fix-homopolymers), the last two under the printed-output rule of
-     tests/printed_output.py;
+     tests/printed_output.py, and the 3-read direct-RNA polya pipeline
+     (byte for byte);
   6. the main paths on the card, each with the launch counts reset just
      before it and read just after: `index` + `eventalign` on 64 reads x
      8 kb from a 100 kb synthetic genome, then `call-methylation` (with a
@@ -40,7 +47,10 @@ Phases (any failure exits non-zero; nothing is caught):
      332 planted substitutions: the corpus of tools/perf_e2e_variants.py
      at NPT_E2E_WINDOW=50000, NPT_E2E_READS=250, NPT_E2E_READLEN=2000,
      seed 41) with wall-clock stage timers and the card's busy time from
-     torch.profiler, and `vcf2fasta` on its VCF;
+     torch.profiler, and `vcf2fasta` on its VCF; then `polya` and
+     `detect-polyi` on 512 direct-RNA reads (tools/perf_e2e_polya.py's
+     corpus: seed 43, a planted 120-nt tail, ~19.5k samples per read),
+     with the card's busy time;
   7. one JSON line describing each kernel, then the result line.
 
 Everything it writes goes under build/chip_smoke/ in the checkout.
@@ -48,6 +58,7 @@ Everything it writes goes under build/chip_smoke/ in the checkout.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import math
@@ -77,6 +88,10 @@ FWD_OPS_ROW = 3 * 6 + 4
 LLR = 5          # log_lik_ratio column of the call-methylation TSV
 # indexed Forward check: screening-shaped and calling-shaped batches
 IDX_SCREEN, IDX_CALL = 8192, 512
+# segmentation check: a mixed-length batch of direct-RNA-sized reads
+SEG_READS, SEG_MAX = 512, 65536
+# the polya / detect-polyi main path: tools/perf_e2e_polya.py's corpus
+POLYA_READS, POLYA_NT, POLYA_TRANSCRIPT = 512, 120, 500
 # the variants main path: a draft window polished by tiled reads
 VAR_WINDOW, VAR_READS, VAR_READ_LEN = 50_000, 250, 2000
 SUB = {"A": "G", "C": "T", "G": "A", "T": "C"}
@@ -587,6 +602,147 @@ def phase_forward_indexed(model, dev, report):
     report["forward_indexed"].update(max_abs_err=max(errs), **timed)
 
 
+# --------------------------------------------------------------- phase 4c --
+
+def seg_read(rng, n_leader=300, n_adapter=200, n_polya=400, n_transcript=600):
+    """tests/test_pallas_segmentation.py's synthetic read: START-ish,
+    LEADER, ADAPTER, POLYA and TRANSCRIPT levels in pA."""
+    segs = [rng.normal(70.3, 3.8, 60), rng.normal(110.9, 5.2, n_leader),
+            rng.normal(63.3, 2.7, n_adapter), rng.normal(108.9, 3.3, n_polya),
+            rng.normal(79.7, 7.0, n_transcript)]
+    return np.concatenate(segs).astype(np.float32)
+
+
+def seg_batches():
+    """{name: (reads, scalings [B, 3])}: the three batches of
+    tests/test_pallas_segmentation.py and a mixed-length batch of
+    SEG_READS reads of 2,000-65,536 samples (a 2 kb transcript at ~30
+    samples/base), longest first as segment_reads orders them."""
+    scal3 = [(1.0, 0.0, 1.0), (1.02, 2.0, 1.1), (0.98, -1.5, 0.9)]
+    rng = np.random.default_rng(7)
+    out = {"1560": ([seg_read(rng)[:1560]], scal3[:1])}
+    rng = np.random.default_rng(7)
+    out["1560,900,1233"] = ([seg_read(rng)[:n] for n in (1560, 900, 1233)],
+                            scal3)
+    rng = np.random.default_rng(3)
+    out["dpi-shaped"] = ([seg_read(rng, 200, 150, 300, 400)], scal3[:1])
+    rng = np.random.default_rng(29)
+    lens = np.sort(rng.integers(2000, SEG_MAX + 1, SEG_READS))[::-1]
+    lens[0] = SEG_MAX
+    reads = []
+    for n in lens:
+        parts = (int(rng.integers(200, 600)), int(rng.integers(200, 600)),
+                 int(rng.integers(600, 4000)))
+        r = seg_read(rng, *parts, n_transcript=max(0, n - 60 - sum(parts)))
+        reads.append(r[:n])
+    scal = np.stack([rng.uniform(0.95, 1.05, SEG_READS),
+                     rng.uniform(-3, 3, SEG_READS),
+                     rng.uniform(0.9, 1.3, SEG_READS)], axis=1)
+    out["mixed"] = (reads, scal)
+    return out
+
+
+def seg_inputs(reads, scal, dev):
+    """Sample-major [N, B] samples (padded with 100.0), n [B] i32 and
+    scal [B, 3] f32 on dev."""
+    import torch
+    N = max(len(r) for r in reads)
+    x = np.full((N, len(reads)), 100.0, np.float32)
+    for j, r in enumerate(reads):
+        x[:len(r), j] = r
+    return (torch.as_tensor(x, device=dev),
+            torch.as_tensor([len(r) for r in reads], dtype=torch.int32,
+                            device=dev),
+            torch.as_tensor(np.asarray(scal, np.float32), device=dev))
+
+
+def seg_work(lens, dpi=False):
+    """Bytes and f32 operations of the segmentation fill and backtrack on
+    reads of these lengths.  Fill: each sample read once (4 B) and its
+    backpointer byte written once, per read n, scalings and final
+    scores; per sample the emission formula (clamp 2; a Gaussian density
+    6: sub, div, two muls, exp, div; a log density 6; S = density + mul,
+    add, log = 9; L 6; A and T = two densities + two muls, add, log = 16
+    each; P 6, or 16 as detect-polyi's mixture; C's band 2) and the chain
+    (12 transition adds, 6 maxima, 6 emission adds, 8 comparisons).
+    Backtrack: each byte read once, n read and the [5] summary written
+    per read; per sample a decode, 4 pair tests and the cliff test."""
+    lens = np.asarray(lens, np.float64)
+    emit = 2 + 9 + 6 + 16 + (16 if dpi else 6) + 2 + 16
+    fill_bytes = float(np.sum(lens * 5 + 4 + 12 + 24))
+    fill_flops = float(np.sum(lens) * (emit + 32))
+    bt_bytes = float(np.sum(lens + 4 + 20))
+    bt_flops = float(np.sum(lens) * 6)
+    return fill_bytes, fill_flops, bt_bytes, bt_flops
+
+
+def phase_segmentation(dev, report):
+    """Both segmentation kernels against their plain versions, bit for
+    bit (backpointer bytes, final scores, labels, summary), with the
+    polya and the detect-polyi parameters; then timing on the mixed
+    batch."""
+    import torch
+    from nanopolish_tpu_torch.apps.detect_polyi import DPI_PARAMS
+    from nanopolish_tpu_torch.ops import segmentation_hmm as sh
+    from nanopolish_tpu_torch.ops import segmentation_viterbi as sv
+
+    timed = None
+    for name, (reads, scal) in seg_batches().items():
+        x, n, s = seg_inputs(reads, scal, dev)
+        for pname, params in (("polya", sh.SegmentationParams()),
+                              ("dpi", DPI_PARAMS)):
+            k = sh.seg_constants(params)
+            bk, vk = sv.seg_viterbi_fill(x, n, s, k)
+            fill_plain_ms, (bp, vp) = once_ms(
+                lambda: sh.seg_viterbi_fill_plain(x, n, s, k))
+            if not bits_equal(bk, bp):
+                fail(f"seg_viterbi_fill: {int((bk != bp).sum())} backpointer "
+                     f"bytes differ from plain ({name}, {pname})")
+            if not bits_equal(vk, vp):
+                fail(f"seg_viterbi_fill: final scores differ from plain "
+                     f"({name}, {pname}; max_abs_err {max_abs_err(vk, vp)})")
+            sk, lk = sv.seg_backtrack(bk, n, labels=True)
+            bt_plain_ms, (sp, lp) = once_ms(
+                lambda: sh.seg_backtrack_plain(bp, n))
+            if not (bits_equal(sk, sp) and bits_equal(lk, lp)):
+                fail(f"seg_backtrack: {int((lk != lp).sum())} labels, "
+                     f"{int((sk != sp).any(1).sum())} summaries differ from "
+                     f"plain ({name}, {pname})")
+            # the main path's call: summary only, no labels
+            s_only, none = sv.seg_backtrack(bk, n)
+            if none is not None or not bits_equal(s_only, sp):
+                fail(f"seg_backtrack without labels differs ({name}, {pname})")
+            segs = [sh.segmentation_from_summary(r, len(rd))
+                    for r, rd in zip(sp.cpu().numpy(), reads)]
+            line = (f"segmentation {name} ({pname}): {len(reads)} reads, "
+                    f"{sum(map(len, reads))} samples; kernels == plain "
+                    f"(backpointers, final scores, labels, summary)")
+            if name != "mixed":
+                log(f"{line}; {segs[0]}")
+                continue
+            fill_ms = cuda_ms(lambda: sv.seg_viterbi_fill(x, n, s, k))
+            bt_ms = cuda_ms(lambda: sv.seg_backtrack(bk, n))
+            fb, ff, bb, bf = seg_work([len(r) for r in reads],
+                                      dpi=pname == "dpi")
+            (fbms, fby), (bbms, bby) = bound(fb, ff), bound(bb, bf)
+            log(f"{line}; fill {fill_ms:.3f} ms (plain {fill_plain_ms:.1f} "
+                f"ms, bound {fbms:.4f} ms {fby}), backtrack {bt_ms:.3f} ms "
+                f"(plain {bt_plain_ms:.1f} ms, bound {bbms:.4f} ms {bby}); "
+                f"{len(reads) / ((fill_ms + bt_ms) / 1e3):.0f} reads/s")
+            if timed is None:             # the polya parameters
+                timed = {"seg_viterbi_fill": dict(
+                            ms=fill_ms, plain_ms=fill_plain_ms, bound_ms=fbms,
+                            bound_by=fby, max_abs_err=max_abs_err(vk, vp)),
+                         "seg_backtrack": dict(
+                            ms=bt_ms, plain_ms=bt_plain_ms, bound_ms=bbms,
+                            bound_by=bby,
+                            max_abs_err=float((sk - sp).abs().max()))}
+            del bk, vk, bp, vp, sk, lk, sp, lp
+            torch.cuda.empty_cache()
+    for name, r in timed.items():
+        report[name].update(r)
+
+
 # ---------------------------------------------------------------- phase 5 --
 
 def _write_fa(path, name, seq):
@@ -748,6 +904,85 @@ def phase_golden(dev):
         assert_agree(out.getvalue(),
                      open(os.path.join(golden, "consensus.vcf")).read(),
                      f"golden consensus.vcf on {dev.type} {' '.join(extra)}")
+
+    # the polya golden recipe (tests/test_golden_outputs.py:244-291)
+    from nanopolish_tpu_torch.apps import polya as polya_app
+    ref_fa, fastq, bam = build_polya_corpus(
+        os.path.join(WORK, "golden_polya"), 3, 97, "grna")
+    out = io.StringIO()
+    with rna_reads():
+        polya_app.main(["-r", fastq, "-b", bam, "-g", ref_fa, "--device",
+                        dev.type], stdout=out)
+    same_as_golden(out.getvalue(), "polya.tsv")
+    log(f"golden polya on {dev.type}: identical to tests/golden/polya.tsv "
+        f"byte for byte")
+
+
+@contextlib.contextmanager
+def rna_reads():
+    """Slow5 records load as DNA; inside this block they report RNA (the
+    patch of the JAX package's polya tests and tools/perf_e2e_polya.py)."""
+    from nanopolish_tpu_torch.io.slow5 import Slow5Record
+    orig = Slow5Record.to_fast5_data
+    Slow5Record.to_fast5_data = (
+        lambda self, kit="", experiment_type="dna":
+        orig(self, kit=kit, experiment_type="rna"))
+    try:
+        yield
+    finally:
+        Slow5Record.to_fast5_data = orig
+
+
+def rna_read_signal(rng, transcript, model):
+    """3'->5' raw signal of one direct-RNA read: START | LEADER | ADAPTER
+    | a POLYA_NT tail | the transcript's kmer levels in reverse, ~30
+    samples/base (tests/test_polya_e2e.py's recipe)."""
+    parts = [rng.normal(70.3, 2.0, size=300), rng.normal(110.9, 2.0, size=400),
+             rng.normal(79.3, 2.5, size=400),
+             rng.normal(108.9, 1.5, size=int(POLYA_NT * 30.0))]
+    seq = transcript.replace("U", "T")
+    ranks = model.alphabet.seq_to_kmer_ranks(seq, model.k)[::-1]
+    nsamp = np.maximum(3, rng.poisson(30.0, size=len(ranks)))
+    parts.append(rng.normal(np.repeat(model.level_mean[ranks], nsamp),
+                            np.repeat(model.level_stdv[ranks], nsamp)))
+    return np.concatenate(parts).astype(np.float32)
+
+
+def build_polya_corpus(d, n_reads, seed, prefix, blow5=False):
+    """Reference, basecalls, signal (4 kHz), readdb index and BAM for
+    n_reads direct-RNA reads of one POLYA_TRANSCRIPT-base transcript,
+    each aligned end to end (the layout of tests/test_golden_outputs.py
+    and, with blow5, tools/perf_e2e_polya.py)."""
+    from nanopolish_tpu_torch.apps import index as index_app
+    from nanopolish_tpu_torch.io.bam import BamRecord, BamWriter
+    from nanopolish_tpu_torch.io.slow5 import Blow5Writer, Slow5Writer
+    from nanopolish_tpu_torch.models.pore_model import PoreModelSet
+    from nanopolish_tpu_torch.utils.synthetic import random_sequence
+
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    model = PoreModelSet.instance().get_model(
+        "r9.4_70bps", "u_to_t_rna", "template", 5)
+    L = POLYA_TRANSCRIPT
+    transcript = random_sequence(rng, L)
+    ref_fa = os.path.join(d, "ref.fa")
+    _write_fa(ref_fa, "rna1", transcript)
+    fastq = os.path.join(d, "reads.fastq")
+    sig = os.path.join(d, "sig.blow5" if blow5 else "sig.slow5")
+    with open(fastq, "w") as fq, (Blow5Writer if blow5 else Slow5Writer)(sig) as sw:
+        for i in range(n_reads):
+            fq.write(f"@{prefix}{i}\n{transcript}\n+\n{'I' * L}\n")
+            pa = rna_read_signal(rng, transcript, model)
+            sw.write(f"{prefix}{i}", _adc(pa), 8192.0, 0.0, 1400.0, 4000.0)
+    index_app.main([fastq, "--slow5", sig])
+    bam = os.path.join(d, "aln.bam")
+    w = BamWriter(bam, "@HD\tVN:1.6\tSO:coordinate\n", ["rna1"], [L])
+    for i in range(n_reads):
+        w.write(BamRecord(qname=f"{prefix}{i}", tid=0, pos=0, mapq=60,
+                          cigar=[(0, L)], seq=transcript,
+                          qual=np.full(L, 30, np.uint8)))
+    w.close()
+    return ref_fa, fastq, bam
 
 
 def build_variants_corpus(d, rng, draft, reads, leader=450):
@@ -1075,16 +1310,7 @@ def phase_variants(dev, window=VAR_WINDOW, n_reads=VAR_READS,
     finally:
         for (o, a), fn in zip(patched, saved):
             setattr(o, a, fn)
-    busy = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0.0)
-        if us and ev.key and not ev.key.startswith(("cuda", "aten::")):
-            busy[ev.key] = busy.get(ev.key, 0.0) + us / 1e6
-    busy_s = sum(busy.values())
-    top = {k: round(v, 4) for k, v in
-           sorted(busy.items(), key=lambda kv: -kv[1])[:6]}
+    busy_s, top = card_busy(prof)
 
     keys = set()
     for line in open(vcf):
@@ -1117,6 +1343,84 @@ def phase_variants(dev, window=VAR_WINDOW, n_reads=VAR_READS,
     return launches
 
 
+def card_busy(prof):
+    """Seconds of kernel and copy time on the card in a torch.profiler
+    run (CUDA activity only), and the six largest by name."""
+    busy = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us and ev.key and not ev.key.startswith(("cuda", "aten::")):
+            busy[ev.key] = busy.get(ev.key, 0.0) + us / 1e6
+    top = {k: round(v, 4) for k, v in
+           sorted(busy.items(), key=lambda kv: -kv[1])[:6]}
+    return sum(busy.values()), top
+
+
+def phase_polya(dev):
+    """`polya`, then `detect-polyi`, on POLYA_READS direct-RNA reads
+    (tools/perf_e2e_polya.py's corpus: seed 43, a 500-nt transcript, a
+    planted 120-nt tail, 30 samples/base, 4 kHz, ~19.5k samples per
+    read), each with the launch counts reset before it and read after;
+    the card's busy time of the polya run from torch.profiler.  Returns
+    the polya run's launch counts."""
+    import torch
+    from nanopolish_tpu_torch.apps import detect_polyi as dpi_app
+    from nanopolish_tpu_torch.apps import polya as polya_app
+
+    d = os.path.join(WORK, "main_polya")
+    t0 = time.perf_counter()
+    ref_fa, fastq, bam = build_polya_corpus(d, POLYA_READS, 43, "rna",
+                                            blow5=True)
+    setup_s = time.perf_counter() - t0
+    argv = ["-r", fastq, "-b", bam, "-g", ref_fa, "--device", dev.type]
+    kernels = ("seg_viterbi_fill", "seg_backtrack", "banded_fill",
+               "banded_backtrack")
+    outs = {}
+    with rna_reads():
+        for name, app in (("polya", polya_app), ("detect-polyi", dpi_app)):
+            out = io.StringIO()
+            acts = [torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                wall, launches = timed_run(
+                    lambda: app.main(argv, stdout=out), kernels)
+            busy_s, top = card_busy(prof)
+            rows = [ln.split("\t") for ln in out.getvalue().splitlines()[1:]]
+            outs[name] = (rows, launches)
+            passed = [f for f in rows if f[-1] == "PASS"]
+            tails = [float(f[8]) for f in passed]
+            mean_tail = float(np.mean(tails)) if tails else float("nan")
+            extra = ""
+            if name == "detect-polyi":
+                calls = {}
+                for f in passed:
+                    calls[f[9]] = calls.get(f[9], 0) + 1
+                extra = f"; detected on PASS rows {json.dumps(calls)}"
+            log(f"main path {name} {POLYA_READS} direct-RNA reads on "
+                f"{dev.type} ({card()}): {len(rows)} rows in {wall:.2f} s "
+                f"({POLYA_READS / wall:.1f} reads/s; set-up {setup_s:.1f} s); "
+                f"QC PASS {len(passed)}, mean tail {mean_tail:.1f} nt "
+                f"(planted {POLYA_NT}){extra}; card busy {busy_s:.4f} s "
+                f"(idle share {1 - busy_s / wall:.4f}), by kernel "
+                f"{json.dumps(top)}; launches {json.dumps(launches)}")
+            if len(rows) != POLYA_READS or any(
+                    not all(math.isfinite(float(v)) for v in f[3:9])
+                    for f in rows):
+                fail(f"{name}: {len(rows)} rows for {POLYA_READS} reads, or "
+                     f"a non-finite field")
+            if len(passed) < 0.9 * POLYA_READS or \
+                    not 100.0 <= mean_tail <= 140.0:
+                fail(f"{name}: {len(passed)} of {POLYA_READS} reads PASS, "
+                     f"mean tail {mean_tail:.1f} nt for a {POLYA_NT}-nt tail")
+    bad = [f for f in outs["detect-polyi"][0]
+           if f[-1] == "PASS" and f[9] not in ("POLYA-ONLY", "NONE")]
+    if bad:
+        fail(f"detect-polyi called {len(bad)} pure poly(A) tails otherwise, "
+             f"e.g. {bad[0]}")
+    return outs["polya"][1]
+
+
 # ------------------------------------------------------------------- main --
 
 def main() -> int:
@@ -1147,12 +1451,16 @@ def main() -> int:
     phase_viterbi(model, dev, report)
     phase_forward(model, dev, report)
     phase_forward_indexed(model, dev, report)
+    phase_segmentation(dev, report)
     phase_golden(dev)
     launches, ea_corpus = phase_eventalign(dev)
     # the Forward kernel's launches are those of its own slice's main path
     launches["forward_fill"] = phase_call_methylation(dev)["forward_fill"]
     phase_scorereads_phase(dev, ea_corpus)
     launches["forward_indexed"] = phase_variants(dev)["forward_indexed"]
+    polya_launches = phase_polya(dev)
+    for name in ("seg_viterbi_fill", "seg_backtrack"):
+        launches[name] = polya_launches[name]
 
     replaces = {
         "banded_fill": "nanopolish_tpu/ops/pallas_banded_exact.py:210",
@@ -1161,6 +1469,8 @@ def main() -> int:
         "viterbi_backtrack": "nanopolish_tpu/ops/pallas_profile_hmm.py:758",
         "forward_fill": "nanopolish_tpu/ops/pallas_profile_hmm.py:97",
         "forward_indexed": "nanopolish_tpu/ops/pallas_profile_hmm.py:987",
+        "seg_viterbi_fill": "nanopolish_tpu/ops/pallas_segmentation.py:101",
+        "seg_backtrack": "nanopolish_tpu/ops/pallas_segmentation.py:177",
     }
     kernels = []
     for name in cuda_build.KERNELS:

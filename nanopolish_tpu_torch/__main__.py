@@ -28,11 +28,13 @@ SUBCOMMANDS = {
     "phase-reads": _lazy("phase_reads"),
     "variants": _lazy("variants"),
     "vcf2fasta": _lazy("vcf2fasta"),
+    "polya": _lazy("polya"),
+    "detect-polyi": _lazy("detect_polyi"),
+    "fast5-check": _lazy("fast5_check"),
 }
 
 # subcommands of nanopolish_tpu that this package does not run yet
-NOT_PORTED = ("methyltrain", "polya", "detect-polyi", "fast5-check",
-              "train-poremodel-from-basecalls")
+NOT_PORTED = ("methyltrain", "train-poremodel-from-basecalls")
 
 
 def main(argv=None):

@@ -30,7 +30,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "nanopolish_tpu_torch")
 KERNELS = ("banded_fill", "banded_backtrack", "viterbi_fill",
-           "viterbi_backtrack", "forward_fill", "forward_indexed")
+           "viterbi_backtrack", "forward_fill", "forward_indexed",
+           "seg_viterbi_fill", "seg_backtrack")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -52,6 +53,8 @@ _ARGTYPES = {
                      _P],
     "forward_indexed": [_P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _F,
                         _F, _F, _F, _I, _I, _P],
+    "seg_viterbi_fill": [_P, _I, _I, _P, _P, _P, _P, _P],
+    "seg_backtrack": [_P, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -38,7 +38,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert r.returncode == 0, r.stderr
     n, leaked = r.stdout.strip().split(" ", 1) if " " in r.stdout.strip() \
         else (r.stdout.strip(), "")
-    assert int(n) >= 25
+    assert int(n) >= 50
     assert leaked == ""
 
 
@@ -73,7 +73,9 @@ def test_eventalign_without_cuda_exits_with_reason():
     ["scorereads", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa"],
     ["phase-reads", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa", "x.vcf"],
     ["variants", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa", "-w",
-     "tig1:0-100", "--consensus"]])
+     "tig1:0-100", "--consensus"],
+    ["polya", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa"],
+    ["detect-polyi", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa"]])
 def test_forward_subcommands_without_cuda_exit_with_reason(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -94,6 +96,8 @@ def _library_calls():
     from nanopolish_tpu_torch.ops import profile_hmm_forward as pf
     from nanopolish_tpu_torch.ops import profile_hmm_indexed as pi
     from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
+    from nanopolish_tpu_torch.ops import segmentation_hmm as sh
+    from nanopolish_tpu_torch.ops import segmentation_viterbi as sv
     ev = np.full((1, 8), 90.0, np.float32)
     mu = np.full((1, 4), 90.0, np.float32)
     sd = np.ones((1, 4), np.float32)
@@ -127,7 +131,27 @@ def _library_calls():
             np.zeros((1, 8), np.float32), np.zeros((1, 4), np.int32), 3,
             **kw),
         "ScoreBatcher": lambda **kw: ScoreBatcher(**kw),
+        "segment_reads": lambda **kw: sh.segment_reads(
+            [ev[0]], [(1.0, 0.0, 1.0)], **kw),
+        "seg_viterbi_fill": lambda **kw: sv.seg_viterbi_fill(
+            *_seg_tensors(**kw)),
+        "seg_backtrack": lambda **kw: sv.seg_backtrack(
+            torch.zeros((8, 1), dtype=torch.uint8,
+                        device=resolve_device(kw.get("device"))),
+            _seg_tensors(**kw)[1]),
     }
+
+
+def _seg_tensors(device=None, ev=np.full((8, 1), 90.0, np.float32)):
+    """The segmentation kernels' inputs for one 8-sample read, made on
+    ``device`` as a caller would make them."""
+    from nanopolish_tpu_torch.ops.segmentation_hmm import (SegmentationParams,
+                                                           seg_constants)
+    dev = resolve_device(device)
+    return (torch.as_tensor(ev, device=dev),
+            torch.tensor([8], dtype=torch.int32, device=dev),
+            torch.tensor([[1.0, 0.0, 1.0]], device=dev),
+            seg_constants(SegmentationParams()))
 
 
 @pytest.mark.parametrize("name", sorted(_library_calls()))
@@ -144,10 +168,25 @@ def test_library_entry_points_default_to_cuda(name):
 
 def test_unported_subcommands_exit_2():
     r = subprocess.run([sys.executable, "-m", "nanopolish_tpu_torch",
-                        "polya"], cwd=ROOT, capture_output=True,
+                        "methyltrain"], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 2
     assert "not yet ported to nanopolish_tpu_torch" in r.stderr
+
+
+@pytest.mark.parametrize("kernel", ["seg_viterbi_fill", "seg_backtrack"])
+def test_segmentation_wrappers_raise_off_cpu_and_cuda(kernel):
+    """A tensor on neither the CPU nor a CUDA device reaches no kernel
+    and no plain version: the wrapper raises."""
+    from nanopolish_tpu_torch.ops import segmentation_viterbi as sv
+    x, n, scal, k = _seg_tensors(device="cpu")
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        if kernel == "seg_viterbi_fill":
+            sv.seg_viterbi_fill(x.to(meta), n.to(meta), scal.to(meta), k)
+        else:
+            sv.seg_backtrack(torch.zeros((8, 1), dtype=torch.uint8,
+                                         device=meta), n.to(meta))
 
 
 def test_builtin_models_are_the_jax_packages():
