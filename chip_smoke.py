@@ -12,11 +12,17 @@ Phases (any failure exits non-zero; nothing is caught):
      reads x 8 kb (2 events/base, r9.4_450bps 6-mer);
   3. profile-HMM Viterbi kernels (fill, backtrack) against their plain
      versions on 512 eventalign-shaped segments with all four soft-clip
-     flag combinations (identical traces and tracebacks); then timing;
-  4. the profile-HMM Forward kernel against its plain version on 2,048
-     call-methylation-shaped segments (17-221 kmers, 30-460 events, all
-     four clip flags) and 64 scorereads-shaped ones (501 x 250), within
-     2e-3 nats; then timing;
+     flag combinations (identical traces and tracebacks), and on one
+     batch at each row layout of the fill (kmer width 32, 64, 128, 256:
+     the warp kernel at 1, 2, 4, 8 kmers per lane; 512: the block
+     kernel), each with n_kmers short of the width, all four clip flags
+     and a one-event segment; then timing;
+  4. the Forward kernels' log1pf against torch.log1p on every float in
+     [0, 1]; the profile-HMM Forward kernel against its plain version, bit
+     for bit, on 2,048 call-methylation-shaped segments (17-221 kmers, 30-460
+     events, all four clip flags), 64 scorereads-shaped ones (501 x 250)
+     and the batches of phase 3's widths; then timing, the 2,048 at one
+     width and bucketed as segments.forward_arrays_async buckets them;
   4b. the indexed Forward kernel (variants' drain) against its plain
      version and against the flat Forward kernel on the same gathered
      inputs, bit for bit: a screening-shaped batch (8,192 segments of 5-32
@@ -37,7 +43,8 @@ Phases (any failure exits non-zero; nothing is caught):
      tests/printed_output.py, and the 3-read direct-RNA polya pipeline
      (byte for byte);
   6. the main paths on the card, each with the launch counts reset just
-     before it and read just after: `index` + `eventalign` on 64 reads x
+     before it and read just after, and each kernel's device time on its
+     path from torch.profiler: `index` + `eventalign` on 64 reads x
      8 kb from a 100 kb synthetic genome, then `call-methylation` (with a
      modbam) on 64 reads x 8 kb of which half carry cpg-methylated
      signal; then `scorereads` on 8 of the eventalign reads and
@@ -51,7 +58,8 @@ Phases (any failure exits non-zero; nothing is caught):
      `detect-polyi` on 512 direct-RNA reads (tools/perf_e2e_polya.py's
      corpus: seed 43, a planted 120-nt tail, ~19.5k samples per read),
      with the card's busy time;
-  7. one JSON line describing each kernel, then the result line.
+  7. one JSON line describing each kernel (with `path_ms`, its summed
+     device time in one run of its own main path), then the result line.
 
 Everything it writes goes under build/chip_smoke/ in the checkout.
 """
@@ -77,6 +85,8 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 MAIN_READS, MAIN_READ_LEN, MAIN_GENOME_LEN = 64, 8000, 100_000
 # Forward kernel check: call-methylation-shaped and scorereads-shaped
 FWD_SEGMENTS, FWD_LONG = 2048, 64
+# one batch at each row layout of the profile-HMM fills (row_layout)
+HMM_WIDTHS, WIDTH_SEGMENTS = (32, 64, 128, 256, 512), 64
 # f32 operations of the scan's Forward per (event, kmer) cell, with an
 # expf/log1pf pair counted as two and an fma as two: the emission (5),
 # the five M-term adds, nine logaddexps of six operations each (five for
@@ -359,25 +369,41 @@ def path_max_abs_err(a, b) -> float:
     return err
 
 
-def phase_viterbi(model, dev, report):
+def width_batch(model, kp, S, seed):
+    """S segments at kmer width kp: n_kmers in kp/2+1 .. kp-1 (never the
+    width itself), 1.6-2.4 events per kmer, segment 1 with one event, all
+    four clip-flag combinations."""
+    rng = np.random.default_rng(seed)
+    nk = rng.integers(kp // 2 + 1, kp, S).astype(np.int32)
+    nev = (nk * rng.uniform(1.6, 2.4, S)).astype(np.int32)
+    nev[1] = 1
+    return hmm_batch(model, nk, nev, rng)
+
+
+def layout_name(kp):
+    from nanopolish_tpu_torch.ops.profile_hmm_viterbi import row_layout
+    mode, kpl = row_layout(kp)
+    return f"{mode}, {kpl} kmers/lane" if kpl else mode
+
+
+def viterbi_check(x, name):
+    """Kernel vs plain fill and backtrack on one prepared batch; fail on
+    any trace cell of a live event row (every kmer column) or traceback
+    that differs.  Returns the fill's arguments, both traces, the live
+    mask, both tracebacks and the plain versions' ms."""
     import torch
     from nanopolish_tpu_torch.ops import profile_hmm as ph
     from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
-
-    S = 512
-    lv, nev, mu, sd, nk, epb, flags = viterbi_batch(model, S, seed=7)
-    x = pv.prepare_viterbi_inputs(lv, nev, mu, sd, nk, epb, flags, device=dev)
     fargs = (x["levels"], x["n_events"], x["mu"], x["sigma"], x["c"],
              x["n_kmers"], x["trans"], x["clips"])
     tk = pv.viterbi_fill(*fargs)
     fill_plain_ms, tp = once_ms(lambda: ph.viterbi_fill_plain(*fargs))
-    rows = torch.arange(tk.shape[1], device=dev)[None, :, None]
-    cols = torch.arange(tk.shape[2], device=dev)[None, None, :]
-    live = (rows < x["n_events"][:, None, None].long()) & \
-        (cols < x["n_kmers"][:, None, None].long())
+    rows = torch.arange(tk.shape[1], device=tk.device)[None, :, None]
+    live = (rows < x["n_events"][:, None, None].long()).expand(tk.shape)
     n_diff_cells = int(((tk != tp) & live).sum())
     if n_diff_cells:
-        fail(f"viterbi_fill: {n_diff_cells} trace cells differ from plain")
+        fail(f"viterbi_fill: {n_diff_cells} trace cells differ from plain on "
+             f"the {name} batch")
     pk = pv.viterbi_backtrack(tk, x["n_events"], x["n_kmers"])
     bt_plain_ms, pp = once_ms(lambda: ph.viterbi_backtrack_plain(
         tk, x["n_events"], x["n_kmers"]))
@@ -387,13 +413,27 @@ def phase_viterbi(model, dev, report):
                  if not (np.array_equal(a[0], b[0]) and
                          np.array_equal(a[1], b[1]) and a[2] == b[2]))
     if n_diff:
-        fail(f"viterbi_backtrack: {n_diff} of {S} tracebacks differ from plain")
+        fail(f"viterbi_backtrack: {n_diff} of {len(seg_k)} tracebacks differ "
+             f"from plain on the {name} batch")
+    return fargs, tk, tp, live, pk, pp, fill_plain_ms, bt_plain_ms
+
+
+def phase_viterbi(model, dev, report):
+    from nanopolish_tpu_torch.ops import profile_hmm as ph
+    from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
+
+    S = 512
+    lv, nev, mu, sd, nk, epb, flags = viterbi_batch(model, S, seed=7)
+    x = pv.prepare_viterbi_inputs(lv, nev, mu, sd, nk, epb, flags, device=dev)
+    fargs, tk, tp, live, pk, pp, fill_plain_ms, bt_plain_ms = viterbi_check(
+        x, "eventalign-shaped")
     # the plain version on the card equals the plain version on the CPU
     sub = slice(0, 16)
     xc = pv.prepare_viterbi_inputs(lv[sub], nev[sub], mu[sub], sd[sub],
                                    nk[sub], epb[sub], flags[sub], device="cpu")
     cpu = ph.paths_to_segments(pv.viterbi_paths(xc).numpy())
-    for a, b in zip(cpu, seg_k[:16]):
+    seg_k = ph.paths_to_segments(pk[:16].cpu().numpy())
+    for a, b in zip(cpu, seg_k):
         if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
                 and a[2] == b[2]):
             fail("viterbi tracebacks differ between the cpu plain path and "
@@ -405,18 +445,31 @@ def phase_viterbi(model, dev, report):
     cells = float(np.sum(nev.astype(np.float64) * nk))
     fill_bytes = cells + float(np.sum(nev) * 4 + np.sum(nk) * 12 + S * 42)
     bt_bytes = float(np.sum(lens) * 5 + S * 12)
-    log(f"viterbi {S} segments (flags 0-3): traces and tracebacks == plain "
-        f"(exact-tie differences: 0); fill {fill_ms:.3f} ms (plain "
-        f"{fill_plain_ms:.1f} ms), backtrack {bt_ms:.3f} ms (plain "
+    log(f"viterbi {S} segments (flags 0-3, kmer width {x['mu'].shape[1]}, "
+        f"{layout_name(x['mu'].shape[1])}): traces and tracebacks == plain "
+        f"(exact-tie differences: 0); fill {fill_ms:.4f} ms (plain "
+        f"{fill_plain_ms:.1f} ms), backtrack {bt_ms:.4f} ms (plain "
         f"{bt_plain_ms:.1f} ms)")
-    for name, ms, pms, nbytes, flops, err in (
+    err = max_abs_err(tk[live].float(), tp[live].float())
+    for kp in HMM_WIDTHS:
+        arrays = width_batch(model, kp, WIDTH_SEGMENTS, seed=kp)
+        xw = pv.prepare_viterbi_inputs(*arrays, device=dev)
+        if xw["mu"].shape[1] != kp:
+            fail(f"width batch {kp} prepared at width {xw['mu'].shape[1]}")
+        wargs, tkw, tpw, livew, *_ = viterbi_check(xw, f"width-{kp}")
+        err = max(err, max_abs_err(tkw[livew].float(), tpw[livew].float()))
+        ms = cuda_ms(lambda: pv.viterbi_fill(*wargs))
+        log(f"viterbi width {kp} ({layout_name(kp)}): {WIDTH_SEGMENTS} "
+            f"segments, 0 of {int(livew.sum())} trace cells and 0 tracebacks "
+            f"differ from plain; fill {ms:.4f} ms")
+    for name, ms, pms, nbytes, flops, e in (
             ("viterbi_fill", fill_ms, fill_plain_ms, fill_bytes, cells * 27,
-             max_abs_err(tk[live].float(), tp[live].float())),
+             err),
             ("viterbi_backtrack", bt_ms, bt_plain_ms, bt_bytes,
              float(np.sum(lens)) * 8, path_max_abs_err(pk, pp))):
         bms, by = bound(nbytes, flops)
         report[name].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                            max_abs_err=err)
+                            max_abs_err=e)
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -431,11 +484,44 @@ def forward_work(nev, nk):
     return nbytes, flops
 
 
+def log1p_unit_check(dev, chunk=1 << 28):
+    """Hold the Forward kernels' log1pf (npt_log1p_unit, forward_common.cuh)
+    to torch.log1p on every float in [0, 1]; fail on any difference."""
+    import ctypes
+    import torch
+    from nanopolish_tpu_torch.utils import cuda_build
+    fn = ctypes.CDLL(cuda_build.lib_path("forward_fill")).npt_log1p_unit_table
+    fn.argtypes = [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    top = 0x3F800000 + 1                     # bit patterns of 0.0 ... 1.0
+    out = torch.empty(chunk, dtype=torch.float32, device=dev)
+    n_diff = 0
+    t0 = time.perf_counter()
+    for first in range(0, top, chunk):
+        n = min(chunk, top - first)
+        a = torch.arange(first, first + n, dtype=torch.int32,
+                         device=dev).view(torch.float32)
+        err = fn(first, n, out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"npt_log1p_unit_table failed to launch (cudaError {err})")
+        n_diff += int((out[:n].view(torch.int32) !=
+                       torch.log1p(a).view(torch.int32)).sum())
+    if n_diff:
+        fail(f"npt_log1p_unit differs from torch.log1p on {n_diff} of {top} "
+             f"floats in [0, 1]")
+    log(f"npt_log1p_unit == torch.log1p on all {top} floats in [0, 1] "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+
 def phase_forward(model, dev, report):
     import torch
+    from nanopolish_tpu_torch.alignment.segments import _bucket_key
     from nanopolish_tpu_torch.ops import profile_hmm as ph
     from nanopolish_tpu_torch.ops import profile_hmm_forward as pf
 
+    log1p_unit_check(dev)
     rng = np.random.default_rng(17)
     nk = rng.integers(17, 222, FWD_SEGMENTS).astype(np.int32)
     nev = np.clip((nk * rng.uniform(1.6, 2.4, FWD_SEGMENTS)).astype(np.int32),
@@ -446,29 +532,58 @@ def phase_forward(model, dev, report):
             model, np.full(FWD_LONG, 250, np.int32),
             np.full(FWD_LONG, 501, np.int32), rng),
     }
-    errs, timed = [], None
+    for kp in HMM_WIDTHS:
+        cases[f"width-{kp}"] = width_batch(model, kp, WIDTH_SEGMENTS,
+                                           seed=kp + 1)
+    timed, scores, errs = None, {}, []
     for name, (lv, nev_c, mu, sd, nk_c, epb, flags) in cases.items():
         x = pf.prepare_forward_inputs(lv, nev_c, mu, sd, nk_c, epb, flags,
                                       device=dev)
+        kp = x["mu"].shape[1]
         args = (x["levels"], x["n_events"], x["mu"], x["sigma"], x["c"],
                 x["n_kmers"], x["trans"], x["clips"])
         got = pf.forward_fill(*args)
         plain_ms, ref = once_ms(lambda: ph.forward_fill_plain(*args))
         err = max_abs_err(got, ref)
-        same = float((got.view(torch.int32) == ref.view(torch.int32))
-                     .float().mean())
-        if not err <= 2e-3:
-            fail(f"forward_fill differs from the plain version by {err} nats "
-                 f"on the {name} batch")
+        if not bits_equal(got, ref):
+            same = float((got.view(torch.int32) == ref.view(torch.int32))
+                         .float().mean())
+            fail(f"forward_fill differs from the plain version on the {name} "
+                 f"batch: {same:.2%} bit-identical, max_abs_err {err} nats")
         ms = cuda_ms(lambda: pf.forward_fill(*args))
         nbytes, flops = forward_work(nev_c, nk_c)
         bms, by = bound(nbytes, flops)
-        log(f"forward {name}: {len(nk_c)} segments, max_abs_err {err:.3g} "
-            f"nats, {same:.1%} bit-identical; kernel {ms:.3f} ms (plain "
-            f"{plain_ms:.1f} ms), bound {bms:.4f} ms ({by})")
+        log(f"forward {name}: {len(nk_c)} segments, kmer width {kp} "
+            f"({layout_name(kp)}), bit-identical to plain; kernel {ms:.4f} ms "
+            f"(plain {plain_ms:.1f} ms), bound {bms:.4f} ms ({by})")
+        scores[name] = got
         errs.append(err)
         if timed is None:                 # the main path's shape
             timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+    # the 2,048 as the main path launches them: one launch per bucket of
+    # power-of-two event length and kmer width (forward_arrays_async)
+    lv, nev_c, mu, sd, nk_c, epb, flags = cases["call-methylation-shaped"]
+    buckets = {}
+    for i, key in enumerate(zip(nev_c.tolist(), nk_c.tolist())):
+        buckets.setdefault(_bucket_key(*key), []).append(i)
+    xs = []
+    for (tp, kp), idx in sorted(buckets.items()):
+        ii = np.asarray(idx)
+        x = pf.prepare_forward_inputs(lv[ii, :tp], nev_c[ii], mu[ii, :kp],
+                                      sd[ii, :kp], nk_c[ii], epb[ii],
+                                      flags[ii], device=dev)
+        if not bits_equal(pf.forward_scores(x),
+                          scores["call-methylation-shaped"][ii]):
+            fail(f"forward_fill: bucket ({tp} events, {kp} kmers) scores "
+                 f"differ from the single-width launch")
+        xs.append(x)
+    bucketed_ms = cuda_ms(lambda: [pf.forward_scores(x) for x in xs])
+    widths = sorted({x["mu"].shape[1] for x in xs})
+    log(f"forward call-methylation-shaped, bucketed as the main path: "
+        f"{len(xs)} launches (kmer widths {widths}), scores bit-identical to "
+        f"the single-width launch; {bucketed_ms:.4f} ms in all (single "
+        f"width {timed['ms']:.4f} ms)")
     report["forward_fill"].update(max_abs_err=max(errs), **timed)
 
 
@@ -1081,8 +1196,9 @@ def phase_eventalign(dev):
                          dev.type, "--summary",
                          os.path.join(d, "summary.tsv")], stdout=fh)
 
-    wall, launches = timed_run(run, ("banded_fill", "banded_backtrack",
-                                     "viterbi_fill", "viterbi_backtrack"))
+    wall, launches, busy_s, top, path_ms = profiled_run(
+        run, ("banded_fill", "banded_backtrack", "viterbi_fill",
+              "viterbi_backtrack"))
     rows = 0
     bad = 0
     names = set()
@@ -1106,8 +1222,10 @@ def phase_eventalign(dev):
     log(f"main path eventalign {n_reads} reads x {read_len} bases on "
         f"{dev.type}: {rows} rows from {len(names)} reads in {wall:.2f} s "
         f"({rows / wall:.0f} rows/s, {n_reads / wall:.2f} reads/s; set-up "
-        f"{setup_s:.1f} s); launches {json.dumps(launches)}")
-    return launches, (ref_fa, fastq, bam)
+        f"{setup_s:.1f} s; under torch.profiler); card busy {busy_s:.4f} s "
+        f"(idle share {1 - busy_s / wall:.4f}), by kernel {json.dumps(top)}; "
+        f"launches {json.dumps(launches)}; path ms {json.dumps(path_ms)}")
+    return launches, path_ms, (ref_fa, fastq, bam)
 
 
 def phase_call_methylation(dev):
@@ -1127,8 +1245,8 @@ def phase_call_methylation(dev):
                          "--modbam-output-name", modbam,
                          "--device", dev.type], stdout=fh)
 
-    wall, launches = timed_run(run, ("banded_fill", "banded_backtrack",
-                                     "forward_fill"))
+    wall, launches, busy_s, top, path_ms = profiled_run(
+        run, ("banded_fill", "banded_backtrack", "forward_fill"))
     llr = {True: [], False: []}
     names = set()
     with open(out_path) as fh:
@@ -1156,10 +1274,12 @@ def phase_call_methylation(dev):
         f"bases on {dev.type} ({len(methylated)} with methylated signal): "
         f"{sites} sites from {len(names)} reads in {wall:.2f} s "
         f"({sites / wall:.0f} sites/s, {MAIN_READS / wall:.2f} reads/s; "
-        f"set-up {setup_s:.1f} s); mean log_lik_ratio {mean_m:.3f} "
-        f"methylated, {mean_u:.3f} unmethylated; launches "
-        f"{json.dumps(launches)}")
-    return launches
+        f"set-up {setup_s:.1f} s; under torch.profiler); mean log_lik_ratio "
+        f"{mean_m:.3f} methylated, {mean_u:.3f} unmethylated; card busy "
+        f"{busy_s:.4f} s (idle share {1 - busy_s / wall:.4f}), by kernel "
+        f"{json.dumps(top)}; launches {json.dumps(launches)}; path ms "
+        f"{json.dumps(path_ms)}")
+    return launches, path_ms
 
 
 def build_phased(d):
@@ -1265,8 +1385,8 @@ def phase_variants(dev, window=VAR_WINDOW, n_reads=VAR_READS,
                    read_len=VAR_READ_LEN):
     """variants --consensus on the 50 kb window, then vcf2fasta; stage
     timers around the pipeline's stages, the card's busy time from
-    torch.profiler (CUDA activity only).  Returns the launch counts."""
-    import torch
+    torch.profiler (CUDA activity only).  Returns the launch counts and
+    device ms per kernel."""
     from nanopolish_tpu_torch.alignment.alignment_db import AlignmentDB
     from nanopolish_tpu_torch.apps import variants as va_app
     from nanopolish_tpu_torch.apps import vcf2fasta as v2f_app
@@ -1302,15 +1422,12 @@ def phase_variants(dev, window=VAR_WINDOW, n_reads=VAR_READS,
                      f"tig1:0-{window - 1}", "--consensus", "-o", vcf, "-d",
                      "10", "--device", dev.type])
 
-    acts = [torch.profiler.ProfilerActivity.CUDA]
     try:
-        with torch.profiler.profile(activities=acts) as prof:
-            wall, launches = timed_run(run, ("banded_fill", "banded_backtrack",
-                                             "forward_indexed"))
+        wall, launches, busy_s, top, path_ms = profiled_run(
+            run, ("banded_fill", "banded_backtrack", "forward_indexed"))
     finally:
         for (o, a), fn in zip(patched, saved):
             setattr(o, a, fn)
-    busy_s, top = card_busy(prof)
 
     keys = set()
     for line in open(vcf):
@@ -1332,7 +1449,8 @@ def phase_variants(dev, window=VAR_WINDOW, n_reads=VAR_READS,
         f"{diff} differ from the truth; stages "
         f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}; card "
         f"busy {busy_s:.3f} s (idle share {1 - busy_s / wall:.4f}), by "
-        f"kernel {json.dumps(top)}; launches {json.dumps(launches)}")
+        f"kernel {json.dumps(top)}; launches {json.dumps(launches)}; path ms "
+        f"{json.dumps(path_ms)}")
     if recovered < len(subs) - 2 or elsewhere > 6:
         fail(f"variants recovered {recovered} of {len(subs)} planted "
              f"substitutions with {elsewhere} calls elsewhere")
@@ -1340,7 +1458,7 @@ def phase_variants(dev, window=VAR_WINDOW, n_reads=VAR_READS,
             (diff is not None and diff > len(subs) - recovered + elsewhere):
         fail(f"vcf2fasta: {len(polished)} bases for a {len(truth)}-base "
              f"truth, {diff} differing")
-    return launches
+    return launches, path_ms
 
 
 def card_busy(prof):
@@ -1358,14 +1476,46 @@ def card_busy(prof):
     return sum(busy.values()), top
 
 
+def kernel_path_ms(prof):
+    """Device milliseconds of each port kernel (cuda_build.KERNELS) in a
+    torch.profiler run, from the CUDA function names: csrc/<name>.cu
+    defines <name>_kernel, <name>_warp_kernel<R> or <name>_block_kernel."""
+    import re
+    from nanopolish_tpu_torch.utils import cuda_build
+    out = {name: 0.0 for name in cuda_build.KERNELS}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        m = re.search(r"(\w+)\s*[<(]",
+                      ev.key.replace("(anonymous namespace)::", ""))
+        if not (us and m):
+            continue
+        hits = [n for n in cuda_build.KERNELS if m.group(1).startswith(n + "_")]
+        if hits:
+            out[max(hits, key=len)] += us / 1e3
+    return out
+
+
+def profiled_run(fn, kernels):
+    """timed_run under torch.profiler (CUDA activity only).  Returns (wall
+    seconds, launches, card busy seconds, the six largest by name, device
+    ms per port kernel)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall, launches = timed_run(fn, kernels)
+    busy_s, top = card_busy(prof)
+    return wall, launches, busy_s, top, kernel_path_ms(prof)
+
+
 def phase_polya(dev):
     """`polya`, then `detect-polyi`, on POLYA_READS direct-RNA reads
     (tools/perf_e2e_polya.py's corpus: seed 43, a 500-nt transcript, a
     planted 120-nt tail, 30 samples/base, 4 kHz, ~19.5k samples per
     read), each with the launch counts reset before it and read after;
-    the card's busy time of the polya run from torch.profiler.  Returns
-    the polya run's launch counts."""
-    import torch
+    the card's busy time from torch.profiler.  Returns the polya run's
+    launch counts and device ms per kernel."""
     from nanopolish_tpu_torch.apps import detect_polyi as dpi_app
     from nanopolish_tpu_torch.apps import polya as polya_app
 
@@ -1381,13 +1531,10 @@ def phase_polya(dev):
     with rna_reads():
         for name, app in (("polya", polya_app), ("detect-polyi", dpi_app)):
             out = io.StringIO()
-            acts = [torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                wall, launches = timed_run(
-                    lambda: app.main(argv, stdout=out), kernels)
-            busy_s, top = card_busy(prof)
+            wall, launches, busy_s, top, path_ms = profiled_run(
+                lambda: app.main(argv, stdout=out), kernels)
             rows = [ln.split("\t") for ln in out.getvalue().splitlines()[1:]]
-            outs[name] = (rows, launches)
+            outs[name] = (rows, launches, path_ms)
             passed = [f for f in rows if f[-1] == "PASS"]
             tails = [float(f[8]) for f in passed]
             mean_tail = float(np.mean(tails)) if tails else float("nan")
@@ -1403,7 +1550,8 @@ def phase_polya(dev):
                 f"QC PASS {len(passed)}, mean tail {mean_tail:.1f} nt "
                 f"(planted {POLYA_NT}){extra}; card busy {busy_s:.4f} s "
                 f"(idle share {1 - busy_s / wall:.4f}), by kernel "
-                f"{json.dumps(top)}; launches {json.dumps(launches)}")
+                f"{json.dumps(top)}; launches {json.dumps(launches)}; path ms "
+                f"{json.dumps(path_ms)}")
             if len(rows) != POLYA_READS or any(
                     not all(math.isfinite(float(v)) for v in f[3:9])
                     for f in rows):
@@ -1418,7 +1566,7 @@ def phase_polya(dev):
     if bad:
         fail(f"detect-polyi called {len(bad)} pure poly(A) tails otherwise, "
              f"e.g. {bad[0]}")
-    return outs["polya"][1]
+    return outs["polya"][1:]
 
 
 # ------------------------------------------------------------------- main --
@@ -1453,14 +1601,21 @@ def main() -> int:
     phase_forward_indexed(model, dev, report)
     phase_segmentation(dev, report)
     phase_golden(dev)
-    launches, ea_corpus = phase_eventalign(dev)
-    # the Forward kernel's launches are those of its own slice's main path
-    launches["forward_fill"] = phase_call_methylation(dev)["forward_fill"]
+    # each kernel's launches and device time are those of its own slice's
+    # main path: eventalign (banded, Viterbi), call-methylation (Forward),
+    # variants (indexed Forward), polya (segmentation)
+    launches, path_ms, ea_corpus = phase_eventalign(dev)
+    own = {"forward_fill": phase_call_methylation(dev)}
     phase_scorereads_phase(dev, ea_corpus)
-    launches["forward_indexed"] = phase_variants(dev)["forward_indexed"]
-    polya_launches = phase_polya(dev)
-    for name in ("seg_viterbi_fill", "seg_backtrack"):
-        launches[name] = polya_launches[name]
+    own["forward_indexed"] = phase_variants(dev)
+    own["seg_viterbi_fill"] = own["seg_backtrack"] = phase_polya(dev)
+    for name, (path_launches, path_times) in own.items():
+        launches[name] = path_launches[name]
+        path_ms[name] = path_times[name]
+    for name in cuda_build.KERNELS:
+        if not path_ms[name] > 0.0:
+            fail(f"torch.profiler shows no device time for {name} on its "
+                 f"main path ({launches[name]} launches)")
 
     replaces = {
         "banded_fill": "nanopolish_tpu/ops/pallas_banded_exact.py:210",
@@ -1481,7 +1636,8 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": None,
+            "path_ms": path_ms[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,23 +13,75 @@
 //
 // What bounds it on the H100: operations.  Each cell costs nine logaddexps
 // (an expf/log1pf pair and a few adds each) and the event rows form a serial
-// chain, so a segment's time is the per-row latency: the K chain's
-// 2*log2(KP) dependent tree levels and their barriers.  Bytes are a few per
-// cell (one level per row, three tables per kmer, one score per segment).
-// Design: one block per segment with one thread per kmer (KP = the batch's
-// kmer width rounded up to a power of two, 32..1024), looping over the
-// segment's event rows with the previous row's M/B/K scores in shared
-// memory; the thread of the last kmer folds the end terms into the score.
-// Many segments per launch fill the SMs.  Built with -fmad=false: a*b+c is
-// fused only where the scan fuses it (the emission, the soft-clip flanks).
-// The row loop is npt_forward_block (forward_common.cuh), which
-// csrc/forward_indexed.cu runs too.
+// chain, so a segment's time is the per-row latency of its dependent
+// logaddexps and K-chain tree levels, and a full launch's time the
+// instruction issue of all its cells.  Bytes are a few per cell (one level
+// per row, three tables per kmer, one score per segment).
+// Design (KP = the batch's kmer width rounded up to a power of two):
+//  - KP 32..256 (every calling and scorereads window): one warp per
+//    segment, NPT_ROW_WARPS segments per block, R = KP / 32 kmers per lane,
+//    the row of profile_hmm_row.cuh in registers.  No shared memory and no
+//    barriers in the row loop; the lane's R kmers give R independent
+//    logaddexp chains to interleave; the levels come 32 rows per coalesced
+//    load.  The lane holding the last kmer folds the end terms into the
+//    score;
+//  - KP 512..1024: one block per segment with one thread per kmer, the row
+//    loop npt_forward_block (forward_common.cuh), which
+//    csrc/forward_indexed.cu's block mode runs too.
+// Built with -fmad=false: a*b+c is fused only where the scan fuses it (the
+// emission, the soft-clip flanks).  Both modes give the same bits.
 
-#include "forward_common.cuh"
+#include "profile_hmm_row.cuh"
 
 namespace {
 
-__global__ void forward_fill_kernel(
+template <int R>
+__global__ void __launch_bounds__(32 * NPT_ROW_WARPS) forward_fill_warp_kernel(
+        const float* __restrict__ lev, int T,
+        const float* __restrict__ mu, const float* __restrict__ sig,
+        const float* __restrict__ cc, const int* __restrict__ nev_a,
+        const int* __restrict__ nk_a, const float* __restrict__ trans,
+        const uint8_t* __restrict__ clips, float flank0, float clip_base,
+        float clip_step, int B, float* __restrict__ out) {
+    constexpr int KP = 32 * R;
+    const int lane = threadIdx.x & 31;
+    const int b = blockIdx.x * NPT_ROW_WARPS + (threadIdx.x >> 5);
+    if (b >= B) return;                  // the whole warp leaves together
+    const int nev = nev_a[b];
+    const int last = npt_clampi(nk_a[b] - 1, 0, KP - 1);
+    const int last_lane = last / R, last_r = last % R;
+    const NptFwdParams p = npt_fwd_params(trans + (size_t)b * 8,
+                                          clips + (size_t)b * 2, flank0,
+                                          clip_base, clip_step);
+    const size_t kb = (size_t)b * KP + lane * R;
+    NptRowLevels lv(lev + (size_t)b * T, nev, lane);
+    NptRowLane<R> s;
+    npt_row_lane_init<R>(s, mu + kb, sig + kb, cc + kb, lv);
+    float lp_end = npt_neg_inf();
+
+    for (int t = 1; t <= nev; ++t) {
+        uint32_t unused[R];
+        npt_row<R, NptLogSum>(t, lane, p, s, lv, unused);
+        // end contributions (r9.inl:385-396); lp_ms = 0
+        if (lane == last_lane && (p.post_clip || t == nev)) {
+            float Ml = s.M[0], Bl = s.B[0], Kl = s.K[0];
+#pragma unroll
+            for (int r = 1; r < R; ++r)
+                if (r == last_r) {
+                    Ml = s.M[r];
+                    Bl = s.B[r];
+                    Kl = s.K[r];
+                }
+            const float s3 = npt_logaddexp(npt_logaddexp(Ml, Bl), Kl);
+            const float post = npt_flank(npt_sub((float)nev, (float)t),
+                                         p.flank0, p.clip_base, p.clip_step);
+            lp_end = npt_logaddexp(lp_end, npt_add(s3, post));
+        }
+    }
+    if (lane == last_lane) out[b] = lp_end;
+}
+
+__global__ void forward_fill_block_kernel(
         const float* __restrict__ lev, int T,
         const float* __restrict__ mu, const float* __restrict__ sig,
         const float* __restrict__ cc, int KP,
@@ -52,23 +104,59 @@ __global__ void forward_fill_kernel(
     if (k == last) out[b] = lp_end;
 }
 
+// out[i] = npt_log1p_unit of the float whose bits are first + i
+__global__ void log1p_unit_table_kernel(uint32_t first, int n,
+                                        float* __restrict__ out) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) out[i] = npt_log1p_unit(__uint_as_float(first + (uint32_t)i));
+}
+
 }  // namespace
 
+// npt_log1p_unit over n consecutive float bit patterns from first: lets
+// chip_smoke.py hold it to torch.log1p on every float in [0, 1], the
+// logaddexp's whole range, on the card that runs it.
+extern "C" int npt_log1p_unit_table(unsigned first, int n, float* out,
+                                    void* stream) {
+    if (n > 0)
+        log1p_unit_table_kernel<<<(n + 255) / 256, 256, 0,
+                                  (cudaStream_t)stream>>>(first, n, out);
+    return (int)cudaGetLastError();
+}
+
+// kpl: kmers per lane of the warp kernel (KP = 32 kpl, kpl 1, 2, 4 or 8),
+// or 0 for the block kernel (ops/profile_hmm_viterbi.py row_layout)
 extern "C" int npt_launch_forward_fill(
         const float* lev, int T, const float* mu, const float* sig,
-        const float* cc, int KP, const int* nev, const int* nk,
+        const float* cc, int KP, int kpl, const int* nev, const int* nk,
         const float* trans, const uint8_t* clips, float flank0,
         float clip_base, float clip_step, int B, float* out, void* stream) {
-    const size_t smem = (size_t)7 * KP * sizeof(float);
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            forward_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (e != cudaSuccess) return (int)e;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (kpl == 0) {
+        const size_t smem = (size_t)7 * KP * sizeof(float);
+        if (smem > 48 * 1024) {
+            cudaError_t e = cudaFuncSetAttribute(
+                forward_fill_block_kernel,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (e != cudaSuccess) return (int)e;
+        }
+        if (B > 0)
+            forward_fill_block_kernel<<<B, KP, smem, st>>>(
+                lev, T, mu, sig, cc, KP, nev, nk, trans, clips, flank0,
+                clip_base, clip_step, B, out);
+        return (int)cudaGetLastError();
     }
+    const auto warp_kernel = kpl == 1 ? forward_fill_warp_kernel<1>
+                           : kpl == 2 ? forward_fill_warp_kernel<2>
+                           : kpl == 4 ? forward_fill_warp_kernel<4>
+                           : kpl == 8 ? forward_fill_warp_kernel<8>
+                                      : nullptr;
+    if (warp_kernel == nullptr || KP != 32 * kpl)
+        return (int)cudaErrorInvalidValue;
     if (B > 0)
-        forward_fill_kernel<<<B, KP, smem, (cudaStream_t)stream>>>(
-            lev, T, mu, sig, cc, KP, nev, nk, trans, clips, flank0,
-            clip_base, clip_step, B, out);
+        warp_kernel<<<(B + NPT_ROW_WARPS - 1) / NPT_ROW_WARPS,
+                      32 * NPT_ROW_WARPS, 0, st>>>(
+            lev, T, mu, sig, cc, nev, nk, trans, clips, flank0, clip_base,
+            clip_step, B, out);
     return (int)cudaGetLastError();
 }

@@ -72,12 +72,6 @@ __device__ __forceinline__ NptIndexedSeg npt_indexed_seg(
     return g;
 }
 
-// x of the lane d below, -inf in the lanes below d
-__device__ __forceinline__ float npt_shfl_prev(float x, int d, int lane) {
-    const float u = __shfl_up_sync(NPT_FULL_MASK, x, d);
-    return lane >= d ? u : npt_neg_inf();
-}
-
 __global__ void forward_indexed_warp_kernel(
         const float* __restrict__ lev_u, int Tc, const int* __restrict__ nev_u,
         const float* __restrict__ tabs, int R, int S,

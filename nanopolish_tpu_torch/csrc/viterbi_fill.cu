@@ -7,27 +7,84 @@
 //
 // What bounds it on the H100: the event rows are a serial chain and each row
 // is ~35 f32 operations per kmer over ~100-250 kmers, so a segment is bound
-// by the per-row latency (the K-skip chain's log2(KP) dependent levels and
-// their barriers), not by bytes (one trace byte per cell) or by arithmetic.
-// Design: one block per segment with one thread per kmer (KP = the batch's
-// kmer width rounded up to a power of two, 32..1024), looping over event
-// rows; the previous row's M/B/K scores sit in shared memory.  The K chain
-// K[k] = max(c[k], K[k-1] + lp_kk) is evaluated with the pairwise tree of
+// by the per-row latency (the K-skip chain's log2(KP) dependent tree
+// levels), not by bytes (one trace byte per cell) or by arithmetic.  On
+// eventalign's path a launch holds only the wavefront's ~20-64 segments,
+// so that latency is the kernel's whole time.
+// Design (KP = the batch's kmer width rounded up to a power of two):
+//  - KP 32..256: one warp per segment, NPT_ROW_WARPS segments per block,
+//    R = KP / 32 kmers per lane, the row of profile_hmm_row.cuh in
+//    registers: neighbours by __shfl_up_sync, the K chain's tree in place
+//    across registers and lanes, the levels broadcast from one coalesced
+//    load per 32 rows.  No shared memory and no barriers in the row loop.
+//    Each lane stores its R trace bytes as one R-byte store, so a warp
+//    writes a row's KP bytes coalesced;
+//  - KP 512..1024: one block per segment with one thread per kmer, the
+//    previous row's M/B/K scores in shared memory, the same tree through
+//    shared memory with a barrier per level.
+// Both evaluate K[k] = max(c[k], K[k-1] + lp_kk) on the pairwise tree of
 // jax.lax.associative_scan (pairs (0,1),(2,3),... per level; up-sweep then
 // down-sweep), so each K value is rounded exactly as in the JAX scan and
 // the exact-tie trace decisions agree.  Every element of tree level l
-// carries a = lp_kk * 2^l, so only the max-plus values move through shared
-// memory.  The trace byte (trM | trB << 3 | trK << 4) is stored per cell,
-// coalesced across the block.  Many segments per launch fill the SMs.
+// carries a = lp_kk * 2^l, so only the max-plus values move.  The trace
+// byte is trM | trB << 3 | trK << 4.  Many segments per launch fill the
+// SMs.
 
-#include "npt_common.cuh"
+#include "profile_hmm_row.cuh"
 
 namespace {
 
-constexpr int FROM_SAME_M = 0, FROM_PREV_M = 1, FROM_SAME_B = 2,
-              FROM_PREV_B = 3, FROM_PREV_K = 4, FROM_SOFT = 5;
+// R trace bytes of one lane, stored as one R-byte word
+template <int R>
+__device__ __forceinline__ void npt_store_trace(uint8_t* dst,
+                                                const uint32_t (&tr)[R]) {
+    if constexpr (R == 1) {
+        *dst = (uint8_t)tr[0];
+    } else if constexpr (R == 2) {
+        *reinterpret_cast<uint16_t*>(dst) = (uint16_t)(tr[0] | tr[1] << 8);
+    } else {
+        uint32_t w[R / 4];
+#pragma unroll
+        for (int i = 0; i < R / 4; ++i)
+            w[i] = tr[4 * i] | tr[4 * i + 1] << 8 | tr[4 * i + 2] << 16 |
+                   tr[4 * i + 3] << 24;
+        if constexpr (R == 4)
+            *reinterpret_cast<uint32_t*>(dst) = w[0];
+        else
+            *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    }
+}
 
-__global__ void viterbi_fill_kernel(
+template <int R>
+__global__ void __launch_bounds__(32 * NPT_ROW_WARPS) viterbi_fill_warp_kernel(
+        const float* __restrict__ lev, int T,
+        const float* __restrict__ mu, const float* __restrict__ sig,
+        const float* __restrict__ cc, const int* __restrict__ nev_a,
+        const float* __restrict__ trans, const uint8_t* __restrict__ clips,
+        float flank0, float clip_base, float clip_step, int B,
+        uint8_t* __restrict__ trace) {
+    constexpr int KP = 32 * R;
+    const int lane = threadIdx.x & 31;
+    const int b = blockIdx.x * NPT_ROW_WARPS + (threadIdx.x >> 5);
+    if (b >= B) return;                  // the whole warp leaves together
+    const int nev = nev_a[b];
+    const NptFwdParams p = npt_fwd_params(trans + (size_t)b * 8,
+                                          clips + (size_t)b * 2, flank0,
+                                          clip_base, clip_step);
+    const size_t kb = (size_t)b * KP + lane * R;
+    NptRowLevels lv(lev + (size_t)b * T, nev, lane);
+    NptRowLane<R> s;
+    npt_row_lane_init<R>(s, mu + kb, sig + kb, cc + kb, lv);
+    uint8_t* trb = trace + (size_t)b * T * KP + lane * R;
+
+    for (int t = 1; t <= nev; ++t) {
+        uint32_t tr[R];
+        npt_row<R, NptMaxPlus>(t, lane, p, s, lv, tr);
+        npt_store_trace<R>(trb + (size_t)(t - 1) * KP, tr);
+    }
+}
+
+__global__ void viterbi_fill_block_kernel(
         const float* __restrict__ lev, int T,
         const float* __restrict__ mu, const float* __restrict__ sig,
         const float* __restrict__ cc, int KP,
@@ -86,12 +143,12 @@ __global__ void viterbi_fill_kernel(
         const float m_in = npt_max(npt_max(npt_max(x0, x1), npt_max(x2, x3)),
                                    npt_max(x4, x5));
         // the LAST equal index wins (r9.inl:140-146)
-        uint32_t trM = FROM_SAME_M;
-        if (x1 == m_in) trM = FROM_PREV_M;
-        if (x2 == m_in) trM = FROM_SAME_B;
-        if (x3 == m_in) trM = FROM_PREV_B;
-        if (x4 == m_in) trM = FROM_PREV_K;
-        if (x5 == m_in) trM = FROM_SOFT;
+        uint32_t trM = NPT_FROM_SAME_M;
+        if (x1 == m_in) trM = NPT_FROM_PREV_M;
+        if (x2 == m_in) trM = NPT_FROM_SAME_B;
+        if (x3 == m_in) trM = NPT_FROM_PREV_B;
+        if (x4 == m_in) trM = NPT_FROM_PREV_K;
+        if (x5 == m_in) trM = NPT_FROM_SOFT;
         const float M_new = npt_add(m_in, em);
         const float b0 = npt_add(lp_mb, M);
         const float b2 = npt_add(lp_bb, Bv);
@@ -142,9 +199,9 @@ __global__ void viterbi_fill_kernel(
         }
         const float K_new = R[k];
         const float kk_prev = npt_add(k > 0 ? R[k - 1] : NEG, lp_kk);
-        uint32_t trK = FROM_PREV_M;
-        if (cB == K_new) trK = FROM_PREV_B;
-        if (kk_prev == K_new) trK = FROM_PREV_K;
+        uint32_t trK = NPT_FROM_PREV_M;
+        if (cB == K_new) trK = NPT_FROM_PREV_B;
+        if (kk_prev == K_new) trK = NPT_FROM_PREV_K;
 
         trb[(size_t)(t - 1) * KP + k] = (uint8_t)(trM | (trB << 3) | (trK << 4));
         K_s[k] = K_new;
@@ -154,22 +211,40 @@ __global__ void viterbi_fill_kernel(
 
 }  // namespace
 
+// kpl: kmers per lane of the warp kernel (KP = 32 kpl, kpl 1, 2, 4 or 8),
+// or 0 for the block kernel (ops/profile_hmm_viterbi.py row_layout)
 extern "C" int npt_launch_viterbi_fill(
         const float* lev, int T, const float* mu, const float* sig,
-        const float* cc, int KP, const int* nev, const int* nk,
+        const float* cc, int KP, int kpl, const int* nev, const int* nk,
         const float* trans, const uint8_t* clips, float flank0,
         float clip_base, float clip_step, int B, uint8_t* trace,
         void* stream) {
-    const size_t smem = (size_t)7 * KP * sizeof(float);
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            viterbi_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (e != cudaSuccess) return (int)e;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (kpl == 0) {
+        const size_t smem = (size_t)7 * KP * sizeof(float);
+        if (smem > 48 * 1024) {
+            cudaError_t e = cudaFuncSetAttribute(
+                viterbi_fill_block_kernel,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (e != cudaSuccess) return (int)e;
+        }
+        if (B > 0)
+            viterbi_fill_block_kernel<<<B, KP, smem, st>>>(
+                lev, T, mu, sig, cc, KP, nev, nk, trans, clips, flank0,
+                clip_base, clip_step, B, trace);
+        return (int)cudaGetLastError();
     }
+    const auto warp_kernel = kpl == 1 ? viterbi_fill_warp_kernel<1>
+                           : kpl == 2 ? viterbi_fill_warp_kernel<2>
+                           : kpl == 4 ? viterbi_fill_warp_kernel<4>
+                           : kpl == 8 ? viterbi_fill_warp_kernel<8>
+                                      : nullptr;
+    if (warp_kernel == nullptr || KP != 32 * kpl)
+        return (int)cudaErrorInvalidValue;
     if (B > 0)
-        viterbi_fill_kernel<<<B, KP, smem, (cudaStream_t)stream>>>(
-            lev, T, mu, sig, cc, KP, nev, nk, trans, clips, flank0,
-            clip_base, clip_step, B, trace);
+        warp_kernel<<<(B + NPT_ROW_WARPS - 1) / NPT_ROW_WARPS,
+                      32 * NPT_ROW_WARPS, 0, st>>>(
+            lev, T, mu, sig, cc, nev, trans, clips, flank0, clip_base,
+            clip_step, B, trace);
     return (int)cudaGetLastError();
 }

@@ -18,12 +18,13 @@ import torch
 
 from ..utils import cuda_build
 from .profile_hmm import _CLIP_BASE, _CLIP_STEP, _LOG1M_CLIP, forward_fill_plain
-from .profile_hmm_viterbi import kmer_width, prepare_viterbi_inputs
+from .profile_hmm_viterbi import prepare_viterbi_inputs, row_layout
 
 
 def forward_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips):
     """Forward log-likelihood [B] f32 per segment; the kmer tables are
-    [B, KP] with KP from ``kmer_width`` (``forward_fill_plain`` contract)."""
+    [B, KP] with KP from ``kmer_width`` (``forward_fill_plain`` contract),
+    laid out on the card as ``row_layout`` says."""
     if levels.device.type == "cpu":
         return forward_fill_plain(levels, n_events, mu, sigma, c, n_kmers,
                                   trans, clips)
@@ -31,8 +32,7 @@ def forward_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips):
     dev = levels.device
     B, T = levels.shape
     KP = mu.shape[1]
-    if KP != kmer_width(KP):
-        raise ValueError(f"kmer width {KP} must be a power of two >= 32")
+    _, kpl = row_layout(KP)
     f32, i32 = torch.float32, torch.int32
     cuda_build.check_tensor("levels", levels, f32, (B, T), dev)
     for nm, t in (("mu", mu), ("sigma", sigma), ("c", c)):
@@ -44,7 +44,7 @@ def forward_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips):
     scores = torch.empty(B, dtype=f32, device=dev)
     cuda_build.launch(
         "forward_fill", levels.data_ptr(), T, mu.data_ptr(), sigma.data_ptr(),
-        c.data_ptr(), KP, n_events.data_ptr(), n_kmers.data_ptr(),
+        c.data_ptr(), KP, kpl, n_events.data_ptr(), n_kmers.data_ptr(),
         trans.data_ptr(), clips.data_ptr(), float(np.float32(_LOG1M_CLIP)),
         float(np.float32(_CLIP_BASE)), float(np.float32(_CLIP_STEP)), B,
         scores.data_ptr())

@@ -41,9 +41,25 @@ def kmer_width(n_kmers_max: int) -> int:
     return kp
 
 
+# widest row the warp kernels hold: 32 lanes x 8 kmers
+ROW_WARP_MAX = 256
+
+
+def row_layout(kp: int) -> Tuple[str, int]:
+    """How the profile-HMM fills (csrc/viterbi_fill.cu, forward_fill.cu)
+    lay out a row of ``kp`` kmers, a ``kmer_width``: ``("warp", kp // 32)``
+    up to 256 kmers (one warp per segment, that many kmers per lane), else
+    ``("block", 0)`` (one block of kp threads per segment).  The second
+    value is the kernels' ``kpl`` argument."""
+    if kp != kmer_width(kp):
+        raise ValueError(f"kmer width {kp} must be a power of two >= 32")
+    return ("warp", kp // 32) if kp <= ROW_WARP_MAX else ("block", 0)
+
+
 def viterbi_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips):
     """Viterbi fill with trace [B, T, KP] uint8 (``viterbi_fill_plain``
-    layout); the kmer tables are [B, KP] with KP from ``kmer_width``."""
+    layout); the kmer tables are [B, KP] with KP from ``kmer_width``, laid
+    out on the card as ``row_layout`` says."""
     if levels.device.type == "cpu":
         return viterbi_fill_plain(levels, n_events, mu, sigma, c, n_kmers,
                                   trans, clips)
@@ -51,8 +67,7 @@ def viterbi_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips):
     dev = levels.device
     B, T = levels.shape
     KP = mu.shape[1]
-    if KP != kmer_width(KP):
-        raise ValueError(f"kmer width {KP} must be a power of two >= 32")
+    _, kpl = row_layout(KP)
     f32, i32 = torch.float32, torch.int32
     cuda_build.check_tensor("levels", levels, f32, (B, T), dev)
     for nm, t in (("mu", mu), ("sigma", sigma), ("c", c)):
@@ -64,7 +79,7 @@ def viterbi_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips):
     trace = torch.empty((B, T, KP), dtype=torch.uint8, device=dev)
     cuda_build.launch(
         "viterbi_fill", levels.data_ptr(), T, mu.data_ptr(), sigma.data_ptr(),
-        c.data_ptr(), KP, n_events.data_ptr(), n_kmers.data_ptr(),
+        c.data_ptr(), KP, kpl, n_events.data_ptr(), n_kmers.data_ptr(),
         trans.data_ptr(), clips.data_ptr(), float(np.float32(_LOG1M_CLIP)),
         float(np.float32(_CLIP_BASE)), float(np.float32(_CLIP_STEP)), B,
         trace.data_ptr())

@@ -25,6 +25,7 @@ from nanopolish_tpu_torch.alignment.segments import (HMMSegment,
 from nanopolish_tpu_torch.ops import profile_hmm as ph
 from nanopolish_tpu_torch.ops import profile_hmm_forward as pf
 from nanopolish_tpu_torch.utils.logsum import add_logs_exact
+from tests.kchain_lanes import chain_inputs, lane_schedule_chain
 
 torch.set_num_threads(2)
 
@@ -111,6 +112,25 @@ def test_kchain_logsum_matches_associative_scan(n):
     assert np.array_equal(np.isneginf(got), np.isneginf(ref))
 
 
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+def test_lane_schedule_matches_kstate_chain_logsum(R):
+    """The warp kernels' in-place lane schedule of the K chain (R kmers
+    per lane, register levels then lane levels; tests/kchain_lanes.py)
+    gives kstate_chain_logsum's values bit for bit, -inf runs included."""
+    rng = np.random.default_rng(200 + R)
+    c, lp_kk = chain_inputs(rng, 8, 32 * R)
+
+    def op(x, y):
+        return add_logs_exact(torch.from_numpy(np.ascontiguousarray(x)),
+                              torch.from_numpy(np.ascontiguousarray(y))
+                              ).numpy()
+
+    got = lane_schedule_chain(c, lp_kk, R, op)
+    ref = ph.kstate_chain_logsum(torch.from_numpy(c),
+                                 torch.from_numpy(lp_kk)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
 def test_logaddexp_matches_jnp():
     rng = np.random.default_rng(0)
     x = rng.normal(-100, 40, 4096).astype(np.float32)
@@ -189,13 +209,20 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_gpu(cuda_device):
-    lv, Ts, mu, sd, Ks, epb = _batch(64, 221, 460, seed=4)
+@pytest.mark.parametrize("kp", [32, 64, 128, 256, 512])
+def test_kernel_matches_plain_on_gpu(cuda_device, kp):
+    """Every row layout (warp kernel at R = 1, 2, 4, 8; block kernel at
+    512), bit for bit: n_kmers not a multiple of 32 R, all four clip
+    flags, one segment with a single event."""
+    lv, Ts, mu, sd, Ks, epb = _batch(64, kp, 2 * kp + 20, seed=kp)
+    Ks[0] = kp - 1
+    Ts[1] = 1
     flags = np.arange(64, dtype=np.int32) % 4
     x = pf.prepare_forward_inputs(lv, Ts, mu, sd, Ks, epb, flags,
                                   device=cuda_device)
+    assert x["mu"].shape[1] == kp
     got = pf.forward_scores(x)
     ref = ph.forward_fill_plain(x["levels"], x["n_events"], x["mu"],
                                 x["sigma"], x["c"], x["n_kmers"], x["trans"],
                                 x["clips"])
-    torch.testing.assert_close(got, ref, atol=ATOL, rtol=0)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))

@@ -21,6 +21,7 @@ from nanopolish_tpu.ops.profile_hmm import (BlockTransitions,
                                             viterbi_backtrack)
 from nanopolish_tpu_torch.ops import profile_hmm as ph
 from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
+from tests.kchain_lanes import chain_inputs, lane_schedule_chain
 
 torch.set_num_threads(2)
 
@@ -130,6 +131,72 @@ def test_plain_matches_pallas_interpret():
     assert n_tie_diff == 0
 
 
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+def test_lane_schedule_matches_kstate_chain_max(R):
+    """The warp kernels' in-place lane schedule of the K chain (R kmers
+    per lane, register levels then lane levels; tests/kchain_lanes.py)
+    gives kstate_chain_max's values bit for bit, ties and -inf included."""
+    rng = np.random.default_rng(100 + R)
+    c, lp_kk = chain_inputs(rng, 8, 32 * R)
+
+    def op(x, y):
+        return np.where(x > y, x, y)    # npt_max
+
+    got = lane_schedule_chain(c, lp_kk, R, op)
+    ref = ph.kstate_chain_max(torch.from_numpy(c),
+                              torch.from_numpy(lp_kk)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    # the inputs do hold exact ties: c[k] == K[k-1] + lp_kk, both finite
+    tie = (c[:, 1:] == ref[:, :-1] + lp_kk[:, None]) & np.isfinite(c[:, 1:])
+    assert tie.sum() > 0
+
+
+@pytest.mark.parametrize("kp", [32, 64, 128, 256, 512, 1024])
+def test_row_layout(kp):
+    mode, kpl = pv.row_layout(kp)
+    if kp <= 256:
+        assert (mode, kpl) == ("warp", kp // 32) and kpl in (1, 2, 4, 8)
+    else:
+        assert (mode, kpl) == ("block", 0)
+
+
+@pytest.mark.parametrize("kp", [0, 16, 48, 100, 384])
+def test_row_layout_rejects_other_widths(kp):
+    with pytest.raises(ValueError, match="power of two"):
+        pv.row_layout(kp)
+
+
+def test_row_layout_rejects_past_the_widest():
+    with pytest.raises(ValueError, match="1024-kmer width"):
+        pv.row_layout(2048)
+
+
+@pytest.mark.parametrize("kp", [32, 64, 128])
+def test_bucket_padding_bit_identical(kp):
+    """viterbi_fill_plain's trace cells in the live event rows and the
+    first kp kmer columns are identical at width kp and at 2 kp: the K
+    chain's tree value at k depends on elements <= k only, whatever the
+    width (the warp and block kernels' rows rely on it)."""
+    lv, Ts, mu, sd, Ks, epb = _batch(6, kp, 2 * kp + 20, seed=kp)
+    Ks[0] = kp - 1
+    Ts[1] = 1
+    flags = np.arange(6, dtype=np.int32) % 4
+    x1 = pv.prepare_viterbi_inputs(lv, Ts, mu, sd, Ks, epb, flags,
+                                   device="cpu")
+    x2 = pv.prepare_viterbi_inputs(
+        lv, Ts, np.pad(mu, ((0, 0), (0, kp))),
+        np.pad(sd, ((0, 0), (0, kp)), constant_values=1.0), Ks, epb, flags,
+        device="cpu")
+    assert x1["mu"].shape[1] == kp and x2["mu"].shape[1] == 2 * kp
+    names = ("levels", "n_events", "mu", "sigma", "c", "n_kmers", "trans",
+             "clips")
+    narrow = ph.viterbi_fill_plain(*[x1[k] for k in names]).numpy()
+    wide = ph.viterbi_fill_plain(*[x2[k] for k in names]).numpy()
+    for b in range(6):
+        np.testing.assert_array_equal(narrow[b, :Ts[b], :kp],
+                                      wide[b, :Ts[b], :kp])
+
+
 def test_kmer_width_limits():
     assert pv.kmer_width(1) == 32 and pv.kmer_width(105) == 128
     assert pv.kmer_width(1024) == 1024
@@ -146,11 +213,18 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_on_gpu(cuda_device):
-    lv, Ts, mu, sd, Ks, epb = _batch(16, 120, 260, seed=4)
+@pytest.mark.parametrize("kp", [32, 64, 128, 256, 512])
+def test_kernels_match_plain_on_gpu(cuda_device, kp):
+    """Every row layout (warp kernel at R = 1, 2, 4, 8; block kernel at
+    512): n_kmers not a multiple of 32 R, all four clip flags, one
+    segment with a single event."""
+    lv, Ts, mu, sd, Ks, epb = _batch(16, kp, 2 * kp + 20, seed=kp)
+    Ks[0] = kp - 1
+    Ts[1] = 1
     flags = np.arange(16, dtype=np.int32) % 4
     x = pv.prepare_viterbi_inputs(lv, Ts, mu, sd, Ks, epb, flags,
                                   device=cuda_device)
+    assert x["mu"].shape[1] == kp
     args = (x["levels"], x["n_events"], x["mu"], x["sigma"], x["c"],
             x["n_kmers"], x["trans"], x["clips"])
     tk = pv.viterbi_fill(*args)
