@@ -15,8 +15,9 @@ Phases (any failure exits non-zero; nothing is caught):
      flag combinations (identical traces and tracebacks), and on one
      batch at each row layout of the fill (kmer width 32, 64, 128, 256:
      the warp kernel at 1, 2, 4, 8 kmers per lane; 512: the block
-     kernel), each with n_kmers short of the width, all four clip flags
-     and a one-event segment; then timing;
+     kernel; 2,048 and 32,768: the wide row, its rows in shared memory
+     and in global scratch), each with n_kmers short of the width, all
+     four clip flags and a one-event segment; then timing;
   4. the Forward kernels' log1pf against torch.log1p on every float in
      [0, 1]; the profile-HMM Forward kernel against its plain version, bit
      for bit, on 2,048 call-methylation-shaped segments (17-221 kmers, 30-460
@@ -25,16 +26,21 @@ Phases (any failure exits non-zero; nothing is caught):
      width and bucketed as segments.forward_arrays_async buckets them;
   4b. the indexed Forward kernel (variants' drain) against its plain
      version and against the flat Forward kernel on the same gathered
-     inputs, bit for bit: a screening-shaped batch (8,192 segments of 5-32
-     kmers and 10-80 events, ~10 sequences per event slice, one warp per
-     segment), every width 1-32, and a calling-shaped batch (512 segments
-     of 100-256 kmers, one block per segment); then timing;
+     inputs, bit for bit, launched as a flush launches it
+     (profile_hmm_indexed.plan_flush): a screening-shaped batch (8,192
+     segments of 5-32 kmers and 10-80 events, ~10 sequences per event
+     slice, all in one launch at 8 lanes a window), every width 1-32,
+     calling-shaped batches (512 segments of 100-256 and of 33-64
+     kmers), 64 of 257-1,024 kmers (block row) and 8 of 1,025-3,000
+     (wide row); then one flush of widths 1-3,000 through
+     forward_indexed_scores;
   4c. the segmentation kernels (Viterbi fill, backtrack with the summary
      fused) against their plain versions, bit for bit (backpointer
      bytes, final scores, labels, summary), with the polya and the
      detect-polyi parameters: the three batches of
      tests/test_pallas_segmentation.py and a mixed-length batch of 512
-     reads x 2,000-65,536 samples; then timing on that batch;
+     reads x 2,000-65,536 samples; then timing on that batch, beside an
+     estimate of the fill's chain-latency floor (logged only);
   5. the goldens on the card through the CLI entry points: the 4-read
      eventalign pipeline of tests/test_golden_outputs.py (byte for byte),
      the 3-read methylation pipeline (TSV and both modbam styles) and the
@@ -47,9 +53,11 @@ Phases (any failure exits non-zero; nothing is caught):
      path from torch.profiler: `index` + `eventalign` on 64 reads x
      8 kb from a 100 kb synthetic genome, then `call-methylation` (with a
      modbam) on 64 reads x 8 kb of which half carry cpg-methylated
-     signal; then `scorereads` on 8 of the eventalign reads and
-     `phase-reads` on a 2-read phased corpus, each held to the port's
-     CPU run under the printed-output rule; then `variants --consensus`
+     signal; then `scorereads` on 8 of the eventalign reads and on one
+     read with a dense run of deletions (a 500-event chunk of 1,384
+     kmers: the wide row), and `phase-reads` on a 2-read phased corpus,
+     each held to the port's CPU run under the printed-output rule; then
+     `variants --consensus`
      on a 50 kb draft window (250 reads x 2 kb of true signal, depth ~10,
      332 planted substitutions: the corpus of tools/perf_e2e_variants.py
      at NPT_E2E_WINDOW=50000, NPT_E2E_READS=250, NPT_E2E_READLEN=2000,
@@ -85,8 +93,11 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 MAIN_READS, MAIN_READ_LEN, MAIN_GENOME_LEN = 64, 8000, 100_000
 # Forward kernel check: call-methylation-shaped and scorereads-shaped
 FWD_SEGMENTS, FWD_LONG = 2048, 64
-# one batch at each row layout of the profile-HMM fills (row_layout)
+# one batch at each row layout of the profile-HMM fills (row_layout);
+# the wide row at 2,048 kmers (a scorereads chunk across deletions: 500
+# events) and at 32,768 (its rows in global scratch: 40 events)
 HMM_WIDTHS, WIDTH_SEGMENTS = (32, 64, 128, 256, 512), 64
+WIDE_WIDTHS = {2048: (8, 400, 500), 32768: (4, 30, 40)}
 # f32 operations of the scan's Forward per (event, kmer) cell, with an
 # expf/log1pf pair counted as two and an fma as two: the emission (5),
 # the five M-term adds, nine logaddexps of six operations each (five for
@@ -154,6 +165,27 @@ def cuda_ms(fn, reps: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, kernel: str, reps: int = 3) -> float:
+    """Device milliseconds of one port kernel (cuda_build.KERNELS) per
+    fn() call, from torch.profiler over reps calls after a warm-up: the
+    kernel alone, without the host work and copies fn() also does."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    # a profile has come back once without the device time of kernels
+    # that fn() launched: take another, and fail after three
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = kernel_path_ms(prof)[kernel] / reps
+        if ms > 0:
+            return ms
+    fail(f"torch.profiler recorded no device time for {kernel}")
 
 
 def once_ms(fn):
@@ -380,10 +412,24 @@ def width_batch(model, kp, S, seed):
     return hmm_batch(model, nk, nev, rng)
 
 
+def wide_batch(model, kp, seed):
+    """WIDE_WIDTHS[kp] = (S, t_lo, t_hi): S segments of kp/2+1 .. kp-1
+    kmers (segment 0 of kp - 1, segment 1 with one event) and t_lo..t_hi
+    events, all four clip-flag combinations."""
+    S, t_lo, t_hi = WIDE_WIDTHS[kp]
+    rng = np.random.default_rng(seed)
+    nk = rng.integers(kp // 2 + 1, kp, S).astype(np.int32)
+    nk[0] = kp - 1
+    nev = rng.integers(t_lo, t_hi + 1, S).astype(np.int32)
+    nev[1] = 1
+    return hmm_batch(model, nk, nev, rng)
+
+
 def layout_name(kp):
     from nanopolish_tpu_torch.ops.profile_hmm_viterbi import row_layout
     mode, kpl = row_layout(kp)
-    return f"{mode}, {kpl} kmers/lane" if kpl else mode
+    unit = "thread" if mode == "wide" else "lane"
+    return f"{mode}, {kpl} kmers/{unit}" if kpl else mode
 
 
 def viterbi_check(x, name):
@@ -462,6 +508,18 @@ def phase_viterbi(model, dev, report):
         log(f"viterbi width {kp} ({layout_name(kp)}): {WIDTH_SEGMENTS} "
             f"segments, 0 of {int(livew.sum())} trace cells and 0 tracebacks "
             f"differ from plain; fill {ms:.4f} ms")
+    for kp in WIDE_WIDTHS:
+        xw = pv.prepare_viterbi_inputs(*wide_batch(model, kp, seed=kp),
+                                       device=dev)
+        wargs, tkw, tpw, livew, *_ = viterbi_check(xw, f"width-{kp}")
+        err = max(err, max_abs_err(tkw[livew].float(), tpw[livew].float()))
+        ms = cuda_ms(lambda: pv.viterbi_fill(*wargs), reps=1)
+        scratch = pv.wide_scratch(kp, 1, dev) is not None
+        log(f"viterbi width {kp} ({layout_name(kp)}, rows in "
+            f"{'global scratch' if scratch else 'shared memory'}): "
+            f"{xw['mu'].shape[0]} segments, 0 of {int(livew.sum())} trace "
+            f"cells and 0 tracebacks differ from plain; fill {ms:.4f} ms")
+        del wargs, tkw, tpw, livew
     for name, ms, pms, nbytes, flops, e in (
             ("viterbi_fill", fill_ms, fill_plain_ms, fill_bytes, cells * 27,
              err),
@@ -535,6 +593,8 @@ def phase_forward(model, dev, report):
     for kp in HMM_WIDTHS:
         cases[f"width-{kp}"] = width_batch(model, kp, WIDTH_SEGMENTS,
                                            seed=kp + 1)
+    for kp in WIDE_WIDTHS:
+        cases[f"width-{kp}"] = wide_batch(model, kp, seed=kp + 1)
     timed, scores, errs = None, {}, []
     for name, (lv, nev_c, mu, sd, nk_c, epb, flags) in cases.items():
         x = pf.prepare_forward_inputs(lv, nev_c, mu, sd, nk_c, epb, flags,
@@ -659,7 +719,29 @@ def indexed_work(levels_u, n_ev_u, tabs, rank_mat, n_km_u, trans_u, ids):
     return nbytes, flops
 
 
+def short_rows(arrays, t_max):
+    """Indexed inputs with every event row cut to at most t_max levels (a
+    wide window among few events: a chunk across deletions)."""
+    levels_u, n_ev_u, *rest = arrays
+    return (levels_u[:, :t_max].copy(),
+            np.minimum(n_ev_u, t_max).astype(np.int32), *rest)
+
+
+def indexed_tensors(arrays, dev):
+    import torch
+    dts = (torch.float32, torch.int32, torch.float32, torch.int32,
+           torch.int32, torch.float32, torch.int32)
+    return [torch.as_tensor(a, dtype=d, device=dev)
+            for a, d in zip(arrays, dts)]
+
+
 def phase_forward_indexed(model, dev, report):
+    """The indexed kernel at every mode of indexed_layout, as a flush
+    launches it (profile_hmm_indexed.plan_flush: the windows of up to 32
+    kmers in one launch at kmer widths 8, 16 and 32, one launch per wider
+    kmer width), bit for bit against forward_indexed_plain and against
+    forward_fill on the gathered inputs; then one flush of mixed widths
+    1-3,000 through forward_indexed_scores."""
     import torch
     import torch.nn.functional as F
     from nanopolish_tpu_torch.ops import profile_hmm as ph
@@ -675,21 +757,35 @@ def phase_forward_indexed(model, dev, report):
                                      per_ev=8, widths=np.arange(1, 33)),
         "calling-shaped": indexed_batch(model, rng, IDX_CALL, 100, 256, None,
                                         None, per_ev=4),
+        "calling 33-64": indexed_batch(model, rng, IDX_CALL, 33, 64, None,
+                                       None, per_ev=4),
+        "block widths": short_rows(indexed_batch(model, rng, 64, 257, 1024,
+                                                 40, 120, per_ev=2), 300),
+        "wide": short_rows(indexed_batch(model, rng, 8, 1025, 3000, 40, 120,
+                                         per_ev=1), 120),
     }
     errs, timed = [], None
     for name, arrays in cases.items():
         pi.check_indexed(*arrays)
-        dts = (torch.float32, torch.int32, torch.float32, torch.int32,
-               torch.int32, torch.float32, torch.int32)
-        t = [torch.as_tensor(a, dtype=d, device=dev)
-             for a, d in zip(arrays, dts)]
+        t = indexed_tensors(arrays, dev)
+        ids_np = arrays[6]
+        order, launches = pi.plan_flush(arrays[1][ids_np[:, 0]],
+                                        arrays[4][ids_np[:, 2]])
+        t[6] = t[6][torch.as_tensor(order, device=dev)].contiguous()
         n = t[6].shape[0]
-        clips = torch.ones((n, 2), dtype=torch.uint8, device=dev)
-        kp = kmer_width(int(arrays[4].max()))
-        got = pi.forward_indexed(*t, clips, kp=kp)
-        plain_ms, ref = once_ms(lambda: ph.forward_indexed_plain(*t, clips))
-        lv, nev, mu, sg, c, nk, tr = ph.gather_indexed(*t)
-        pad = kp - mu.shape[1]
+        clips = torch.as_tensor(np.stack([np.arange(n) % 2,
+                                          (np.arange(n) // 2) % 2], 1),
+                                dtype=torch.uint8, device=dev)
+
+        def run():
+            return torch.cat(pi.run_flush(t[:6], t[6], clips, launches))
+
+        got = run()
+        plain_ms, ref = once_ms(lambda: ph.forward_indexed_plain(*t[:6], t[6],
+                                                                 clips))
+        lv, nev, mu, sg, c, nk, tr = ph.gather_indexed(*t[:6], t[6])
+        kf = kmer_width(int(nk.max()))
+        pad = kf - mu.shape[1]
         flat = pf.forward_fill(lv.contiguous(), nev.contiguous(),
                                F.pad(mu, (0, pad)).contiguous(),
                                F.pad(sg, (0, pad), value=1.0).contiguous(),
@@ -702,18 +798,46 @@ def phase_forward_indexed(model, dev, report):
             fail(f"forward_indexed differs from its plain version or from "
                  f"forward_fill on the {name} batch (max_abs_err {err}, "
                  f"{same:.2%} bit-identical)")
-        ms = cuda_ms(lambda: pi.forward_indexed(*t, clips, kp=kp))
+        # the flush's launches (CUDA events), and its kernels' device time
+        # alone (torch.profiler)
+        flush_ms = cuda_ms(run)
+        ms = kernel_ms(run, "forward_indexed")
         nbytes, flops = indexed_work(*arrays)
         bms, by = bound(nbytes, flops)
-        log(f"forward_indexed {name}: {n} segments, kmer width {kp} "
-            f"({'warp' if kp == 32 else 'block'} per segment), "
-            f"{len(arrays[1])} event rows, {len(arrays[4])} rank rows; "
-            f"max_abs_err {err} vs plain and vs forward_fill, {same:.1%} "
-            f"bit-identical; kernel {ms:.3f} ms (plain {plain_ms:.1f} ms), "
+        modes = ", ".join(
+            (f"<=32: KP {'/'.join(str(w) for w in sorted(set(wd.tolist())))}"
+             if wd is not None else
+             f"{kp}: {'/'.join(map(str, pi.indexed_layout(kp)))}") +
+            f" x{hi - lo}" for kp, lo, hi, wd in launches)
+        log(f"forward_indexed {name}: {n} segments in {len(launches)} "
+            f"launches ({modes}), {len(arrays[1])} event rows, "
+            f"{len(arrays[4])} rank rows; max_abs_err {err} vs plain and vs "
+            f"forward_fill, {same:.1%} bit-identical; kernels {ms:.4f} ms "
+            f"(the launches {flush_ms:.4f} ms; plain {plain_ms:.1f} ms), "
             f"bound {bms:.4f} ms ({by})")
         errs.append(err)
         if timed is None:                 # the main path's dominant shape
             timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        del got, ref, flat, lv, mu, sg, c
+    # one flush of every width, through the host side of the drain
+    rng = np.random.default_rng(31)
+    arrays = short_rows(indexed_batch(
+        model, rng, 256, 1, 3000, 20, 90, per_ev=4,
+        widths=np.concatenate([np.arange(1, 40, 3),
+                               [64, 100, 200, 256, 300, 600, 1024, 1100,
+                                3000]])), 200)
+    got = pi.forward_indexed_scores(*arrays, 3, device=dev)
+    t = indexed_tensors(arrays, dev)
+    ones = torch.ones((len(arrays[6]), 2), dtype=torch.uint8, device=dev)
+    ref = ph.forward_indexed_plain(*t, ones).cpu().numpy()
+    if not np.array_equal(got.view(np.int32), ref.view(np.int32)):
+        fail("forward_indexed_scores on a flush of widths 1-3,000 differs "
+             "from forward_indexed_plain")
+    n_launch = len(pi.plan_flush(arrays[1][arrays[6][:, 0]],
+                                 arrays[4][arrays[6][:, 2]])[1])
+    log(f"forward_indexed_scores, one flush of {len(got)} segments of widths "
+        f"1-3,000 ({n_launch} launches): bit-identical to "
+        f"forward_indexed_plain")
     report["forward_indexed"].update(max_abs_err=max(errs), **timed)
 
 
@@ -769,6 +893,19 @@ def seg_inputs(reads, scal, dev):
             torch.as_tensor([len(r) for r in reads], dtype=torch.int32,
                             device=dev),
             torch.as_tensor(np.asarray(scal, np.float32), device=dev))
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (MHz), as nvidia-smi reports it."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
+# the segmentation chain's dependent cycles per sample: ~4 dependent f32
+# operations (add, max, max, add) on the P state at ~4 cycles each
+SEG_CHAIN_CYCLES = 16
 
 
 def seg_work(lens, dpi=False):
@@ -840,8 +977,13 @@ def phase_segmentation(dev, report):
             fb, ff, bb, bf = seg_work([len(r) for r in reads],
                                       dpi=pname == "dpi")
             (fbms, fby), (bbms, bby) = bound(fb, ff), bound(bb, bf)
+            clk = sm_clock_mhz()
+            floor = max(map(len, reads)) * SEG_CHAIN_CYCLES / (clk * 1e3)
             log(f"{line}; fill {fill_ms:.3f} ms (plain {fill_plain_ms:.1f} "
-                f"ms, bound {fbms:.4f} ms {fby}), backtrack {bt_ms:.3f} ms "
+                f"ms, bound {fbms:.4f} ms {fby}, chain latency floor "
+                f"{floor:.3f} ms, an estimate: {SEG_CHAIN_CYCLES} cycles x "
+                f"{max(map(len, reads))} samples at {clk:.0f} MHz), "
+                f"backtrack {bt_ms:.3f} ms "
                 f"(plain {bt_plain_ms:.1f} ms, bound {bbms:.4f} ms {bby}); "
                 f"{len(reads) / ((fill_ms + bt_ms) / 1e3):.0f} reads/s")
             if timed is None:             # the polya parameters
@@ -1334,16 +1476,22 @@ def build_phased(d):
 
 
 def phase_scorereads_phase(dev, ea_corpus):
-    """scorereads on 8 eventalign reads and phase-reads on the phased
+    """scorereads on 8 eventalign reads and on build_deletion_corpus's read
+    (a chunk of 1,384 kmers: the wide row), and phase-reads on the phased
     corpus, on the card and on the CPU, held to each other under the
     printed-output rule."""
     from nanopolish_tpu_torch.apps import phase_reads as pr_app
     from nanopolish_tpu_torch.apps import scorereads as sc_app
+    from nanopolish_tpu_torch.utils.synthetic import build_deletion_corpus
 
     ref_fa, fastq, bam = ea_corpus
     ref_fa2, fastq2, bam2, vcf = build_phased(os.path.join(WORK, "phase"))
+    ref_fa3, fastq3, bam3 = build_deletion_corpus(os.path.join(WORK, "wide"))
     runs = (("scorereads", sc_app, ["-r", fastq, "-b", bam, "-g", ref_fa,
                                     "--max-reads", "8"], False,
+             ("banded_fill", "viterbi_fill", "forward_fill")),
+            ("scorereads (a 1,384-kmer chunk)", sc_app,
+             ["-r", fastq3, "-b", bam3, "-g", ref_fa3], False,
              ("banded_fill", "viterbi_fill", "forward_fill")),
             ("phase-reads", pr_app, ["-r", fastq2, "-b", bam2, "-g", ref_fa2,
                                      vcf], True, ("banded_fill",

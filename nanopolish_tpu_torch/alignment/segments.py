@@ -38,6 +38,16 @@ _CACHE_INIT_LOCK = threading.Lock()
 # segments per Forward launch: bounds the padded inputs' memory (a launch
 # runs one block per segment, so it takes any count)
 FORWARD_BATCH = 4096
+# bytes of one launch's per-(event, kmer) or per-kmer arrays (the Viterbi
+# trace [B, T, KP] u8; the Forward's padded tables and, past 16k kmers,
+# the wide row's buffers): wide segments get fewer per launch
+LAUNCH_BYTES = 1 << 29
+
+
+def _launch_size(max_batch: int, cell_bytes: int) -> int:
+    """Segments per launch: at most max_batch, and within LAUNCH_BYTES at
+    cell_bytes per segment (at least one)."""
+    return max(1, min(max_batch, LAUNCH_BYTES // max(cell_bytes, 1)))
 
 
 def _read_cache(read, attr: str) -> dict:
@@ -170,14 +180,16 @@ def _bucket_key(n_events: int, n_kmers: int) -> Tuple[int, int]:
 
 def _buckets(segments: Sequence[HMMSegment], max_batch: int):
     """Segment indices grouped by power-of-two padded event length and
-    kmer width, cut into launches of at most max_batch segments."""
+    kmer width, cut into launches of at most max_batch segments whose
+    traces stay within LAUNCH_BYTES."""
     buckets = {}
     for i, s in enumerate(segments):
         key = _bucket_key(len(s.levels), len(s.mu))
         buckets.setdefault(key, []).append(i)
-    for (tp, _kp), idxs in buckets.items():
-        for lo in range(0, len(idxs), max_batch):
-            yield tp, idxs[lo:lo + max_batch]
+    for (tp, kp), idxs in buckets.items():
+        step = _launch_size(max_batch, tp * kp)
+        for lo in range(0, len(idxs), step):
+            yield tp, idxs[lo:lo + step]
 
 
 def viterbi_segments(segments: Sequence[HMMSegment],
@@ -232,9 +244,9 @@ def forward_arrays_async(levels_mat: np.ndarray, n_events: np.ndarray,
     Every launch is issued before this returns; the returned zero-arg
     closure makes one device-to-host copy of the concatenated scores and
     returns them as [n] f32.  Rows are bucketed by power-of-two event
-    length and kmer width, at most FORWARD_BATCH per launch; a score does
-    not depend on its bucket's padding.  ``probs`` as in
-    ``viterbi_segments``."""
+    length and kmer width, at most FORWARD_BATCH per launch and within
+    LAUNCH_BYTES; a score does not depend on its bucket's padding.
+    ``probs`` as in ``viterbi_segments``."""
     dev = resolve_device(device)
     n = len(n_events)
     out = np.zeros(n, np.float32)
@@ -252,8 +264,9 @@ def forward_arrays_async(levels_mat: np.ndarray, n_events: np.ndarray,
     for (tp, kp), idxs in buckets.items():
         T = min(levels_mat.shape[1], tp)
         K = min(mu_mat.shape[1], kp)
-        for lo in range(0, len(idxs), FORWARD_BATCH):
-            ii = np.asarray(idxs[lo:lo + FORWARD_BATCH])
+        step = _launch_size(FORWARD_BATCH, 4 * tp + 24 * kp)
+        for lo in range(0, len(idxs), step):
+            ii = np.asarray(idxs[lo:lo + step])
             x = prepare_forward_inputs(
                 levels_mat[ii, :T], n_events[ii], mu_mat[ii, :K],
                 sigma_mat[ii, :K], n_kmers[ii], epb[ii], flags[ii],

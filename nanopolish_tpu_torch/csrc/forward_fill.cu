@@ -29,9 +29,9 @@
 //    loop npt_forward_block (forward_common.cuh), which
 //    csrc/forward_indexed.cu's block mode runs too.
 // Built with -fmad=false: a*b+c is fused only where the scan fuses it (the
-// emission, the soft-clip flanks).  Both modes give the same bits.
+// emission, the soft-clip flanks).  Every mode gives the same bits.
 
-#include "profile_hmm_row.cuh"
+#include "profile_hmm_wide.cuh"
 
 namespace {
 
@@ -54,7 +54,7 @@ __global__ void __launch_bounds__(32 * NPT_ROW_WARPS) forward_fill_warp_kernel(
                                           clips + (size_t)b * 2, flank0,
                                           clip_base, clip_step);
     const size_t kb = (size_t)b * KP + lane * R;
-    NptRowLevels lv(lev + (size_t)b * T, nev, lane);
+    NptRowLevels<32> lv(lev + (size_t)b * T, nev, lane);
     NptRowLane<R> s;
     npt_row_lane_init<R>(s, mu + kb, sig + kb, cc + kb, lv);
     float lp_end = npt_neg_inf();
@@ -104,6 +104,30 @@ __global__ void forward_fill_block_kernel(
     if (k == last) out[b] = lp_end;
 }
 
+__global__ void __launch_bounds__(NPT_WIDE_THREADS) forward_fill_wide_kernel(
+        const float* __restrict__ lev, int T,
+        const float* __restrict__ mu, const float* __restrict__ sig,
+        const float* __restrict__ cc, int J, const int* __restrict__ nev_a,
+        const int* __restrict__ nk_a, const float* __restrict__ trans,
+        const uint8_t* __restrict__ clips, float flank0, float clip_base,
+        float clip_step, int B, float* __restrict__ out,
+        float* __restrict__ scratch) {
+    extern __shared__ float smem[];
+    const int b = blockIdx.x;
+    const int KP = J * NPT_WIDE_THREADS;
+    const int last = npt_clampi(nk_a[b] - 1, 0, KP - 1);
+    const NptFwdParams p = npt_fwd_params(trans + (size_t)b * 8,
+                                          clips + (size_t)b * 2, flank0,
+                                          clip_base, clip_step);
+    const size_t kb = (size_t)b * KP;
+    const NptFlatGauss g{mu + kb, sig + kb, cc + kb};
+    float* rows = scratch ? scratch + (size_t)b * 3 * KP
+                          : smem + NPT_WIDE_THREADS;
+    const float lp_end = npt_wide_fill<NptLogSum>(
+        lev + (size_t)b * T, nev_a[b], g, J, last, p, rows, smem, nullptr);
+    if (last / J == (int)threadIdx.x) out[b] = lp_end;
+}
+
 // out[i] = npt_log1p_unit of the float whose bits are first + i
 __global__ void log1p_unit_table_kernel(uint32_t first, int n,
                                         float* __restrict__ out) {
@@ -125,14 +149,32 @@ extern "C" int npt_log1p_unit_table(unsigned first, int n, float* out,
 }
 
 // kpl: kmers per lane of the warp kernel (KP = 32 kpl, kpl 1, 2, 4 or 8),
-// or 0 for the block kernel (ops/profile_hmm_viterbi.py row_layout)
+// 0 for the block kernel, or kmers per thread of the wide kernel (KP =
+// 1024 kpl, kpl 2, 4, 8, ...) (ops/profile_hmm_viterbi.py row_layout).
+// scratch: the wide kernel's row buffers, [B, 3, KP] f32, or NULL to keep
+// them in shared memory.
 extern "C" int npt_launch_forward_fill(
         const float* lev, int T, const float* mu, const float* sig,
         const float* cc, int KP, int kpl, const int* nev, const int* nk,
         const float* trans, const uint8_t* clips, float flank0,
-        float clip_base, float clip_step, int B, float* out, void* stream) {
+        float clip_base, float clip_step, int B, float* out, float* scratch,
+        void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
+    if (kpl >= 2 && KP == NPT_WIDE_THREADS * kpl) {
+        const size_t smem = npt_wide_smem(KP, scratch == nullptr);
+        if (smem > NPT_SMEM_BLOCK_MAX) return (int)cudaErrorInvalidValue;
+        cudaError_t e = cudaFuncSetAttribute(
+            forward_fill_wide_kernel,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+        if (B > 0)
+            forward_fill_wide_kernel<<<B, NPT_WIDE_THREADS, smem, st>>>(
+                lev, T, mu, sig, cc, kpl, nev, nk, trans, clips, flank0,
+                clip_base, clip_step, B, out, scratch);
+        return (int)cudaGetLastError();
+    }
     if (kpl == 0) {
+        if (KP > 1024) return (int)cudaErrorInvalidValue;
         const size_t smem = (size_t)7 * KP * sizeof(float);
         if (smem > 48 * 1024) {
             cudaError_t e = cudaFuncSetAttribute(

@@ -17,144 +17,192 @@
 // What bounds it on the H100: operations, and the serial event rows.
 // Each (event, kmer) cell costs nine logaddexps (an expf/log1pf pair and a
 // few adds each); bytes are a few per segment, since the levels, ranks
-// and tables are shared.  A segment's time is its rows' latency, so the
-// design cuts the per-row latency:
-//  - segments of up to 32 kmers (every variants screening window, ~16
-//    kmers): one warp per segment, eight segments per block, the row in
-//    registers.  Neighbouring kmers come from __shfl_up_sync, and the K
-//    chain runs the pairwise tree of forward_fill.cu in place across the
-//    lanes: the up-sweep leaves level l's element j in lane (j+1)*2^l - 1,
-//    and the down-sweep fills the even elements of each level from the
-//    lane 2^l below.  No barriers and no shared memory;
-//  - wider segments (calling windows, up to 256 kmers): one block of KP
-//    threads per segment, the row loop of forward_fill.cu
-//    (npt_forward_block).
-// The lane-packed rows of the TPU kernel (its pos/rev lane maps and
-// segmented roll-scans) are not carried over: a warp holds one window.
-// Built with -fmad=false, so both modes equal forward_fill bit for bit.
+// and tables are shared.  A segment's time is its rows' latency times the
+// instructions its warp issues per row, so the design puts as few padding
+// lanes and as few dependent tree levels in a row as the width allows:
+//  - windows of up to 32 kmers (variants screening, 5-32 kmers): one
+//    launch for all of a flush, each window on a group of 8 lanes of the
+//    warp row of profile_hmm_row.cuh, 4 windows a warp, with R kmers a
+//    lane at its own kmer width KP = 8 R (8, 16 or 32).  The host sorts
+//    the windows by width, so three run ends passed as scalars say which
+//    windows and which R each warp takes.  Every shuffle takes the width
+//    argument 8, so the K chain's tree runs log2 R levels in registers
+//    and 3 across lanes each way, and the first 8 lanes of a 32-lane tree
+//    are the 8-lane tree: a score does not depend on the grouping.  Each
+//    group loads its levels 8 rows at a time, one chunk ahead, and
+//    broadcasts one per row (no row waits on a global load).  The windows
+//    of a warp come sorted by event count; a group past its own last row
+//    runs on in step (every lane joins every shuffle) and folds nothing
+//    more into its score.  On an H100 8 lanes a window took 0.34 ms where
+//    one lane per kmer took 0.44 on chip_smoke's 8,192 screening windows
+//    (PERF.md);
+//  - KP 64-128 (calling windows): the same row with W = 32 and R = KP / 32
+//    kmers per lane (forward_fill.cu's warp kernel, with the indexed
+//    gather in front);
+//  - KP 256-1024: one block of KP threads per segment, the row loop
+//    npt_forward_block (forward_common.cuh): at 256 it beat the warp row
+//    on an H100 (2.25 against 2.87 ms on 394 calling windows);
+//  - KP 2048 and wider: the wide row of profile_hmm_wide.cuh.
+// ops/profile_hmm_indexed.py indexed_layout picks the mode per width.
+// The TPU kernel's lane-packed rows (pos/rev lane maps, segmented
+// roll-scans) become the 8-lane groups.  Built with -fmad=false, so every
+// mode equals forward_fill bit for bit.
 
-#include "forward_common.cuh"
+#include "profile_hmm_wide.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;            // segments per block in warp mode
-
-// Segment s's ids, lengths and kmer k's gaussian (padding past n_kmers:
-// mu 0, sigma 1, c of sigma 1).
-struct NptIndexedSeg {
+struct NptIndexedIds {
     const float* levb;
-    int nev, nk;
-    float mu, sg, cc;
+    int nev, nk, tab, rid;
 };
 
-__device__ __forceinline__ NptIndexedSeg npt_indexed_seg(
-        int s, int k, const float* __restrict__ lev_u, int Tc,
-        const int* __restrict__ nev_u, const float* __restrict__ tabs,
-        int R, int S, const int* __restrict__ rank_mat, int Kc,
-        const int* __restrict__ nkm_u, const int* __restrict__ ids,
-        float pad_c) {
+__device__ __forceinline__ NptIndexedIds npt_indexed_ids(
+        int s, const float* __restrict__ lev_u, int Tc,
+        const int* __restrict__ nev_u, const int* __restrict__ nkm_u,
+        const int* __restrict__ ids) {
     const int* id = ids + (size_t)s * 4;
-    const int ev = id[0], tab = id[1], rid = id[2];
-    NptIndexedSeg g;
-    g.levb = lev_u + (size_t)ev * Tc;
-    g.nev = nev_u[ev];
-    g.nk = nkm_u[rid];
-    g.mu = 0.0f;
-    g.sg = 1.0f;
-    g.cc = pad_c;
-    if (k < g.nk) {
-        const size_t r = (size_t)tab * S + rank_mat[(size_t)rid * Kc + k];
-        const size_t plane = (size_t)R * S;
-        g.mu = __ldg(tabs + r);
-        g.sg = __ldg(tabs + plane + r);
-        g.cc = __ldg(tabs + 2 * plane + r);
-    }
+    NptIndexedIds g;
+    g.levb = lev_u + (size_t)id[0] * Tc;
+    g.nev = nev_u[id[0]];
+    g.tab = id[1];
+    g.rid = id[2];
+    g.nk = nkm_u[g.rid];
     return g;
 }
 
-__global__ void forward_indexed_warp_kernel(
-        const float* __restrict__ lev_u, int Tc, const int* __restrict__ nev_u,
-        const float* __restrict__ tabs, int R, int S,
-        const int* __restrict__ rank_mat, int Kc,
+// kmer k's gaussian of a segment (padding past n_kmers: mu 0, sigma 1,
+// c of sigma 1)
+struct NptIndexedGauss {
+    const float* __restrict__ tabs;
+    const int* __restrict__ ranks;       // the segment's rank row
+    size_t tab_off, plane;               // tab * S, R * S
+    int nk;
+    float pad_c;
+    __device__ __forceinline__ void operator()(int k, float& m, float& s,
+                                               float& c) const {
+        m = 0.0f;
+        s = 1.0f;
+        c = pad_c;
+        if (k < nk) {
+            const size_t r = tab_off + __ldg(ranks + k);
+            m = __ldg(tabs + r);
+            s = __ldg(tabs + plane + r);
+            c = __ldg(tabs + 2 * plane + r);
+        }
+    }
+};
+
+__device__ __forceinline__ NptIndexedGauss npt_indexed_gauss(
+        const NptIndexedIds& g, const float* __restrict__ tabs, int R, int S,
+        const int* __restrict__ rank_mat, int Kc, float pad_c) {
+    return NptIndexedGauss{tabs, rank_mat + (size_t)g.rid * Kc,
+                           (size_t)g.tab * S, (size_t)R * S, g.nk, pad_c};
+}
+
+// The segments first + g (group g = lane / W of the warp) with R kmers
+// per lane on groups of W lanes (KP = W R); a group at or past end stores
+// nothing.
+template <int R, int W>
+__device__ __forceinline__ void npt_indexed_warp(
+        int first, int end, const float* __restrict__ lev_u, int Tc,
+        const int* __restrict__ nev_u, const float* __restrict__ tabs, int Rr,
+        int S, const int* __restrict__ rank_mat, int Kc,
         const int* __restrict__ nkm_u, const float* __restrict__ trans_u,
         const int* __restrict__ ids, const uint8_t* __restrict__ clips,
-        float flank0, float clip_base, float clip_step, float pad_c, int n,
+        float flank0, float clip_base, float clip_step, float pad_c,
         float* __restrict__ out) {
+    constexpr int KP = W * R;
     const int lane = threadIdx.x & 31;
-    const int s = blockIdx.x * WARPS + (threadIdx.x >> 5);
-    if (s >= n) return;                  // the whole warp leaves together
-    const NptIndexedSeg g = npt_indexed_seg(s, lane, lev_u, Tc, nev_u, tabs,
-                                            R, S, rank_mat, Kc, nkm_u, ids,
-                                            pad_c);
+    const int gl = lane & (W - 1);
+    const int s = first + lane / W;
+    const bool live = s < end;           // a group past end reads segment
+    const int sc = live ? s : end - 1;   // end - 1 and stores nothing
+    const NptIndexedIds g = npt_indexed_ids(sc, lev_u, Tc, nev_u, nkm_u, ids);
+    const int nev = live ? g.nev : 0;
+    const NptIndexedGauss gauss = npt_indexed_gauss(g, tabs, Rr, S, rank_mat,
+                                                    Kc, pad_c);
     const NptFwdParams p = npt_fwd_params(
-        trans_u + (size_t)ids[(size_t)s * 4 + 3] * 8, clips + (size_t)s * 2,
+        trans_u + (size_t)ids[(size_t)sc * 4 + 3] * 8, clips + (size_t)sc * 2,
         flank0, clip_base, clip_step);
-    const int last = npt_clampi(g.nk - 1, 0, 31);
-    const float NEG = npt_neg_inf();
-    float M = NEG, Bv = NEG, Kv = NEG, lp_end = NEG;
+    NptRowLevels<W> lv(g.levb, nev, gl);
+    NptRowLane<R> st;
+#pragma unroll
+    for (int r = 0; r < R; ++r) gauss(gl * R + r, st.mu[r], st.sg[r], st.cc[r]);
+    npt_row_lane_start<R, W>(st, lv);
+    // the warp runs to its longest segment's last row
+    int t_end = nev;
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1)
+        t_end = max(t_end, __shfl_xor_sync(NPT_FULL_MASK, t_end, o));
+    const int last = npt_clampi(g.nk - 1, 0, KP - 1);
+    const int last_lane = last / R, last_r = last % R;
+    float lp_end = npt_neg_inf();
 
-    for (int t = 1; t <= g.nev; ++t) {
-        const float em = npt_log_normal(__ldg(g.levb + t - 1), g.mu, g.sg,
-                                        g.cc);
-        const float Mp = npt_shfl_prev(M, 1, lane);
-        const float Bp = npt_shfl_prev(Bv, 1, lane);
-        const float Kp = npt_shfl_prev(Kv, 1, lane);
-
-        // soft-clip entry into the first kmer (r9.inl:200-227)
-        const float s_soft = (lane == 0 && (p.pre_clip || t == 1))
-            ? npt_flank((float)(t - 1), p.flank0, p.clip_base, p.clip_step)
-            : NEG;
-        const float x0 = npt_add(p.lp_mm_self, M);
-        const float x1 = npt_add(p.lp_mm_next, Mp);
-        const float x2 = npt_add(p.lp_b3, Bv);
-        const float x3 = npt_add(p.lp_b3, Bp);
-        const float x4 = npt_add(p.lp_km, Kp);
-        float m_in = npt_logaddexp(x0, x1);
-        m_in = npt_logaddexp(m_in, x2);
-        m_in = npt_logaddexp(m_in, x3);
-        m_in = npt_logaddexp(m_in, x4);
-        m_in = npt_logaddexp(m_in, s_soft);
-        const float M_new = npt_add(m_in, em);
-        const float B_new = npt_logaddexp(npt_add(p.lp_mb, M),
-                                          npt_add(p.lp_bb, Bv));
-
-        const float cM = npt_add(p.lp_mk, npt_shfl_prev(M_new, 1, lane));
-        const float cB = npt_add(p.lp_b3, npt_shfl_prev(B_new, 1, lane));
-        float v = npt_logaddexp(cM, cB);
-
-        // K chain on the associative-scan tree of npt_forward_block at
-        // KP = 32.  Up-sweep: level l+1's element j = (level l's 2j + a_l)
-        // (+) level l's 2j+1, in lane (j+1)*2^(l+1) - 1, a_l = lp_kk * 2^l.
-        float a = p.lp_kk;
-        for (int d = 1; d < 32; d <<= 1) {
-            const float u = __shfl_up_sync(NPT_FULL_MASK, v, d);
-            if (((lane + 1) & (2 * d - 1)) == 0)
-                v = npt_logaddexp(npt_add(u, a), v);
-            a = npt_add(a, a);
-        }
-        // down-sweep: level l's even element k > 0 (lane (k+1)*2^l - 1) =
-        // (level l+1's k/2 - 1, the lane 2^l below, + a_l) (+) its up-sweep
-        // value; odd elements and element 0 keep theirs
-        for (int d = 16; d >= 1; d >>= 1) {
-            a = a * 0.5f;                // exact: undoes the doubling
-            const float u = __shfl_up_sync(NPT_FULL_MASK, v, d);
-            if (((lane + 1) & (2 * d - 1)) == d && lane + 1 >= 3 * d)
-                v = npt_logaddexp(npt_add(u, a), v);
-        }
-        const float K_new = v;
-
+    for (int t = 1; t <= t_end; ++t) {
+        uint32_t unused[R];
+        npt_row<R, NptLogSum, W>(t, gl, p, st, lv, unused);
         // end contributions (r9.inl:385-396); lp_ms = 0
-        if (lane == last && (p.post_clip || t == g.nev)) {
-            const float s3 = npt_logaddexp(npt_logaddexp(M_new, B_new), K_new);
-            const float post = npt_flank(npt_sub((float)g.nev, (float)t),
+        if (gl == last_lane && t <= nev && (p.post_clip || t == nev)) {
+            float Ml = st.M[0], Bl = st.B[0], Kl = st.K[0];
+#pragma unroll
+            for (int r = 1; r < R; ++r)
+                if (r == last_r) {
+                    Ml = st.M[r];
+                    Bl = st.B[r];
+                    Kl = st.K[r];
+                }
+            const float s3 = npt_logaddexp(npt_logaddexp(Ml, Bl), Kl);
+            const float post = npt_flank(npt_sub((float)nev, (float)t),
                                          p.flank0, p.clip_base, p.clip_step);
             lp_end = npt_logaddexp(lp_end, npt_add(s3, post));
         }
-        M = M_new;
-        Bv = B_new;
-        Kv = K_new;
     }
-    if (lane == last) out[s] = lp_end;
+    if (live && gl == last_lane) out[s] = lp_end;
+}
+
+#define NPT_INDEXED_ARGS                                                    \
+    lev_u, Tc, nev_u, tabs, Rr, S, rank_mat, Kc, nkm_u, trans_u, ids, clips, \
+        flank0, clip_base, clip_step, pad_c, out
+#define NPT_INDEXED_PARAMS                                                  \
+    const float* __restrict__ lev_u, int Tc, const int* __restrict__ nev_u, \
+        const float* __restrict__ tabs, int Rr, int S,                      \
+        const int* __restrict__ rank_mat, int Kc,                           \
+        const int* __restrict__ nkm_u, const float* __restrict__ trans_u,   \
+        const int* __restrict__ ids, const uint8_t* __restrict__ clips,     \
+        float flank0, float clip_base, float clip_step, float pad_c,        \
+        float* __restrict__ out
+
+// The calling windows of 64 or 128 kmers: one segment a warp, R kmers a
+// lane, NPT_ROW_WARPS warps per block.
+template <int R>
+__global__ void __launch_bounds__(32 * NPT_ROW_WARPS)
+forward_indexed_warp_kernel(NPT_INDEXED_PARAMS, int n) {
+    const int warp = blockIdx.x * NPT_ROW_WARPS + (threadIdx.x >> 5);
+    if (warp >= n) return;               // the whole warp leaves together
+    npt_indexed_warp<R, 32>(warp, n, NPT_INDEXED_ARGS);
+}
+
+// Windows of up to 32 kmers in one launch, 8 lanes a window and 4
+// windows a warp: the segments [0, e8) are 8 kmers wide (1 a lane),
+// [e8, e16) 16 (2 a lane) and [e16, n) 32 (4 a lane); each run starts a
+// warp of its own.
+__global__ void __launch_bounds__(32 * NPT_ROW_WARPS)
+forward_indexed_narrow_kernel(NPT_INDEXED_PARAMS, int e8, int e16, int n) {
+    int w = blockIdx.x * NPT_ROW_WARPS + (threadIdx.x >> 5);
+    const int w8 = (e8 + 3) / 4, w16 = (e16 - e8 + 3) / 4;
+    if (w < w8) {                        // the whole warp takes one branch
+        npt_indexed_warp<1, 8>(4 * w, e8, NPT_INDEXED_ARGS);
+        return;
+    }
+    w -= w8;
+    if (w < w16) {
+        npt_indexed_warp<2, 8>(e8 + 4 * w, e16, NPT_INDEXED_ARGS);
+        return;
+    }
+    w -= w16;
+    if (e16 + 4 * w < n)
+        npt_indexed_warp<4, 8>(e16 + 4 * w, n, NPT_INDEXED_ARGS);
 }
 
 __global__ void forward_indexed_block_kernel(
@@ -169,34 +217,85 @@ __global__ void forward_indexed_block_kernel(
     const int s = blockIdx.x;
     const int k = threadIdx.x;
     if (s >= n) return;
-    const NptIndexedSeg g = npt_indexed_seg(s, k, lev_u, Tc, nev_u, tabs, R,
-                                            S, rank_mat, Kc, nkm_u, ids,
-                                            pad_c);
+    const NptIndexedIds g = npt_indexed_ids(s, lev_u, Tc, nev_u, nkm_u, ids);
+    float mu, sg, cc;
+    npt_indexed_gauss(g, tabs, R, S, rank_mat, Kc, pad_c)(k, mu, sg, cc);
     const NptFwdParams p = npt_fwd_params(
         trans_u + (size_t)ids[(size_t)s * 4 + 3] * 8, clips + (size_t)s * 2,
         flank0, clip_base, clip_step);
     const int last = npt_clampi(g.nk - 1, 0, KP - 1);
-    const float lp_end = npt_forward_block(g.levb, g.nev, g.mu, g.sg, g.cc,
-                                           last, p, KP, smem);
+    const float lp_end = npt_forward_block(g.levb, g.nev, mu, sg, cc, last, p,
+                                           KP, smem);
     if (k == last) out[s] = lp_end;
+}
+
+__global__ void __launch_bounds__(NPT_WIDE_THREADS)
+forward_indexed_wide_kernel(
+        const float* __restrict__ lev_u, int Tc, const int* __restrict__ nev_u,
+        const float* __restrict__ tabs, int R, int S,
+        const int* __restrict__ rank_mat, int Kc,
+        const int* __restrict__ nkm_u, const float* __restrict__ trans_u,
+        const int* __restrict__ ids, const uint8_t* __restrict__ clips,
+        float flank0, float clip_base, float clip_step, float pad_c, int J,
+        int n, float* __restrict__ out, float* __restrict__ scratch) {
+    extern __shared__ float smem[];
+    const int s = blockIdx.x;
+    const int KP = J * NPT_WIDE_THREADS;
+    const NptIndexedIds g = npt_indexed_ids(s, lev_u, Tc, nev_u, nkm_u, ids);
+    const NptIndexedGauss gauss = npt_indexed_gauss(g, tabs, R, S, rank_mat,
+                                                    Kc, pad_c);
+    const NptFwdParams p = npt_fwd_params(
+        trans_u + (size_t)ids[(size_t)s * 4 + 3] * 8, clips + (size_t)s * 2,
+        flank0, clip_base, clip_step);
+    const int last = npt_clampi(g.nk - 1, 0, KP - 1);
+    float* rows = scratch ? scratch + (size_t)s * 3 * KP
+                          : smem + NPT_WIDE_THREADS;
+    const float lp_end = npt_wide_fill<NptLogSum>(g.levb, g.nev, gauss, J,
+                                                  last, p, rows, smem,
+                                                  nullptr);
+    if (last / J == (int)threadIdx.x) out[s] = lp_end;
+}
+
+template <int R>
+int launch_warp(cudaStream_t st, NPT_INDEXED_PARAMS, int n) {
+    forward_indexed_warp_kernel<R>
+        <<<(n + NPT_ROW_WARPS - 1) / NPT_ROW_WARPS, 32 * NPT_ROW_WARPS, 0,
+           st>>>(NPT_INDEXED_ARGS, n);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The mode, from (KP, kpl) (ops/profile_hmm_indexed.py indexed_layout):
+// KP 32, kpl 1: windows of up to 32 kmers, each at its own width 8, 16 or
+// 32 as the run ends e8 <= e16 <= n say; KP = 32 kpl with kpl 2 or 4: the
+// warp row; kpl 0: the block row (KP 32-1024 threads); KP = 1024 kpl with
+// kpl >= 2: the wide row, whose row buffers are scratch ([n, 3, KP] f32)
+// or, when scratch is NULL, shared memory.
 extern "C" int npt_launch_forward_indexed(
         const float* lev_u, int Tc, const int* nev_u, const float* tabs,
-        int R, int S, const int* rank_mat, int Kc, const int* nkm_u,
+        int Rr, int S, const int* rank_mat, int Kc, const int* nkm_u,
         const float* trans_u, const int* ids, const uint8_t* clips,
         float flank0, float clip_base, float clip_step, float pad_c, int KP,
-        int n, float* out, void* stream) {
+        int kpl, int n, float* out, float* scratch, int e8, int e16,
+        void* stream) {
     if (n <= 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
-    if (KP == 32) {
-        forward_indexed_warp_kernel<<<(n + WARPS - 1) / WARPS, 32 * WARPS, 0,
-                                      st>>>(
-            lev_u, Tc, nev_u, tabs, R, S, rank_mat, Kc, nkm_u, trans_u, ids,
-            clips, flank0, clip_base, clip_step, pad_c, n, out);
-    } else {
+    const int R = Rr;
+    if (KP == 32 && kpl == 1) {
+        if (!(0 <= e8 && e8 <= e16 && e16 <= n))
+            return (int)cudaErrorInvalidValue;
+        const int warps =
+            (e8 + 3) / 4 + (e16 - e8 + 3) / 4 + (n - e16 + 3) / 4;
+        forward_indexed_narrow_kernel<<<
+            (warps + NPT_ROW_WARPS - 1) / NPT_ROW_WARPS, 32 * NPT_ROW_WARPS,
+            0, st>>>(NPT_INDEXED_ARGS, e8, e16, n);
+        return (int)cudaGetLastError();
+    }
+    if ((kpl == 2 || kpl == 4) && KP == 32 * kpl)
+        return kpl == 2 ? launch_warp<2>(st, NPT_INDEXED_ARGS, n)
+                        : launch_warp<4>(st, NPT_INDEXED_ARGS, n);
+    if (kpl == 0 && KP >= 32 && KP <= 1024) {
         const size_t smem = (size_t)7 * KP * sizeof(float);
         if (smem > 48 * 1024) {
             cudaError_t e = cudaFuncSetAttribute(
@@ -207,6 +306,19 @@ extern "C" int npt_launch_forward_indexed(
         forward_indexed_block_kernel<<<n, KP, smem, st>>>(
             lev_u, Tc, nev_u, tabs, R, S, rank_mat, Kc, nkm_u, trans_u, ids,
             clips, flank0, clip_base, clip_step, pad_c, KP, n, out);
+        return (int)cudaGetLastError();
     }
-    return (int)cudaGetLastError();
+    if (kpl >= 2 && KP == NPT_WIDE_THREADS * kpl) {
+        const size_t smem = npt_wide_smem(KP, scratch == nullptr);
+        if (smem > NPT_SMEM_BLOCK_MAX) return (int)cudaErrorInvalidValue;
+        cudaError_t e = cudaFuncSetAttribute(
+            forward_indexed_wide_kernel,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+        forward_indexed_wide_kernel<<<n, NPT_WIDE_THREADS, smem, st>>>(
+            lev_u, Tc, nev_u, tabs, R, S, rank_mat, Kc, nkm_u, trans_u, ids,
+            clips, flank0, clip_base, clip_step, pad_c, kpl, n, out, scratch);
+        return (int)cudaGetLastError();
+    }
+    return (int)cudaErrorInvalidValue;
 }

@@ -28,10 +28,12 @@ __device__ __forceinline__ float npt_log_normal(float x, float mu, float sigma, 
     return __fmaf_rn(npt_mul(-0.5f, a), a, c);
 }
 
-// x of the lane d below in the warp, -inf in the lanes below d
-__device__ __forceinline__ float npt_shfl_prev(float x, int d, int lane) {
-    const float u = __shfl_up_sync(NPT_FULL_MASK, x, d);
-    return lane >= d ? u : npt_neg_inf();
+// x of the lane d below in a group of W lanes of the warp (gl: the lane's
+// place in its group), -inf in the group's lanes below d
+template <int W = 32>
+__device__ __forceinline__ float npt_shfl_prev(float x, int d, int gl) {
+    const float u = __shfl_up_sync(NPT_FULL_MASK, x, d, W);
+    return gl >= d ? u : npt_neg_inf();
 }
 
 __device__ __forceinline__ int npt_clampi(int v, int lo, int hi) {

@@ -1,15 +1,19 @@
 // One profile-HMM event row, warp-synchronous: the row of
-// csrc/viterbi_fill.cu and csrc/forward_fill.cu for kmer widths KP = 32 R,
-// R = 1, 2, 4, 8 kmers per lane.
+// csrc/viterbi_fill.cu, csrc/forward_fill.cu and csrc/forward_indexed.cu
+// for kmer widths KP = W R, R = 1, 2, 4, 8 kmers per lane on a group of
+// W = 32 lanes (one segment per warp), or R = 1 on W = 8 or 16 lanes
+// (forward_indexed.cu's short windows: 32 / W segments per warp).
 //
-// One warp holds one segment's row.  Lane l holds kmers l R ... l R + R - 1:
-// their gaussians and the previous row's M, B and K scores, all in
-// registers.  A kmer's k - 1 neighbour is the lane's own register, or for
-// its first kmer lane l - 1's last one (npt_shfl_prev; the two shuffles of
-// a row's new M and B and the K chain's last one also serve the next
-// row).  No shared memory and no barriers: the warp's lanes run in step,
-// so a row costs its dependent arithmetic and a few shuffles, not
-// 2 log2(KP) + 3 block barriers and round trips through shared memory.
+// A group of W lanes holds one segment's row.  Group lane l holds kmers
+// l R ... l R + R - 1: their gaussians and the previous row's M, B and K
+// scores, all in registers.  A kmer's k - 1 neighbour is the lane's own
+// register, or for its first kmer lane l - 1's last one (npt_shfl_prev;
+// the two shuffles of a row's new M and B and the K chain's last one also
+// serve the next row).  Every shuffle takes the width argument W, so the
+// groups of a warp never read each other.  No shared memory and no
+// barriers: the warp's lanes run in step, so a row costs its dependent
+// arithmetic and a few shuffles, not 2 log2(KP) + 3 block barriers and
+// round trips through shared memory.
 //
 // The K-skip chain K[k] = op(c[k], K[k-1] + lp_kk) runs on
 // jax.lax.associative_scan's pairwise tree, in the grouping of the block
@@ -22,8 +26,11 @@
 // a = lp_kk * 2^l (doubled on the way up, halved on the way down, both
 // exact), so every K value, and every exact-tie trace decision of the
 // Viterbi, is rounded as the block kernels and the plain versions round it.
+// The tree of a W-lane group is the first W lanes of the 32-lane tree
+// (a value at k depends on elements <= k only), so a segment's scores do
+// not depend on the group width it is run at.
 //
-// The warp loads its segment's event levels 32 at a time with one
+// The group loads its segment's event levels W at a time with one
 // coalesced load, one chunk ahead, and broadcasts one per row with
 // __shfl_sync, so no row waits on a dependent global load.  A lane's R
 // emissions do not depend on the chain: each row computes the next row's,
@@ -84,30 +91,43 @@ __device__ __forceinline__ void npt_row_emissions(NptRowLane<R>& s,
         s.em[r] = npt_log_normal(x, s.mu[r], s.sg[r], s.cc[r]);
 }
 
-// A segment's nev event levels, 32 per coalesced load, one chunk ahead.
+// A segment's nev event levels, W per coalesced load of its group, one
+// chunk ahead.
+template <int W = 32>
 struct NptRowLevels {
     const float* levb;
-    int nev, lane;
+    int nev, gl;
     float cur, nxt;
 
     __device__ __forceinline__ float load(int i) const {
-        return i + lane < nev ? __ldg(levb + i + lane) : 0.0f;
+        return i + gl < nev ? __ldg(levb + i + gl) : 0.0f;
     }
-    __device__ __forceinline__ NptRowLevels(const float* l, int n, int ln)
-            : levb(l), nev(n), lane(ln) {
+    __device__ __forceinline__ NptRowLevels(const float* l, int n, int g)
+            : levb(l), nev(n), gl(g) {
         cur = load(0);
-        nxt = load(32);
+        nxt = load(W);
     }
     // level i (0-based; past nev a level of 0 whose emissions go unused);
     // every lane of the warp calls it with the same i, in increasing order
     __device__ __forceinline__ float at(int i) {
-        if (i > 0 && (i & 31) == 0) {
+        if (i > 0 && (i & (W - 1)) == 0) {
             cur = nxt;
-            nxt = load(i + 32);
+            nxt = load(i + W);
         }
-        return __shfl_sync(NPT_FULL_MASK, cur, i & 31);
+        return __shfl_sync(NPT_FULL_MASK, cur, i & (W - 1), W);
     }
 };
+
+// A lane's start once its gaussians are in place: every score -inf, the
+// first row's emissions.
+template <int R, int W>
+__device__ __forceinline__ void npt_row_lane_start(NptRowLane<R>& s,
+                                                   NptRowLevels<W>& lv) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) s.M[r] = s.B[r] = s.K[r] = npt_neg_inf();
+    s.Mq = s.Bq = s.Kq = npt_neg_inf();
+    npt_row_emissions<R>(s, lv.at(0));
+}
 
 // A lane's start: kmers l R ... l R + R - 1 of the tables at mu/sig/cc
 // (offset to the lane), every score -inf, the first row's emissions.
@@ -115,21 +135,20 @@ template <int R>
 __device__ __forceinline__ void npt_row_lane_init(
         NptRowLane<R>& s, const float* __restrict__ mu,
         const float* __restrict__ sig, const float* __restrict__ cc,
-        NptRowLevels& lv) {
+        NptRowLevels<32>& lv) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
         s.mu[r] = __ldg(mu + r);
         s.sg[r] = __ldg(sig + r);
         s.cc[r] = __ldg(cc + r);
-        s.M[r] = s.B[r] = s.K[r] = npt_neg_inf();
     }
-    s.Mq = s.Bq = s.Kq = npt_neg_inf();
-    npt_row_emissions<R>(s, lv.at(0));
+    npt_row_lane_start<R, 32>(s, lv);
 }
 
-// The K chain on the lane layout: v holds lane l's inputs c[l R + r] and
-// leaves with K[l R + r].  Returns K[l R - 1] (-inf in lane 0).
-template <int R, class Op>
+// The K chain on the lane layout: v holds group lane l's inputs
+// c[l R + r] and leaves with K[l R + r].  Returns K[l R - 1] (-inf in
+// group lane 0).
+template <int R, class Op, int W = 32>
 __device__ __forceinline__ float npt_row_kchain(float (&v)[R], float lp_kk,
                                                 int lane) {
     float a = lp_kk;
@@ -145,8 +164,8 @@ __device__ __forceinline__ float npt_row_kchain(float (&v)[R], float lp_kk,
     // up-sweep across lanes (levels log2 R ...): the lanes' last registers,
     // lane distance d = 2^l / R, as forward_indexed.cu's warp mode at R = 1
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-        const float u = __shfl_up_sync(NPT_FULL_MASK, v[R - 1], d);
+    for (int d = 1; d < W; d <<= 1) {
+        const float u = __shfl_up_sync(NPT_FULL_MASK, v[R - 1], d, W);
         if (((lane + 1) & (2 * d - 1)) == 0)
             v[R - 1] = Op::op(npt_add(u, a), v[R - 1]);
         a = npt_add(a, a);
@@ -154,18 +173,18 @@ __device__ __forceinline__ float npt_row_kchain(float (&v)[R], float lp_kk,
     // down-sweep across lanes: level l's even element j > 0 (in lane
     // (j + 1) d - 1) = (level l+1's element j/2 - 1, d lanes below, + a_l)
     // (+) its up-sweep value; odd elements and element 0 keep theirs.  The
-    // top level below the root (d = 16) has only elements 0 and 1.
+    // top level below the root (d = W / 2) has only elements 0 and 1.
     a = a * 0.5f;                        // exact: undoes the doubling
 #pragma unroll
-    for (int d = 8; d >= 1; d >>= 1) {
+    for (int d = W / 4; d >= 1; d >>= 1) {
         a = a * 0.5f;
-        const float u = __shfl_up_sync(NPT_FULL_MASK, v[R - 1], d);
+        const float u = __shfl_up_sync(NPT_FULL_MASK, v[R - 1], d, W);
         if (((lane + 1) & (2 * d - 1)) == d && lane + 1 >= 3 * d)
             v[R - 1] = Op::op(npt_add(u, a), v[R - 1]);
     }
     // every lane's last register is final: K[l R - 1] closes the lane's
     // first element of each level below
-    const float prev = npt_shfl_prev(v[R - 1], 1, lane);
+    const float prev = npt_shfl_prev<W>(v[R - 1], 1, lane);
     // down-sweep inside the lane: level l's elements at r + 1 = h, 3h, 5h
     // ... (h = 2^l) from the element h positions below; at r = h - 1 that
     // is K[l R - 1], and in lane 0 element 0, which keeps its value
@@ -184,15 +203,16 @@ __device__ __forceinline__ float npt_row_kchain(float (&v)[R], float lp_kk,
     return prev;
 }
 
-// One event row t (1-based): updates s.M, s.B, s.K in place from s.em,
-// and leaves the next row's emissions (level t of lv) in s.em.  For the
-// Viterbi (Op::kTrace) tr[r] gets kmer l R + r's trace byte
-// trM | trB << 3 | trK << 4.  The arithmetic, term order and tie rules
-// are those of the block kernels (npt_forward_block; viterbi_fill.cu).
-template <int R, class Op>
+// One event row t (1-based) of the group lane `lane`: updates s.M, s.B,
+// s.K in place from s.em, and leaves the next row's emissions (level t of
+// lv) in s.em.  For the Viterbi (Op::kTrace) tr[r] gets kmer l R + r's
+// trace byte trM | trB << 3 | trK << 4.  The arithmetic, term order and
+// tie rules are those of the block kernels (npt_forward_block;
+// viterbi_fill.cu).
+template <int R, class Op, int W = 32>
 __device__ __forceinline__ void npt_row(int t, int lane,
                                         const NptFwdParams& p,
-                                        NptRowLane<R>& s, NptRowLevels& lv,
+                                        NptRowLane<R>& s, NptRowLevels<W>& lv,
                                         uint32_t (&tr)[R]) {
     const float NEG = npt_neg_inf();
     const float x_next = lv.at(t);
@@ -244,8 +264,8 @@ __device__ __forceinline__ void npt_row(int t, int lane,
 
     // the K chain's inputs: this row's M and B of kmer k - 1 (the lane
     // below's last, also the next row's Mq and Bq)
-    s.Mq = npt_shfl_prev(Mn[R - 1], 1, lane);
-    s.Bq = npt_shfl_prev(Bn[R - 1], 1, lane);
+    s.Mq = npt_shfl_prev<W>(Mn[R - 1], 1, lane);
+    s.Bq = npt_shfl_prev<W>(Bn[R - 1], 1, lane);
     if constexpr (Op::kEmitMidRow) npt_row_emissions<R>(s, x_next);
     float cB[R], v[R];
 #pragma unroll
@@ -254,7 +274,7 @@ __device__ __forceinline__ void npt_row(int t, int lane,
         cB[r] = npt_add(p.lp_b3, r > 0 ? Bn[r - 1] : s.Bq);
         v[r] = Op::op(cM, cB[r]);
     }
-    s.Kq = npt_row_kchain<R, Op>(v, p.lp_kk, lane);
+    s.Kq = npt_row_kchain<R, Op, W>(v, p.lp_kk, lane);
 
     if constexpr (Op::kTrace) {
 #pragma unroll

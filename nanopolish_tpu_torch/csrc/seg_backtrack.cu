@@ -13,8 +13,10 @@
 // What bounds it on the H100: each step's label is chosen by the step
 // after it, so a read is a chain of n dependent decodes — latency, not
 // bytes (one byte per sample) or operations.  The design: one thread per
-// read walking backward; the byte loads do not depend on the state, so
-// each thread loads eight rows ahead of its walk.  The summary (the last
+// read walking backward along its row of the read-major [B, N]
+// backpointers (csrc/seg_viterbi_fill.cu writes them so); the byte loads
+// do not depend on the state, so each thread loads eight bytes ahead of
+// its walk.  The summary (the last
 // S->L, L->A, A->P, P->T transition index, -1 if none, and the CLIFF
 // count) is kept in registers: walking backward, the first time a pair
 // is seen is its last index.  Labels reach memory only when the caller
@@ -60,7 +62,7 @@ __global__ void seg_backtrack_kernel(
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
     const int n = min(n_a[b], N);
-    const uint8_t* col = bptr + b;
+    const uint8_t* col = bptr + (size_t)b * N;
     Summary sm;
     if (n >= 1) {
         int nxt = T;                                  // label[n - 1]
@@ -69,7 +71,7 @@ __global__ void seg_backtrack_kernel(
             int buf[AHEAD];
 #pragma unroll
             for (int j = 0; j < AHEAD; ++j)
-                buf[j] = t0 - j >= 1 ? col[(size_t)(t0 - j) * B] : 0;
+                buf[j] = t0 - j >= 1 ? col[t0 - j] : 0;
 #pragma unroll
             for (int j = 0; j < AHEAD; ++j) {
                 const int t = t0 - j;
@@ -93,7 +95,8 @@ __global__ void seg_backtrack_kernel(
 
 }  // namespace
 
-// labels: [N, B] uint8 pre-filled with T by the caller, or NULL.
+// bptr: [B, N] uint8, read-major.  labels: [N, B] uint8 pre-filled with T
+// by the caller, or NULL.
 extern "C" int npt_launch_seg_backtrack(
         const uint8_t* bptr, int N, int B, const int* n, int* summary,
         uint8_t* labels, void* stream) {

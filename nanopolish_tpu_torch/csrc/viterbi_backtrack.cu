@@ -11,8 +11,9 @@
 // bytes (one byte per step) or operations.  The trace was just written by
 // the fill and sits in L2, so one thread per segment walking it directly is
 // enough; many segments per launch run their chains side by side.  Each
-// step is written as one packed int32 (event << 12 | kmer << 2 | state),
-// which lets the host fetch a whole batch of paths in one copy.
+// step is written as one packed int64 (event << 32 | kmer << 2 | state:
+// 30 bits of kmer, so any width that fits in memory), which lets the host
+// fetch a whole batch of paths in one copy.
 
 #include "npt_common.cuh"
 
@@ -25,15 +26,16 @@ constexpr int FROM_SAME_M = 0, FROM_PREV_M = 1, FROM_SAME_B = 2,
 __global__ void viterbi_backtrack_kernel(
         const uint8_t* __restrict__ trace, int T, int KP,
         const int* __restrict__ nev_a, const int* __restrict__ nk_a, int B,
-        int* __restrict__ path) {
+        long long* __restrict__ path) {
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= B) return;
     const int L = T + KP;
     const uint8_t* trb = trace + (size_t)b * T * KP;
-    int* out = path + (size_t)b * (1 + L);
+    long long* out = path + (size_t)b * (1 + L);
     int row = nev_a[b], ki = nk_a[b] - 1, st = ST_M, len = 0;
     while (row > 0 && len < L) {
-        out[1 + len] = ((row - 1) << 12) | (ki << 2) | st;
+        out[1 + len] = ((long long)(row - 1) << 32) | ((long long)ki << 2) |
+                       st;
         ++len;
         const int byte = trb[(size_t)(row - 1) * KP + ki];
         const int mv = st == ST_M ? (byte & 7)
@@ -54,7 +56,7 @@ __global__ void viterbi_backtrack_kernel(
 
 extern "C" int npt_launch_viterbi_backtrack(
         const uint8_t* trace, int T, int KP, const int* nev, const int* nk,
-        int B, int* path, void* stream) {
+        int B, long long* path, void* stream) {
     if (B > 0)
         viterbi_backtrack_kernel<<<(B + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
             trace, T, KP, nev, nk, B, path);

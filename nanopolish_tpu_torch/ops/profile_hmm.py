@@ -20,9 +20,10 @@ outputs:
     for FROM_SAME_B).
   * ``viterbi_backtrack_plain``: the traceback from (row = n_events,
     kmer = n_kmers-1, M) as a step loop vectorized over segments.  Output
-    ``path[B, 1 + T + K]`` int32: column 0 holds the path length, column
+    ``path[B, 1 + T + K]`` int64: column 0 holds the path length, column
     1 + i the i-th visited cell in traceback order packed as
-    ``event << 12 | kmer << 2 | state``.
+    ``event << 32 | kmer << 2 | state`` (30 bits of kmer, 31 of event:
+    no width or event count that fits in memory overflows a cell).
 
   * ``forward_fill_plain``: the Forward log-likelihood per segment
     (profile_hmm_score_r9, r9.cpp:35-65), the plain version of
@@ -86,7 +87,7 @@ TRANS_COLS = ("lp_mk", "lp_mb", "lp_mm_self", "lp_mm_next", "lp_bb",
               "lp_b3", "lp_kk", "lp_km")
 
 # path cell packing (see module docstring)
-PATH_EVENT_SHIFT = 12
+PATH_EVENT_SHIFT = 32
 PATH_KMER_SHIFT = 2
 MAX_KMERS = 1 << (PATH_EVENT_SHIFT - PATH_KMER_SHIFT)
 
@@ -102,7 +103,10 @@ def make_transitions(events_per_base, indel_bias: float = 1.0,
     """Per-segment log transition probabilities (r9.inl:17-76), computed
     on the host in f64 and rounded to f32; p_bad_self defaults to p_bad.
     Returns [B, 8] float32 with the columns of TRANS_COLS (the three
-    bad-event exits share lp_b3)."""
+    bad-event exits share lp_b3).  The JAX package computes the table in
+    f32 steps with XLA's log, a few ulp from this one in lp_mm_self,
+    lp_mm_next, lp_b3 and lp_km; a Viterbi tie within that difference
+    can take another path (ROADMAP.md §3)."""
     if p_bad_self is None:
         p_bad_self = p_bad
     epb = np.maximum(1.25, np.asarray(events_per_base, np.float64).reshape(-1)
@@ -347,7 +351,7 @@ def forward_indexed_plain(levels_u, n_ev_u, tabs, rank_mat, n_km_u, trans_u,
 def viterbi_backtrack_plain(trace, n_events, n_kmers) -> torch.Tensor:
     """Traceback (r9.cpp:73-204) from (row=n_events, kmer=n_kmers-1, M);
     K states are silent (the row does not decrement).  A walk that would
-    leave the kmer axis stops there.  Returns path [B, 1 + T + K] int32
+    leave the kmer axis stops there.  Returns path [B, 1 + T + K] int64
     (see module docstring)."""
     B, T, K = trace.shape
     dev = trace.device
@@ -389,7 +393,7 @@ def viterbi_backtrack_plain(trace, n_events, n_kmers) -> torch.Tensor:
         st = torch.where(step_on, nxt_st, st)
         done = done | soft | (row <= 0) | (ki < 0)
     path[:, 0] = length
-    return path.to(torch.int32)
+    return path
 
 
 def paths_to_segments(path: np.ndarray) -> List[Tuple[np.ndarray, np.ndarray, str]]:

@@ -18,7 +18,8 @@ import torch
 
 from ..utils import cuda_build
 from .profile_hmm import _CLIP_BASE, _CLIP_STEP, _LOG1M_CLIP, forward_fill_plain
-from .profile_hmm_viterbi import prepare_viterbi_inputs, row_layout
+from .profile_hmm_viterbi import (prepare_viterbi_inputs, row_layout,
+                                  wide_scratch)
 
 
 def forward_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips):
@@ -42,12 +43,13 @@ def forward_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips):
     cuda_build.check_tensor("trans", trans, f32, (B, 8), dev)
     cuda_build.check_tensor("clips", clips, torch.uint8, (B, 2), dev)
     scores = torch.empty(B, dtype=f32, device=dev)
+    scratch = wide_scratch(KP, B, dev)
     cuda_build.launch(
         "forward_fill", levels.data_ptr(), T, mu.data_ptr(), sigma.data_ptr(),
         c.data_ptr(), KP, kpl, n_events.data_ptr(), n_kmers.data_ptr(),
         trans.data_ptr(), clips.data_ptr(), float(np.float32(_LOG1M_CLIP)),
         float(np.float32(_CLIP_BASE)), float(np.float32(_CLIP_STEP)), B,
-        scores.data_ptr())
+        scores.data_ptr(), None if scratch is None else scratch.data_ptr())
     cuda_build.count_launch("forward_fill")
     return scores
 

@@ -21,8 +21,9 @@ event slice, and each sequence against ~10 reads):
 the plain version (``ops/profile_hmm.forward_indexed_plain``); for CUDA
 tensors it launches the kernel (building it at first use) or raises.
 ``forward_indexed_scores`` is the host side of a flush: one upload of the
-indexed inputs, every launch issued, one fetch.  The TPU drain's lane
-packing and its relay wire are not ported.
+indexed inputs, one launch per kmer width, one fetch.  The TPU drain's
+lane packing becomes the kernel's 8-lane groups (``indexed_layout``); its
+relay wire is not ported.
 """
 
 from __future__ import annotations
@@ -35,19 +36,69 @@ from ..utils.device import resolve_device
 from .profile_hmm import (_CLIP_BASE, _CLIP_STEP, _LOG1M_CLIP,
                           HAF_ALLOW_POST_CLIP, HAF_ALLOW_PRE_CLIP, PAD_C,
                           forward_indexed_plain)
-from .profile_hmm_viterbi import kmer_width
+from .profile_hmm_viterbi import WIDE_THREADS, wide_scratch
 
 # segments per launch: bounds the plain version's gathered tables on the
-# CPU (the kernel takes any count)
+# CPU (the kernel takes any count), and past 1,024 kmers the wide row's
+# buffers (12 bytes per kmer and segment) to WIDE_LAUNCH_BYTES
 MAX_LAUNCH = 1 << 16
+WIDE_LAUNCH_BYTES = 1 << 29
+# narrowest kmer width of a segment (csrc/forward_indexed.cu: 8 lanes)
+MIN_WIDTH = 8
+# kmer widths 64-256 whose calling windows run on the warp row (R = KP / 32
+# kmers per lane); the others of 64-1024 on the block row.  On an H100
+# (chip_smoke phase 4b, PERF.md) the warp row took 0.32 ms against the
+# block row's 0.43 on 512 calling windows at 64, 1.65 against 1.71 on 118
+# at 128, and 2.87 against 2.25 on 394 at 256
+INDEXED_WARP_WIDTHS = (64, 128)
+
+
+def indexed_width(n_kmers_max: int, lo: int = MIN_WIDTH) -> int:
+    """The indexed kernel's kmer width: the smallest power of two >= lo
+    that holds n_kmers_max kmers."""
+    kp = lo
+    while kp < n_kmers_max:
+        kp *= 2
+    return kp
+
+
+def indexed_layout(kp: int):
+    """(mode, kpl) of the indexed kernel at kmer width kp, a power of two
+    >= 8: ``("narrow", 1)`` up to 32 (8 lanes a window, each at its own
+    width; ``plan_flush`` puts all of a flush's in one launch),
+    ``("warp", kp // 32)`` at INDEXED_WARP_WIDTHS, ``("block", 0)`` up to
+    1,024, else ``("wide", kp // 1024)`` (csrc/profile_hmm_wide.cuh)."""
+    if kp < MIN_WIDTH or kp & (kp - 1):
+        raise ValueError(f"kmer width {kp} must be a power of two >= "
+                         f"{MIN_WIDTH}")
+    if kp <= 32:
+        return ("narrow", 1)
+    if kp in INDEXED_WARP_WIDTHS:
+        return ("warp", kp // 32)
+    if kp <= WIDE_THREADS:
+        return ("block", 0)
+    return ("wide", kp // WIDE_THREADS)
+
+
+def narrow_runs(widths) -> tuple:
+    """The run ends (e8, e16) of a launch of windows of up to 32 kmers
+    whose kmer widths (host [n]: 8, 16 or 32) come sorted: the windows
+    [0, e8) are 8 kmers wide, [e8, e16) 16 and [e16, n) 32."""
+    w = np.asarray(widths, np.int64)
+    if not np.isin(w, (8, 16, 32)).all() or np.any(np.diff(w) < 0):
+        raise ValueError("kmer widths must be 8, 16 or 32, in order")
+    return int(np.sum(w == 8)), int(np.sum(w <= 16))
 
 
 def forward_indexed(levels_u, n_ev_u, tabs, rank_mat, n_km_u, trans_u, ids,
-                    clips, kp=None):
+                    clips, kp=None, widths=None):
     """Forward log-likelihood [n] f32 per segment (``forward_indexed_plain``
-    contract).  ``kp`` is the launch's kmer width, a power of two 32..1024
-    at least every segment's n_kmers (default ``kmer_width(Kc)``): 32 runs
-    one warp per segment, wider one block per segment."""
+    contract).  ``kp`` is the launch's kmer width, a power of two >= 8 and
+    at least every segment's n_kmers (default ``indexed_width(Kc)``), laid
+    out on the card as ``indexed_layout`` says.  Up to 32 kmers,
+    ``widths`` (host [n]) gives each segment's own kmer width, 8, 16 or 32,
+    in order (default: kp for all), and each runs at its own width
+    (``narrow_runs``)."""
     if levels_u.device.type == "cpu":
         return forward_indexed_plain(levels_u, n_ev_u, tabs, rank_mat, n_km_u,
                                      trans_u, ids, clips)
@@ -57,9 +108,15 @@ def forward_indexed(levels_u, n_ev_u, tabs, rank_mat, n_km_u, trans_u, ids,
     _, R, S = tabs.shape
     U, Kc = rank_mat.shape
     n = ids.shape[0]
-    KP = kmer_width(Kc) if kp is None else kp
-    if KP != kmer_width(KP):
-        raise ValueError(f"kmer width {KP} must be a power of two >= 32")
+    KP = indexed_width(Kc) if kp is None else kp
+    mode, kpl = indexed_layout(KP)
+    e8 = e16 = 0
+    if mode == "narrow":
+        widths = np.full(n, KP) if widths is None else widths
+        if len(widths) != n or (n and int(np.max(widths)) > KP):
+            raise ValueError(f"one kmer width of at most {KP} per segment")
+        KP = 32
+        e8, e16 = narrow_runs(widths)
     f32, i32 = torch.float32, torch.int32
     cuda_build.check_tensor("levels_u", levels_u, f32, (E, Tc), dev)
     cuda_build.check_tensor("n_ev_u", n_ev_u, i32, (E,), dev)
@@ -71,12 +128,15 @@ def forward_indexed(levels_u, n_ev_u, tabs, rank_mat, n_km_u, trans_u, ids,
     cuda_build.check_tensor("ids", ids, i32, (n, 4), dev)
     cuda_build.check_tensor("clips", clips, torch.uint8, (n, 2), dev)
     scores = torch.empty(n, dtype=f32, device=dev)
+    scratch = wide_scratch(KP, n, dev) if mode == "wide" else None
     cuda_build.launch(
         "forward_indexed", levels_u.data_ptr(), Tc, n_ev_u.data_ptr(),
         tabs.data_ptr(), R, S, rank_mat.data_ptr(), Kc, n_km_u.data_ptr(),
         trans_u.data_ptr(), ids.data_ptr(), clips.data_ptr(),
         float(np.float32(_LOG1M_CLIP)), float(np.float32(_CLIP_BASE)),
-        float(np.float32(_CLIP_STEP)), PAD_C, KP, n, scores.data_ptr())
+        float(np.float32(_CLIP_STEP)), PAD_C, KP, kpl, n,
+        scores.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        e8, e16)
     cuda_build.count_launch("forward_indexed")
     return scores
 
@@ -107,17 +167,55 @@ def check_indexed(levels_u, n_ev_u, tabs, rank_mat, n_km_u, trans_u, ids):
         raise ValueError(f"kmer ranks out of range [0, {tabs.shape[2]})")
 
 
+def plan_flush(nev, nk):
+    """How a flush launches segments of nev events and nk kmers (host
+    [n] each): (order [n], launches [(kp, lo, hi, widths)] over the
+    segments in that order).  Segments are sorted by kmer width
+    (``indexed_width``), longest event row first within
+    a width, so that the segments of a warp and the blocks of a launch end
+    together.  The windows of up to 32 kmers share one launch (widths: each
+    one's kmer width, 8, 16 or 32); every other width has launches of its
+    own (widths None), at most MAX_LAUNCH segments each and, past 1,024
+    kmers, within WIDE_LAUNCH_BYTES of row buffers."""
+    kp = _pow2(nk, MIN_WIDTH)
+    order = np.lexsort((-np.asarray(nev, np.int64), kp))
+    kps = kp[order]
+    n_narrow = int(np.sum(kps <= 32))
+    launches = [(32, a, min(a + MAX_LAUNCH, n_narrow),
+                 kps[a:min(a + MAX_LAUNCH, n_narrow)])
+                for a in range(0, n_narrow, MAX_LAUNCH)]
+    cuts = np.flatnonzero(np.diff(kps[n_narrow:])) + 1 + n_narrow
+    for lo, hi in zip(np.concatenate([[n_narrow], cuts]).tolist(),
+                      np.concatenate([cuts, [len(kps)]]).tolist()):
+        if lo >= hi:
+            continue
+        width = int(kps[lo])
+        step = MAX_LAUNCH if width <= WIDE_THREADS else \
+            max(1, WIDE_LAUNCH_BYTES // (12 * width))
+        launches += [(width, a, min(a + step, hi), None)
+                     for a in range(lo, hi, step)]
+    return order, launches
+
+
+def run_flush(tensors, ids, clips, launches):
+    """Make the launches of ``plan_flush`` on the device tensors (levels_u,
+    n_ev_u, tabs, rank_mat, n_km_u, trans_u) and the ids / clips in plan
+    order; returns each launch's scores, in order, without waiting."""
+    return [forward_indexed(*tensors, ids[lo:hi], clips[lo:hi], kp=kp,
+                            widths=widths)
+            for kp, lo, hi, widths in launches]
+
+
 def forward_indexed_scores(levels_u, n_ev_u, tabs, rank_mat, n_km_u,
                            trans_u, ids, flags, device=None) -> np.ndarray:
     """Forward-score n segments given as numpy indexed inputs (module
     docstring; ``flags`` [n] or one HAF_* value) on ``device`` (``cuda``
     unless ``cpu`` is asked).  Returns [n] f32.
 
-    Each input goes to the device once.  Segments are grouped by kernel
-    width (``kmer_width`` of their n_kmers) and power-of-two event count,
-    ordered by event count within a group so that a block's segments end
-    together; every launch is issued before the one fetch of the
-    concatenated scores.  A score does not depend on its group."""
+    Each input goes to the device once; the segments go in the launches
+    of ``plan_flush``, every launch issued before the one fetch of the
+    concatenated scores.  A score does not depend on its launch or its
+    width."""
     dev = resolve_device(device)
     ids = np.asarray(ids, np.int32).reshape(-1, 4)
     n = len(ids)
@@ -135,31 +233,15 @@ def forward_indexed_scores(levels_u, n_ev_u, tabs, rank_mat, n_km_u,
     clips = np.stack([(flags & HAF_ALLOW_PRE_CLIP) > 0,
                       (flags & HAF_ALLOW_POST_CLIP) > 0],
                      axis=1).astype(np.uint8)
-    nev = n_ev_u[ids[:, 0]]
-    kp = _pow2(n_km_u[ids[:, 2]], 32)
-    kmer_width(int(kp.max()))           # raises past the kernels' width
-    tp = _pow2(nev, 64)
-    order = np.lexsort((nev, tp, kp))
-    key = kp[order] * (1 << 32) + tp[order]
-    cuts = np.flatnonzero(np.diff(key)) + 1
-    starts = np.concatenate([[0], cuts])
-    ends = np.concatenate([cuts, [n]])
+    order, launches = plan_flush(n_ev_u[ids[:, 0]], n_km_u[ids[:, 2]])
 
     def up(x, dt):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dt, device=dev)
 
     f32, i32 = torch.float32, torch.int32
-    lev_d, nev_d = up(levels_u, f32), up(n_ev_u, i32)
-    tabs_d, rank_d = up(tabs, f32), up(rank_mat, i32)
-    nkm_d, tr_d = up(n_km_u, i32), up(trans_u, f32)
-    ids_d, clips_d = up(ids[order], i32), up(clips[order], torch.uint8)
-    pending = []
-    for lo, hi in zip(starts.tolist(), ends.tolist()):
-        width = int(kp[order[lo]])
-        for a in range(lo, hi, MAX_LAUNCH):
-            b = min(a + MAX_LAUNCH, hi)
-            pending.append(forward_indexed(lev_d, nev_d, tabs_d, rank_d,
-                                           nkm_d, tr_d, ids_d[a:b],
-                                           clips_d[a:b], kp=width))
+    tens = (up(levels_u, f32), up(n_ev_u, i32), up(tabs, f32),
+            up(rank_mat, i32), up(n_km_u, i32), up(trans_u, f32))
+    pending = run_flush(tens, up(ids[order], i32),
+                          up(clips[order], torch.uint8), launches)
     out[order] = torch.cat(pending).cpu().numpy()
     return out

@@ -22,38 +22,55 @@ from ..utils import cuda_build
 from ..utils.device import resolve_device
 from .banded_align import emission_constant
 from .profile_hmm import (_CLIP_BASE, _CLIP_STEP, _LOG1M_CLIP,
-                          HAF_ALLOW_POST_CLIP, HAF_ALLOW_PRE_CLIP, MAX_KMERS,
+                          HAF_ALLOW_POST_CLIP, HAF_ALLOW_PRE_CLIP,
                           make_transitions, paths_to_segments,
                           viterbi_backtrack_plain, viterbi_fill_plain)
 
-MAX_THREADS = 1024
-
 
 def kmer_width(n_kmers_max: int) -> int:
-    """The profile-HMM kernels' kmer width (Viterbi and Forward): a power
-    of two, 32..1024 (one thread per kmer)."""
+    """The profile-HMM kernels' kmer width (Viterbi and Forward): the
+    smallest power of two >= 32 that holds n_kmers_max kmers."""
     kp = 32
     while kp < n_kmers_max:
         kp *= 2
-    if kp > min(MAX_THREADS, MAX_KMERS):
-        raise ValueError(f"{n_kmers_max} kmers exceed the profile-HMM "
-                         f"kernels' {min(MAX_THREADS, MAX_KMERS)}-kmer width")
     return kp
 
 
 # widest row the warp kernels hold: 32 lanes x 8 kmers
 ROW_WARP_MAX = 256
+# widest row the block kernels hold: one thread per kmer
+ROW_BLOCK_MAX = 1024
+# the wide row's threads per segment (csrc/profile_hmm_wide.cuh)
+WIDE_THREADS = 1024
+# shared memory of one block on sm_90 (227 KB) and the wide row's part of
+# it besides its row buffer (the tree: one float per thread)
+SMEM_BLOCK_MAX = 232448
+WIDE_TREE_BYTES = 4 * WIDE_THREADS
 
 
 def row_layout(kp: int) -> Tuple[str, int]:
     """How the profile-HMM fills (csrc/viterbi_fill.cu, forward_fill.cu)
     lay out a row of ``kp`` kmers, a ``kmer_width``: ``("warp", kp // 32)``
-    up to 256 kmers (one warp per segment, that many kmers per lane), else
-    ``("block", 0)`` (one block of kp threads per segment).  The second
+    up to 256 kmers (one warp per segment, that many kmers per lane),
+    ``("block", 0)`` up to 1,024 (one block of kp threads per segment),
+    else ``("wide", kp // 1024)`` (one block of 1,024 threads per segment,
+    that many kmers per thread; csrc/profile_hmm_wide.cuh).  The second
     value is the kernels' ``kpl`` argument."""
     if kp != kmer_width(kp):
         raise ValueError(f"kmer width {kp} must be a power of two >= 32")
-    return ("warp", kp // 32) if kp <= ROW_WARP_MAX else ("block", 0)
+    if kp <= ROW_WARP_MAX:
+        return ("warp", kp // 32)
+    return ("block", 0) if kp <= ROW_BLOCK_MAX else ("wide", kp // WIDE_THREADS)
+
+
+def wide_scratch(kp: int, B: int, dev):
+    """The wide row's global row buffers [B, 3, kp] f32 when its 12 kp
+    bytes and the tree do not fit in a block's shared memory, else None
+    (the kernel keeps them in shared memory)."""
+    if row_layout(kp)[0] != "wide" or \
+            12 * kp + WIDE_TREE_BYTES <= SMEM_BLOCK_MAX:
+        return None
+    return torch.empty((B, 3, kp), dtype=torch.float32, device=dev)
 
 
 def viterbi_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips):
@@ -77,18 +94,19 @@ def viterbi_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips):
     cuda_build.check_tensor("trans", trans, f32, (B, 8), dev)
     cuda_build.check_tensor("clips", clips, torch.uint8, (B, 2), dev)
     trace = torch.empty((B, T, KP), dtype=torch.uint8, device=dev)
+    scratch = wide_scratch(KP, B, dev)
     cuda_build.launch(
         "viterbi_fill", levels.data_ptr(), T, mu.data_ptr(), sigma.data_ptr(),
         c.data_ptr(), KP, kpl, n_events.data_ptr(), n_kmers.data_ptr(),
         trans.data_ptr(), clips.data_ptr(), float(np.float32(_LOG1M_CLIP)),
         float(np.float32(_CLIP_BASE)), float(np.float32(_CLIP_STEP)), B,
-        trace.data_ptr())
+        trace.data_ptr(), None if scratch is None else scratch.data_ptr())
     cuda_build.count_launch("viterbi_fill")
     return trace
 
 
 def viterbi_backtrack(trace, n_events, n_kmers):
-    """Traceback paths [B, 1 + T + KP] int32 (``viterbi_backtrack_plain``
+    """Traceback paths [B, 1 + T + KP] int64 (``viterbi_backtrack_plain``
     layout; entries past each path's length are unspecified)."""
     if trace.device.type == "cpu":
         return viterbi_backtrack_plain(trace, n_events, n_kmers)
@@ -98,7 +116,7 @@ def viterbi_backtrack(trace, n_events, n_kmers):
     cuda_build.check_tensor("trace", trace, torch.uint8, (B, T, KP), dev)
     cuda_build.check_tensor("n_events", n_events, torch.int32, (B,), dev)
     cuda_build.check_tensor("n_kmers", n_kmers, torch.int32, (B,), dev)
-    path = torch.empty((B, 1 + T + KP), dtype=torch.int32, device=dev)
+    path = torch.empty((B, 1 + T + KP), dtype=torch.int64, device=dev)
     cuda_build.launch("viterbi_backtrack", trace.data_ptr(), T, KP,
                       n_events.data_ptr(), n_kmers.data_ptr(), B,
                       path.data_ptr())

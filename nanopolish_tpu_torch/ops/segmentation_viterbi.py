@@ -7,7 +7,10 @@ and ``csrc/seg_backtrack.cu`` (the summary fused into the backward walk).
 
 Each wrapper takes tensors on one device.  For CPU tensors it runs its
 kernel's plain version from ``ops/segmentation_hmm.py``; for CUDA tensors
-it launches the kernel (building it at first use) or raises.
+it launches the kernel (building it at first use) or raises.  On the card
+the backpointers are stored read-major ([B, N], one warp per read writes
+its row coalesced); ``seg_viterbi_fill`` returns them as the [N, B] view
+of that storage, which ``seg_backtrack`` takes without a copy.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from .segmentation_hmm import (N_CONSTS, T, seg_backtrack_plain,
 
 
 def seg_viterbi_fill(samples, n_samples, scal, consts):
-    """Backpointers [N, B] uint8 and final scores [B, 6] f32 for samples
+    """Backpointers [N, B] uint8 (on the card a view of read-major
+    storage) and final scores [B, 6] f32 for samples
     [N, B] f32 (sample-major), n_samples [B] i32 (1 <= n <= N) and
     scal [B, 3] f32 (scale, shift, var); consts is ``seg_constants``."""
     consts = np.ascontiguousarray(consts, np.float32)
@@ -35,13 +39,13 @@ def seg_viterbi_fill(samples, n_samples, scal, consts):
     cuda_build.check_tensor("samples", samples, torch.float32, (N, B), dev)
     cuda_build.check_tensor("n_samples", n_samples, torch.int32, (B,), dev)
     cuda_build.check_tensor("scal", scal, torch.float32, (B, 3), dev)
-    bptr = torch.zeros((N, B), dtype=torch.uint8, device=dev)
+    rows = torch.zeros((B, N), dtype=torch.uint8, device=dev)
     vfin = torch.empty((B, 6), dtype=torch.float32, device=dev)
     cuda_build.launch("seg_viterbi_fill", samples.data_ptr(), N, B,
                       n_samples.data_ptr(), scal.data_ptr(),
-                      consts.ctypes.data, bptr.data_ptr(), vfin.data_ptr())
+                      consts.ctypes.data, rows.data_ptr(), vfin.data_ptr())
     cuda_build.count_launch("seg_viterbi_fill")
-    return bptr, vfin
+    return rows.t(), vfin
 
 
 def seg_backtrack(bptr, n_samples, out=None, labels: bool = False):
@@ -58,14 +62,15 @@ def seg_backtrack(bptr, n_samples, out=None, labels: bool = False):
     cuda_build.require_cuda(bptr)
     dev = bptr.device
     N, B = bptr.shape
-    cuda_build.check_tensor("bptr", bptr, torch.uint8, (N, B), dev)
+    rows = bptr.t().contiguous()        # read-major; no copy for the fill's
+    cuda_build.check_tensor("bptr", rows, torch.uint8, (B, N), dev)
     cuda_build.check_tensor("n_samples", n_samples, torch.int32, (B,), dev)
     if out is None:
         out = torch.empty((B, 5), dtype=torch.int32, device=dev)
     cuda_build.check_tensor("out", out, torch.int32, (B, 5), dev)
     lab = torch.full((N, B), T, dtype=torch.uint8, device=dev) \
         if labels else None
-    cuda_build.launch("seg_backtrack", bptr.data_ptr(), N, B,
+    cuda_build.launch("seg_backtrack", rows.data_ptr(), N, B,
                       n_samples.data_ptr(), out.data_ptr(),
                       lab.data_ptr() if labels else None)
     cuda_build.count_launch("seg_backtrack")

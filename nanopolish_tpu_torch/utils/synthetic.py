@@ -10,6 +10,7 @@ without real flowcell data.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -111,3 +112,65 @@ def synthetic_read(
     n_kmers = len(sequence) - model.k + 1
     read.events_per_base[T_IDX] = len(ev) / n_kmers
     return read
+
+
+def _write_fasta(path: str, name: str, seq: str) -> None:
+    """One record, 60 bases a line."""
+    with open(path, "w") as fh:
+        fh.write(f">{name}\n")
+        for i in range(0, len(seq), 60):
+            fh.write(seq[i:i + 60] + "\n")
+
+
+def _signal_adc(pa: np.ndarray) -> np.ndarray:
+    """pA -> int16 ADC counts at digitisation 8192, range 1400, offset 0."""
+    return np.clip(pa * 8192.0 / 1400.0, -32000, 32000).astype(np.int16)
+
+
+# the read of build_deletion_corpus: 600 bases, then 30 runs of 12 bases
+# each after a 60-base deletion, then 640 bases
+DELETION_KEEP = ((0, 600),) + tuple((660 + 72 * i, 672 + 72 * i)
+                                    for i in range(30)) + ((2760, 3400),)
+
+
+def build_deletion_corpus(d: str, seed: int = 61, genome_len: int = 3500,
+                          keep=DELETION_KEEP) -> Tuple[str, str, str]:
+    """Reference FASTA, basecalls, slow5 signal, readdb index and BAM in
+    directory d for one read whose molecule is genome[a:b] for the (a, b)
+    of keep, mapped with a BAM record of M runs and the deletions between
+    them.  eventalign follows 60-base deletions, so scorereads' 500-event
+    chunks across the dense run of them span 1,384 reference kmers: past
+    the 1,024 of one block (the profile-HMM kernels' wide row).  Returns
+    (reference, fastq, bam) paths."""
+    from ..apps import index as index_app
+    from ..io.bam import BamRecord, BamWriter
+    from ..io.slow5 import Slow5Writer
+    from ..models.pore_model import PoreModelSet
+
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    model = PoreModelSet.instance().get_model(
+        "r9.4_450bps", "nucleotide", "template", 6)
+    genome = random_sequence(rng, genome_len)
+    ref_fa = os.path.join(d, "ref.fa")
+    _write_fasta(ref_fa, "tig1", genome)
+    read = "".join(genome[a:b] for a, b in keep)
+    fastq, slow5 = os.path.join(d, "reads.fastq"), os.path.join(d, "sig.slow5")
+    with open(fastq, "w") as fq, Slow5Writer(slow5) as sw:
+        fq.write(f"@del1\n{read}\n+\n{'I' * len(read)}\n")
+        pa = synthetic_raw_signal(rng, read, model,
+                                  SquiggleScalings.from4(0.0, 1.0, 0.0, 1.0),
+                                  samples_per_base=10.0, leader=500,
+                                  trailer=100)
+        sw.write("del1", _signal_adc(pa), 8192.0, 0.0, 1400.0, 4000.0)
+    index_app.main([fastq, "--slow5", slow5])
+    bam = os.path.join(d, "aln.bam")
+    cigar = [(0, keep[0][1] - keep[0][0])]
+    for (_, b0), (a1, b1) in zip(keep, keep[1:]):
+        cigar += [(2, a1 - b0), (0, b1 - a1)]
+    w = BamWriter(bam, "@HD\tVN:1.6\tSO:coordinate\n", ["tig1"], [genome_len])
+    w.write(BamRecord(qname="del1", tid=0, pos=keep[0][0], mapq=60,
+                      cigar=cigar, seq=read,
+                      qual=np.full(len(read), 30, np.uint8)))
+    w.close()
+    return ref_fa, fastq, bam

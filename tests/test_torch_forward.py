@@ -26,6 +26,7 @@ from nanopolish_tpu_torch.ops import profile_hmm as ph
 from nanopolish_tpu_torch.ops import profile_hmm_forward as pf
 from nanopolish_tpu_torch.utils.logsum import add_logs_exact
 from tests.kchain_lanes import chain_inputs, lane_schedule_chain
+from tests.printed_output import assert_agree
 
 torch.set_num_threads(2)
 
@@ -131,6 +132,68 @@ def test_lane_schedule_matches_kstate_chain_logsum(R):
     np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
 
 
+@pytest.mark.parametrize("W", [8, 16])
+def test_segmented_lane_schedule_matches_kstate_chain_logsum(W):
+    """forward_indexed.cu's short windows: 32 / W segments per warp, one
+    kmer per lane, every shuffle on groups of W lanes (the width argument
+    of __shfl_up_sync).  Each group's K chain gives kstate_chain_logsum's
+    values of its own W kmers bit for bit, with its own lp_kk and no
+    value crossing from another group."""
+    rng = np.random.default_rng(300 + W)
+    G = 32 // W
+    c, lp_kk = chain_inputs(rng, 8 * G, W + 8)
+    c = c[:, :W]
+    lp_kk = lp_kk[rng.permutation(8 * G)]
+
+    def op(x, y):
+        return add_logs_exact(torch.from_numpy(np.ascontiguousarray(x)),
+                              torch.from_numpy(np.ascontiguousarray(y))
+                              ).numpy()
+
+    got = lane_schedule_chain(c.reshape(8, 32), lp_kk.reshape(8, G), 1, op,
+                              width=W)
+    ref = ph.kstate_chain_logsum(torch.from_numpy(c),
+                                 torch.from_numpy(lp_kk)).numpy()
+    np.testing.assert_array_equal(got.reshape(8 * G, W).view(np.int32),
+                                  ref.view(np.int32))
+
+
+@pytest.mark.parametrize("R", [1, 2, 4])
+def test_eight_lane_windows_match_kstate_chain_logsum(R):
+    """forward_indexed.cu's windows of up to 32 kmers: 8 lanes a window,
+    R kmers a lane, 4 windows a warp.  Windows of mixed widths 1 .. 8 R,
+    each padded to 8 R with other values, give on their own kmers the
+    bits of kstate_chain_logsum over those kmers alone and over them
+    padded to one group of 32: the grouping changes no value."""
+    rng = np.random.default_rng(400 + R)
+    kp, n = 8 * R, 32
+    c, lp_kk = chain_inputs(rng, n, kp + 8)
+    c = c[:, :kp]
+    widths = rng.integers(1, kp + 1, n)
+    pad = rng.normal(-50.0, 20.0, (n, kp)).astype(np.float32)
+    c = np.where(np.arange(kp)[None, :] < widths[:, None], c, pad)
+
+    def op(x, y):
+        return add_logs_exact(torch.from_numpy(np.ascontiguousarray(x)),
+                              torch.from_numpy(np.ascontiguousarray(y))
+                              ).numpy()
+
+    got = lane_schedule_chain(c.reshape(n // 4, 4 * kp),
+                              lp_kk.reshape(n // 4, 4), R, op,
+                              width=8).reshape(n, kp)
+    wide = np.pad(c, ((0, 0), (0, 32 - kp)), constant_values=-7.0)
+    one_group = ph.kstate_chain_logsum(torch.from_numpy(wide),
+                                       torch.from_numpy(lp_kk)).numpy()
+    for i, w in enumerate(widths):
+        alone = ph.kstate_chain_logsum(
+            torch.from_numpy(c[i:i + 1, :w].copy()),
+            torch.from_numpy(lp_kk[i:i + 1])).numpy()[0]
+        np.testing.assert_array_equal(got[i, :w].view(np.int32),
+                                      alone.view(np.int32))
+        np.testing.assert_array_equal(one_group[i, :w].view(np.int32),
+                                      alone.view(np.int32))
+
+
 def test_logaddexp_matches_jnp():
     rng = np.random.default_rng(0)
     x = rng.normal(-100, 40, 4096).astype(np.float32)
@@ -194,10 +257,39 @@ def test_no_events_scores_neg_inf():
     assert got[1] == -np.inf and np.isfinite(got[[0, 2]]).all()
 
 
-def test_width_limit_raises():
-    lv, Ts, mu, sd, Ks, epb = _batch(1, 1025, 40, seed=1)
-    with pytest.raises(ValueError, match="1024-kmer width"):
-        pf.profile_hmm_forward(lv, Ts, mu, sd, Ks, epb, 0, device="cpu")
+@pytest.mark.parametrize("K,T,flags", [(1100, 500, 3), (1100, 500, 0),
+                                         (20000, 40, 3)])
+def test_wide_segment_matches_jax_scan(K, T, flags):
+    """A segment wider than 1,024 kmers (a 500-event scorereads chunk
+    across deletions: 1,100 kmers; the wide row at 2,048) and one whose
+    rows need the wide row's global scratch on the card (20,000 kmers:
+    width 32,768, 384 KB of rows) score as the JAX scan scores them, under
+    the printed-output rule of scorereads' per-event score."""
+    from nanopolish_tpu.alignment import segments as jseg
+    lv, Ts, mu, sd, Ks, epb = _batch(1, K, T, seed=K + flags, full=True)
+    want = jseg.forward_segments([jseg.HMMSegment(
+        lv[0], mu[0], sd[0], float(epb[0]), flags)])
+    got = forward_segments([HMMSegment(lv[0], mu[0], sd[0], float(epb[0]),
+                                       flags)], device="cpu")
+    assert np.isfinite(got).all()
+    assert_agree(f"{got[0] / T:.3f}\n", f"{want[0] / T:.3f}\n",
+                 f"forward {K} kmers x {T} events")
+    np.testing.assert_allclose(got, want, atol=ATOL * T, rtol=0)
+
+
+def test_wide_bucket_padding_bit_identical():
+    """A segment of 1,000 kmers scores the same bits at kmer width 1,024
+    (block row) and 2,048 (wide row): the row layouts of the card all
+    compute the padding-invariant function of forward_fill_plain."""
+    lv, Ts, mu, sd, Ks, epb = _batch(3, 1000, 60, seed=5)
+    x1 = pf.prepare_forward_inputs(lv, Ts, mu, sd, Ks, epb, 3, device="cpu")
+    x2 = pf.prepare_forward_inputs(
+        lv, Ts, np.pad(mu, ((0, 0), (0, 1048))),
+        np.pad(sd, ((0, 0), (0, 1048)), constant_values=1.0), Ks, epb, 3,
+        device="cpu")
+    assert x1["mu"].shape[1] == 1024 and x2["mu"].shape[1] == 2048
+    a, b = pf.forward_scores(x1), pf.forward_scores(x2)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.fixture
@@ -209,15 +301,17 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kp", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("kp", [32, 64, 128, 256, 512, 2048, 32768])
 def test_kernel_matches_plain_on_gpu(cuda_device, kp):
     """Every row layout (warp kernel at R = 1, 2, 4, 8; block kernel at
-    512), bit for bit: n_kmers not a multiple of 32 R, all four clip
+    512; wide row at 2,048, and at 32,768 with its rows in global
+    scratch), bit for bit: n_kmers not a multiple of 32 R, all four clip
     flags, one segment with a single event."""
-    lv, Ts, mu, sd, Ks, epb = _batch(64, kp, 2 * kp + 20, seed=kp)
+    B, T = (64, 2 * kp + 20) if kp <= 512 else (8, 48)
+    lv, Ts, mu, sd, Ks, epb = _batch(B, kp, T, seed=kp)
     Ks[0] = kp - 1
     Ts[1] = 1
-    flags = np.arange(64, dtype=np.int32) % 4
+    flags = np.arange(B, dtype=np.int32) % 4
     x = pf.prepare_forward_inputs(lv, Ts, mu, sd, Ks, epb, flags,
                                   device=cuda_device)
     assert x["mu"].shape[1] == kp

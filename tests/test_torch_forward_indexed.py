@@ -203,11 +203,69 @@ def test_bad_inputs_raise():
     wide = dict(c, n_km_u=c["n_km_u"] + 1)
     with pytest.raises(ValueError, match="Kc"):
         _port(wide)
-    with pytest.raises(ValueError, match="1024-kmer width"):
-        pi.forward_indexed_scores(
-            c["levels_u"], c["n_ev_u"], _tabs(c),
-            np.zeros((1, 1025), np.int32), np.array([1025], np.int32),
-            c["trans_u"], np.zeros((1, 4), np.int32), FLAGS, device="cpu")
+    with pytest.raises(ValueError, match="power of two"):
+        pi.indexed_layout(48)
+    # a rank row past 1,024 kmers is no bad input: it scores
+    got = pi.forward_indexed_scores(
+        c["levels_u"], c["n_ev_u"], _tabs(c),
+        np.zeros((1, 1025), np.int32), np.array([1025], np.int32),
+        c["trans_u"], np.zeros((1, 4), np.int32), FLAGS, device="cpu")
+    assert np.isfinite(got).all()
+
+
+def _short(c, t_max):
+    """c with every event row cut to at most t_max levels."""
+    return dict(c, n_ev_u=np.minimum(c["n_ev_u"], t_max).astype(np.int32),
+                levels_u=c["levels_u"][:, :t_max].copy())
+
+
+def test_wide_windows_match_jax_scan():
+    """Windows of 1,100 and 3,000 kmers among short ones (the wide row on
+    the card, 2,048 and 4,096 kmers a segment) score as the JAX scan
+    scores their flat inputs, and as the port's flat Forward bit for
+    bit."""
+    c = _short(_case(19, [1100, 3000, 20, 7], n=8, E=2), 90)
+    lv, nev, mu, sd, nk, trans = _flat(c)
+    cols = (0, 1, 2, 3, 4, 5, 5, 5, 6, 7)   # BlockTransitions field order
+    jt = BlockTransitions(*[jnp.asarray(trans[:, i]) for i in cols])
+    want = np.asarray(profile_hmm_forward(lv, nev, mu, sd, np.log(sd), nk,
+                                          np.ones(len(nk), np.float32),
+                                          flags=FLAGS, trans=jt))
+    got = _port(c)
+    _report(got, want, "scan, wide windows")
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    flat = pf.profile_hmm_forward(lv, nev, mu, sd, nk, None, FLAGS,
+                                  trans=trans, device="cpu")
+    np.testing.assert_array_equal(got.view(np.int32), flat.view(np.int32))
+
+
+@pytest.mark.parametrize("kp,layout", [
+    (8, ("narrow", 1)), (16, ("narrow", 1)), (32, ("narrow", 1)),
+    (64, ("warp", 2)), (128, ("warp", 4)), (256, ("block", 0)),
+    (512, ("block", 0)), (1024, ("block", 0)),
+    (2048, ("wide", 2)), (65536, ("wide", 64))])
+def test_indexed_layout(kp, layout):
+    assert pi.indexed_layout(kp) == layout
+    assert pi.indexed_width(kp) == kp and pi.indexed_width(kp - 1) == kp
+
+
+def test_plan_flush_shares_one_launch_below_33_kmers():
+    """Windows of 1-32 kmers go in one launch, each at its own kmer width
+    (8, 16, 32), longest event row first within a width; each wider width
+    gets launches of its own."""
+    nk = np.array([5, 40, 17, 9, 300, 32, 1, 2000, 64, 16])
+    nev = np.arange(10, 20)
+    order, launches = pi.plan_flush(nev, nk)
+    assert [(kp, hi - lo) for kp, lo, hi, _ in launches] == \
+        [(32, 6), (64, 2), (512, 1), (2048, 1)]
+    kp, lo, hi, widths = launches[0]
+    assert widths.tolist() == [8, 8, 16, 16, 32, 32]
+    assert nk[order[:2]].tolist() == [1, 5]     # longest event row first
+    # the kernel's run ends: [0, 2) 8 kmers wide, [2, 4) 16, [4, 6) 32
+    assert pi.narrow_runs(widths) == (2, 4)
+    assert pi.narrow_runs([32, 32]) == (0, 0)
+    with pytest.raises(ValueError, match="in order"):
+        pi.narrow_runs([16, 8])
 
 
 @pytest.fixture
@@ -218,12 +276,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
+GPU_WIDTHS = dict(WIDTHS, calling=[64, 100, 128, 200, 256],
+                  block=[300, 512, 700, 1024], wide=[1100, 20, 3000])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", sorted(WIDTHS))
+@pytest.mark.parametrize("shape", sorted(GPU_WIDTHS))
 def test_kernel_matches_plain_and_forward_fill_on_gpu(cuda_device, shape):
-    """Warp mode (<= 32 kmers) and block mode, bit for bit against the
-    plain version and the flat forward_fill kernel."""
-    c = _case(17, WIDTHS[shape], n=512)
+    """Every mode of indexed_layout (kmer widths 8, 16, 32 mixed in one
+    launch, the warp row at 64/128, the block row at 256-1,024, the wide
+    row), bit for bit against the plain version and the flat forward_fill
+    kernel."""
+    c = _case(17, GPU_WIDTHS[shape], n=512 if shape != "wide" else 16)
+    if shape in ("block", "wide"):
+        c = _short(c, 120)
     got = pi.forward_indexed_scores(*_indexed(c), FLAGS, device=cuda_device)
     plain = _port(c)
     np.testing.assert_array_equal(got.view(np.int32), plain.view(np.int32))
@@ -231,3 +297,18 @@ def test_kernel_matches_plain_and_forward_fill_on_gpu(cuda_device, shape):
     flat = pf.profile_hmm_forward(lv, nev, mu, sd, nk, None, FLAGS,
                                   trans=trans, device=cuda_device)
     np.testing.assert_array_equal(got.view(np.int32), flat.view(np.int32))
+
+
+@pytest.mark.cuda
+def test_grouping_does_not_change_scores_on_gpu(cuda_device):
+    """Windows of 1-32 kmers give the same bits in one mixed launch (four
+    to a warp, beside windows of other widths and event counts) as each
+    alone in a launch of its own."""
+    c = _case(21, list(range(1, 33)), n=96)
+    mixed = pi.forward_indexed_scores(*_indexed(c), FLAGS,
+                                      device=cuda_device)
+    for i in range(len(mixed)):
+        one = dict(c, ids=c["ids"][i:i + 1])
+        alone = pi.forward_indexed_scores(*_indexed(one), FLAGS,
+                                          device=cuda_device)
+        assert alone.view(np.int32)[0] == mixed.view(np.int32)[i], i

@@ -24,7 +24,8 @@ from nanopolish_tpu_torch.io.slow5 import Slow5Writer
 from nanopolish_tpu_torch.io.vcf import Variant, VcfWriter
 from nanopolish_tpu_torch.models.pore_model import PoreModelSet
 from nanopolish_tpu_torch.models.squiggle import SquiggleScalings
-from nanopolish_tpu_torch.utils.synthetic import (random_sequence,
+from nanopolish_tpu_torch.utils.synthetic import (build_deletion_corpus,
+                                                  random_sequence,
                                                   synthetic_raw_signal)
 from tests.printed_output import assert_agree
 
@@ -119,6 +120,92 @@ def test_scorereads_matches_jax_app(phased_pipeline, opts, capsys):
                      "scorereads transition table")
         assert "matches=0" not in _transitions(got_err).split(
             "SUMMARY")[1].splitlines()[0]
+
+
+def _port_transitions_in_jax(monkeypatch):
+    """Give the JAX package's profile HMM the port's transition table.
+
+    The port rounds each log transition once from f64
+    (ops/profile_hmm.make_transitions); the JAX package computes it in
+    f32 steps (1 - 1/epb, then 1 - p_stay - p_skip - p_bad) and XLA's
+    log, which lands a few ulp away in lp_mm_self, lp_mm_next, lp_bk and
+    lp_km (test_transition_table_differs_from_jax_by_a_few_ulp).  A
+    Viterbi whose best path ties to within that can take the other
+    path."""
+    import jax.numpy as jnp
+    from nanopolish_tpu.ops import profile_hmm as jph
+    from nanopolish_tpu_torch.ops import profile_hmm as ph
+    cols = (0, 1, 2, 3, 4, 5, 5, 5, 6, 7)     # BlockTransitions field order
+
+    def port_table(events_per_base, indel_bias=1.0, p_skip=None, p_bad=None,
+                   p_bad_self=None, p_skip_self=None):
+        knobs = jph.TransitionKnobs
+        t = ph.make_transitions(
+            np.asarray(events_per_base, np.float32), indel_bias,
+            p_skip=knobs.p_skip if p_skip is None else p_skip,
+            p_bad=knobs.p_bad if p_bad is None else p_bad,
+            p_skip_self=(knobs.p_skip_self if p_skip_self is None
+                         else p_skip_self),
+            p_bad_self=knobs.p_bad_self if p_bad_self is None else p_bad_self)
+        return jph.BlockTransitions(*[jnp.asarray(t[:, i]) for i in cols])
+
+    monkeypatch.setattr(jph, "make_transitions", port_table)
+
+
+def test_transition_table_differs_from_jax_by_a_few_ulp():
+    """The port's transition table is the f64 one rounded once to f32.
+    The JAX package's differs from it by a few ulp (at most 5 on this
+    grid), and only in the four columns that it computes through f32
+    steps and XLA's log."""
+    from nanopolish_tpu.ops import profile_hmm as jph
+    from nanopolish_tpu_torch.ops import profile_hmm as ph
+    epb = np.linspace(0.5, 4.0, 2001).astype(np.float32)
+    for bias in (1.0, 0.9):
+        got = ph.make_transitions(epb, bias)
+        j = jph.make_transitions(epb, bias)
+        want = np.stack([np.asarray(getattr(j, n)) for n in (
+            "lp_mk", "lp_mb", "lp_mm_self", "lp_mm_next", "lp_bb", "lp_bk",
+            "lp_kk", "lp_km")], axis=1)
+        ulps = np.abs(got.view(np.int32).astype(np.int64) -
+                      want.view(np.int32).astype(np.int64))
+        assert ulps.max() <= 5
+        assert not ulps[:, [0, 1, 4, 6]].any()
+        e = np.maximum(1.25, epb.astype(np.float64) * bias)
+        np.testing.assert_array_equal(
+            got[:, 2], np.log(1.0 - 1.0 / e).astype(np.float32))
+
+
+def test_scorereads_wide_chunk_matches_jax_app(tmp_path, monkeypatch):
+    """A read with a dense run of 60-base deletions
+    (utils/synthetic.build_deletion_corpus): one 500-event chunk spans
+    1,384 reference kmers, which the port scores on its wide row instead
+    of raising.  Every column of every row agrees with the JAX app under
+    the printed-output rule, once both use one transition table
+    (_port_transitions_in_jax): with its own, the JAX app's eventalign
+    puts event 1474 at reference 1840 where the port puts it at 1838 (a
+    Viterbi tie within the tables' difference), and the SEGMENT
+    recalibration columns of that chunk follow."""
+    from nanopolish_tpu.apps import scorereads as jax_app
+    ref_fa, fastq, bam = build_deletion_corpus(str(tmp_path))
+    args = ["-r", fastq, "-b", bam, "-g", ref_fa]
+    seen = []
+    tasks = sc._segment_tasks
+
+    def spy(*a, **k):
+        out = tasks(*a, **k)
+        seen.extend(len(t["segment"].mu) for t in out)
+        return out
+
+    monkeypatch.setattr(sc, "_segment_tasks", spy)
+    got = io.StringIO()
+    sc.main(args + ["--device", "cpu"], stdout=got)
+    assert max(seen) > 1024
+    _port_transitions_in_jax(monkeypatch)
+    want = io.StringIO()
+    jax_app.main(args, stdout=want)
+    rep = assert_agree(got.getvalue(), want.getvalue(),
+                       "scorereads, wide chunk")
+    assert rep["rows"] == len(seen) + 1
 
 
 def test_scorereads_cli_scores_are_plausible(phased_pipeline):

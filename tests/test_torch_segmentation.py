@@ -59,7 +59,7 @@ def _case(lengths):
     for i, r in enumerate(reads):
         samples[i, :len(r)] = r
     return samples, np.asarray(lengths, np.int32), \
-        np.asarray(SCALINGS[:B], np.float32)
+        np.resize(np.asarray(SCALINGS, np.float32), (B, 3))
 
 
 def _scan(samples, ns, sc, params):
@@ -250,8 +250,13 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["polya", "dpi"])
-def test_kernels_match_plain_on_gpu(cuda_device, which):
-    samples, ns, sc = _case((1560, 900, 1233))
+@pytest.mark.parametrize("lengths", [(1560, 900, 1233),
+                                     (1, 2, 31, 32, 33, 64, 65, 1500)])
+def test_kernels_match_plain_on_gpu(cuda_device, which, lengths):
+    """One warp per read, 32 samples a chunk: reads that end inside, at
+    and just past a chunk, and the read-major bytes the fill hands to
+    the backtrack."""
+    samples, ns, sc = _case(lengths)
     x = torch.from_numpy(samples.T.copy()).to(cuda_device)
     n = torch.from_numpy(ns).to(cuda_device)
     s = torch.from_numpy(sc).to(cuda_device)

@@ -160,15 +160,57 @@ def test_row_layout(kp):
         assert (mode, kpl) == ("block", 0)
 
 
+@pytest.mark.parametrize("kp", [2048, 4096, 32768, 1 << 20])
+def test_row_layout_wide(kp):
+    """Past 1,024 kmers: one block of 1,024 threads, kp / 1024 kmers per
+    thread; the rows go to global scratch once 12 kp bytes and the tree
+    pass a block's 227 KB of shared memory."""
+    assert pv.row_layout(kp) == ("wide", kp // 1024)
+    scratch = pv.wide_scratch(kp, 2, torch.device("meta"))
+    if kp <= 16384:
+        assert scratch is None
+    else:
+        assert scratch.shape == (2, 3, kp) and scratch.dtype == torch.float32
+
+
 @pytest.mark.parametrize("kp", [0, 16, 48, 100, 384])
 def test_row_layout_rejects_other_widths(kp):
     with pytest.raises(ValueError, match="power of two"):
         pv.row_layout(kp)
 
 
-def test_row_layout_rejects_past_the_widest():
-    with pytest.raises(ValueError, match="1024-kmer width"):
-        pv.row_layout(2048)
+@pytest.mark.parametrize("K,T,flags", [(1100, 500, 3), (1100, 500, 0),
+                                         (20000, 40, 3)])
+def test_wide_segment_matches_jax_scan(K, T, flags):
+    """A 500-event segment of 1,100 kmers (the wide row at 2,048 on the
+    card) and one of 20,000 kmers (width 32,768: its rows in global
+    scratch on the card) align exactly as the JAX scan aligns them."""
+    from nanopolish_tpu.alignment import segments as jseg
+    from nanopolish_tpu_torch.alignment import segments as tseg
+    lv, Ts, mu, sd, Ks, epb = _batch(1, K + 1, T + 1, seed=K + flags)
+    lv, mu, sd = lv[0, :T], mu[0, :K], sd[0, :K]
+    want = jseg.viterbi_segments([jseg.HMMSegment(lv, mu, sd,
+                                                  float(epb[0]), flags)])
+    got = tseg.viterbi_segments([tseg.HMMSegment(lv, mu, sd, float(epb[0]),
+                                                 flags)], device="cpu")
+    assert _same(want[0], got[0]) and len(got[0][0]) > 0
+
+
+def test_path_cells_round_trip():
+    """The widened path cells (event << 32 | kmer << 2 | state, int64)
+    carry event and kmer indices far past the old 19- and 10-bit fields."""
+    ev = np.array([0, 1, 524288, 3_000_000, (1 << 31) - 1], np.int64)
+    km = np.array([0, 1023, 1024, 700_000, ph.MAX_KMERS - 1], np.int64)
+    st = np.array([2, 1, 0, 2, 1], np.int64)
+    cells = (ev << ph.PATH_EVENT_SHIFT) | (km << ph.PATH_KMER_SHIFT) | st
+    path = np.zeros((1, 1 + len(ev)), np.int64)
+    path[0, 0] = len(ev)
+    path[0, 1:] = cells[::-1]              # traceback order
+    evs, kms, states = ph.paths_to_segments(path)[0]
+    np.testing.assert_array_equal(evs, ev)
+    np.testing.assert_array_equal(kms, km)
+    assert states == "MBKMB"
+    assert ph.MAX_KMERS >= 1 << 30
 
 
 @pytest.mark.parametrize("kp", [32, 64, 128])
@@ -197,11 +239,29 @@ def test_bucket_padding_bit_identical(kp):
                                       wide[b, :Ts[b], :kp])
 
 
-def test_kmer_width_limits():
-    assert pv.kmer_width(1) == 32 and pv.kmer_width(105) == 128
-    assert pv.kmer_width(1024) == 1024
-    with pytest.raises(ValueError):
-        pv.kmer_width(1025)
+@pytest.mark.parametrize("n,kp", [(1, 32), (105, 128), (1024, 1024),
+                                  (1025, 2048), (1100, 2048),
+                                  (20000, 32768), (100_000, 131072)])
+def test_kmer_width_has_no_ceiling(n, kp):
+    assert pv.kmer_width(n) == kp
+
+
+@pytest.mark.parametrize("R", [1, 2])
+def test_wide_lane_schedule_matches_kstate_chain(R):
+    """The wide row's K chain (csrc/profile_hmm_wide.cuh): R kmers per
+    thread, the in-thread levels, then the 1,024 threads' in-place tree
+    (tests/kchain_lanes.py with 1,024 lanes) gives kstate_chain_max's
+    values bit for bit."""
+    rng = np.random.default_rng(7 + R)
+    c, lp_kk = chain_inputs(rng, 3, 1024 * R)
+
+    def op(x, y):
+        return np.where(x > y, x, y)    # npt_max
+
+    got = lane_schedule_chain(c, lp_kk, R, op, width=1024, lanes=1024)
+    ref = ph.kstate_chain_max(torch.from_numpy(c),
+                              torch.from_numpy(lp_kk)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
 
 
 @pytest.fixture
@@ -213,15 +273,17 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kp", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("kp", [32, 64, 128, 256, 512, 2048, 32768])
 def test_kernels_match_plain_on_gpu(cuda_device, kp):
     """Every row layout (warp kernel at R = 1, 2, 4, 8; block kernel at
-    512): n_kmers not a multiple of 32 R, all four clip flags, one
+    512; wide row at 2,048, and at 32,768 with its rows in global
+    scratch): n_kmers not a multiple of 32 R, all four clip flags, one
     segment with a single event."""
-    lv, Ts, mu, sd, Ks, epb = _batch(16, kp, 2 * kp + 20, seed=kp)
+    B, T = (16, 2 * kp + 20) if kp <= 512 else (4, 48)
+    lv, Ts, mu, sd, Ks, epb = _batch(B, kp, T, seed=kp)
     Ks[0] = kp - 1
     Ts[1] = 1
-    flags = np.arange(16, dtype=np.int32) % 4
+    flags = np.arange(B, dtype=np.int32) % 4
     x = pv.prepare_viterbi_inputs(lv, Ts, mu, sd, Ks, epb, flags,
                                   device=cuda_device)
     assert x["mu"].shape[1] == kp
@@ -229,7 +291,7 @@ def test_kernels_match_plain_on_gpu(cuda_device, kp):
             x["n_kmers"], x["trans"], x["clips"])
     tk = pv.viterbi_fill(*args)
     tp = ph.viterbi_fill_plain(*args)
-    for b in range(16):
+    for b in range(B):
         assert torch.equal(tk[b, :Ts[b], :Ks[b]], tp[b, :Ts[b], :Ks[b]])
     got = ph.paths_to_segments(
         pv.viterbi_backtrack(tk, x["n_events"], x["n_kmers"]).cpu().numpy())

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Time one checkout's profile-HMM fills on one card.
+"""Time one checkout's profile-HMM and segmentation kernels on one card.
 
     python3 tools/probe_hmm_rows.py [--root DIR] [--json FILE]
                                     [--against FILE] [--sass DIR] [--paths]
+                                    [--capture FILE]
 
 Builds the kernels of the checkout at --root (default: the one holding
 this script) with that checkout's own utils/cuda_build, and drives its
 public wrappers (ops/profile_hmm_viterbi.viterbi_fill,
-ops/profile_hmm_forward.forward_fill) on the batches of this checkout's
-chip_smoke.py, so that two checkouts run the same inputs:
+ops/profile_hmm_forward.forward_fill,
+ops/profile_hmm_indexed.forward_indexed_scores,
+ops/segmentation_viterbi.seg_viterbi_fill) on the batches of this
+checkout's chip_smoke.py, so that two checkouts run the same inputs:
 
   vit-check    chip_smoke.py's 512 eventalign-shaped Viterbi segments
   vit-wave     32 of them, a launch of eventalign's wavefront
@@ -19,27 +22,46 @@ chip_smoke.py, so that two checkouts run the same inputs:
                length and kmer width; fwd-<T>x<KP> is each bucket alone
   vit-<kp>, fwd-<kp>
                chip_smoke.py's batch at each width of HMM_WIDTHS
+  idx-screen, idx-call
+               chip_smoke.py's 8,192 screening-shaped and 512
+               calling-shaped indexed segments, one flush each
+  idx-flush    the largest flush of the 50 kb variants run (--capture),
+               and idx-flush-<kp> each of its kmer-width buckets (8, 16,
+               32, 64 ... as indexed_width groups them) alone
+  seg-check, seg-check-dpi
+               chip_smoke.py's 512 reads x 2,000-65,536 samples, polya and
+               detect-polyi parameters
+  seg-polya    the polya run's segmentation launch (--capture)
 
-With --paths it then runs chip_smoke.py's eventalign and
-call-methylation main paths (phase 6) under torch.profiler and reports
-each fill's summed device time and launches there (path ms).
+An indexed case's time is the device time of its forward_indexed kernels
+per flush (torch.profiler), since the two checkouts launch a flush
+differently; idx cases also report the flush's CUDA-event time with its
+uploads and fetch (wall_ms).  Every other time is a CUDA-event mean over
+REPS calls after a warm-up.
 
-Each time is a CUDA-event mean over REPS launches after a warm-up.
-Prints ptxas's registers and spills for the two fills, one line per case
-and one JSON line: the card's name and power limit, the times (ms) and a
-sha256 of each case's output (the trace cells of the live event rows;
-the scores).  --json writes that line to FILE; --against FILE fails the
-run unless every output equals FILE's.  With --sass DIR, writes the two
-fills' SASS (cuobjdump) into DIR and prints their instruction and branch
-counts per kernel.
+--capture FILE: the idx-flush and seg-polya inputs.  When FILE does not
+exist, the run builds chip_smoke.py's 50 kb variants and 512-read polya
+corpora, runs both paths (recording the largest forward_indexed_scores
+flush and the polya segmentation launch) and writes FILE; later runs read
+it.  With --paths the run also reports path ms: each kernel's summed
+device time on its own main path (chip_smoke phase 6: eventalign,
+call-methylation, variants, polya) and its launches.
+
+Prints ptxas's registers and spills, one line per case and one JSON
+line: the card's name and power limit, the times (ms) and a sha256 of
+each case's output (the trace cells of the live event rows; the scores;
+the backpointer bytes and final scores).  --json writes that line to
+FILE; --against FILE fails the run unless every output equals FILE's.
+With --sass DIR, writes each kernel's SASS (cuobjdump) into DIR and
+prints instruction and branch counts per kernel function.
 
 To compare two commits, unpack one with `git archive` into a directory
 that .gitignore lists (here P) and run the two in turns in one call:
 
-    python3 tools/probe_hmm_rows.py --root P --json p1.json
-    python3 tools/probe_hmm_rows.py --against p1.json
-    python3 tools/probe_hmm_rows.py --against p1.json
-    python3 tools/probe_hmm_rows.py --root P --against p1.json
+    python3 tools/probe_hmm_rows.py --root P --capture c.npz --paths --json p1.json
+    python3 tools/probe_hmm_rows.py --capture c.npz --paths --against p1.json
+    python3 tools/probe_hmm_rows.py --capture c.npz --paths --against p1.json
+    python3 tools/probe_hmm_rows.py --root P --capture c.npz --paths --against p1.json
 """
 
 from __future__ import annotations
@@ -56,7 +78,8 @@ import sys
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("viterbi_fill", "forward_fill")
+KERNELS = ("viterbi_fill", "forward_fill", "forward_indexed",
+           "seg_viterbi_fill")
 REPS = 10
 
 
@@ -69,7 +92,7 @@ def load_chip_smoke():
 
 
 def sass(cs, out_dir):
-    """Write the two fills' SASS into out_dir and log each kernel's
+    """Write the kernels' SASS into out_dir and log each kernel's
     instruction and branch counts."""
     from nanopolish_tpu_torch.utils import cuda_build
     os.makedirs(out_dir, exist_ok=True)
@@ -95,8 +118,8 @@ def sass(cs, out_dir):
             for fn, (n, b) in counts.items()))
 
 
-def cases(cs, model, dev):
-    """(case, kernel, [prepared inputs of each launch]) in timing order."""
+def fill_cases(cs, model, dev):
+    """(case, kernel, [prepared inputs of each launch]) of the two fills."""
     from nanopolish_tpu_torch.alignment.segments import _bucket_key
     from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
 
@@ -133,7 +156,87 @@ def cases(cs, model, dev):
     return out
 
 
-def digest(name, x, out) -> str:
+def indexed_cases(cs, model, cap):
+    """(case, indexed inputs as numpy, flags) of forward_indexed_scores:
+    chip_smoke phase 4b's batches (the same generator calls, in its order)
+    and the captured flush, whole and per kmer-width bucket."""
+    rng = np.random.default_rng(23)
+    screen = cs.indexed_batch(model, rng, cs.IDX_SCREEN, 5, 32, 10, 80,
+                              per_ev=10)
+    cs.indexed_batch(model, rng, 1024, 1, 32, 10, 80, per_ev=8,
+                     widths=np.arange(1, 33))
+    call = cs.indexed_batch(model, rng, cs.IDX_CALL, 100, 256, None, None,
+                            per_ev=4)
+    out = [("idx-screen", screen, 3), ("idx-call", call, 3)]
+    if cap is not None:
+        flush = tuple(cap[f"flush{i}"] for i in range(7))
+        flags = np.broadcast_to(cap["flush7"], (len(flush[6]),))
+        out.append(("idx-flush", flush, flags))
+        nk = flush[4][flush[6][:, 2]]
+        kp = np.maximum(8, 1 << np.ceil(np.log2(np.maximum(nk, 1)))
+                        .astype(np.int64))
+        for w in sorted(set(kp.tolist())):
+            out.append((f"idx-flush-{w}", flush[:6] + (flush[6][kp == w],),
+                        flags[kp == w]))
+    return out
+
+
+def seg_cases(cs, dev, cap):
+    """(case, samples, n, scalings, consts) of seg_viterbi_fill."""
+    import torch
+    from nanopolish_tpu_torch.apps.detect_polyi import DPI_PARAMS
+    from nanopolish_tpu_torch.ops import segmentation_hmm as sh
+    reads, scal = cs.seg_batches()["mixed"]
+    x, n, s = cs.seg_inputs(reads, scal, dev)
+    out = [("seg-check", x, n, s, sh.seg_constants(sh.SegmentationParams())),
+           ("seg-check-dpi", x, n, s, sh.seg_constants(DPI_PARAMS))]
+    if cap is not None:
+        out.append(("seg-polya",
+                    *(torch.as_tensor(cap[k], device=dev)
+                      for k in ("seg_samples", "seg_n", "seg_scal")),
+                    cap["seg_consts"]))
+    return out
+
+
+def capture(cs, dev, path):
+    """Run the variants and polya main paths once, recording the largest
+    forward_indexed_scores flush and the polya segmentation launch; write
+    them to path (npz)."""
+    from nanopolish_tpu_torch.alignment import segments
+    from nanopolish_tpu_torch.apps import variants
+    from nanopolish_tpu_torch.ops import segmentation_viterbi as sv
+    got = {}
+    flush_fn, seg_fn = segments.forward_indexed_scores, sv.seg_viterbi_fill
+    callers = (segments, variants)           # both flush through it
+
+    def flush_spy(*a, **k):
+        if len(a[6]) > len(got.get("flush6", ())):
+            got.update({f"flush{i}": np.asarray(v) for i, v in
+                        enumerate(a[:8])})
+        return flush_fn(*a, **k)
+
+    def seg_spy(x, n, s, consts):
+        if "seg_samples" not in got:
+            got.update(seg_samples=x.cpu().numpy(), seg_n=n.cpu().numpy(),
+                       seg_scal=s.cpu().numpy(), seg_consts=np.asarray(
+                           consts, np.float32))
+        return seg_fn(x, n, s, consts)
+
+    for mod in callers:
+        mod.forward_indexed_scores = flush_spy
+    sv.seg_viterbi_fill = seg_spy
+    try:
+        own = {"forward_indexed": cs.phase_variants(dev),
+               "seg_viterbi_fill": cs.phase_polya(dev)}
+    finally:
+        for mod in callers:
+            mod.forward_indexed_scores = flush_fn
+        sv.seg_viterbi_fill = seg_fn
+    np.savez(path, **got)
+    return own
+
+
+def fill_digest(name, x, out) -> str:
     """sha256 of one launch's output: the Viterbi's trace cells of the
     live event rows (the rest are never read), the Forward's scores."""
     import torch
@@ -142,6 +245,13 @@ def digest(name, x, out) -> str:
         out = out[(rows < x["n_events"][:, None, None].long()).expand(
             out.shape)]
     return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+
+
+def sha(*arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
 
 
 def main() -> int:
@@ -153,9 +263,12 @@ def main() -> int:
     ap.add_argument("--against", metavar="FILE",
                     help="fail unless every output equals this result's")
     ap.add_argument("--sass", metavar="DIR",
-                    help="write the two fills' SASS into DIR")
+                    help="write the kernels' SASS into DIR")
     ap.add_argument("--paths", action="store_true",
-                    help="also time the fills on their main paths")
+                    help="also time the kernels on their main paths")
+    ap.add_argument("--capture", metavar="FILE",
+                    help="the variants flush and polya launch to time "
+                         "(made by running both paths when missing)")
     a = ap.parse_args()
     cs = load_chip_smoke()
     if not torch.cuda.is_available():
@@ -164,7 +277,9 @@ def main() -> int:
     import nanopolish_tpu_torch
     from nanopolish_tpu_torch.models.pore_model import PoreModelSet
     from nanopolish_tpu_torch.ops import profile_hmm_forward as pf
+    from nanopolish_tpu_torch.ops import profile_hmm_indexed as pi
     from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
+    from nanopolish_tpu_torch.ops import segmentation_viterbi as sv
     from nanopolish_tpu_torch.utils import cuda_build
 
     dev = torch.device("cuda", 0)
@@ -178,14 +293,31 @@ def main() -> int:
     if a.sass:
         sass(cs, a.sass)
 
+    result = {"card": cs.card(), "root": os.path.abspath(a.root)}
+    own = None
+    if a.capture and not os.path.exists(a.capture):
+        own = capture(cs, dev, a.capture)
+    cap = np.load(a.capture) if a.capture else None
+    if a.paths:
+        launches, path_ms, _ = cs.phase_eventalign(dev)
+        cm_launches, cm_path_ms = cs.phase_call_methylation(dev)
+        if own is None:
+            own = {"forward_indexed": cs.phase_variants(dev),
+                   "seg_viterbi_fill": cs.phase_polya(dev)}
+        own["forward_fill"] = (cm_launches, cm_path_ms)
+        for k, (ln, pm) in own.items():
+            launches[k], path_ms[k] = ln[k], pm[k]
+        result["path_ms"] = {k: path_ms[k] for k in KERNELS}
+        result["path_launches"] = {k: launches[k] for k in KERNELS}
+
     fill = {"viterbi_fill": pv.viterbi_fill, "forward_fill": pf.forward_fill}
     model = PoreModelSet.instance().get_model(
         "r9.4_450bps", "nucleotide", "template", 6)
-    times, digests = {}, {}
-    for case, name, xs in cases(cs, model, dev):
+    times, walls, digests = {}, {}, {}
+    for case, name, xs in fill_cases(cs, model, dev):
         args = [(x["levels"], x["n_events"], x["mu"], x["sigma"], x["c"],
                  x["n_kmers"], x["trans"], x["clips"]) for x in xs]
-        digests[case] = [digest(name, x, fill[name](*arg))
+        digests[case] = [fill_digest(name, x, fill[name](*arg))
                          for x, arg in zip(xs, args)]
         times[case] = cs.cuda_ms(lambda: [fill[name](*arg) for arg in args],
                                  reps=REPS)
@@ -193,15 +325,26 @@ def main() -> int:
                f"{len(xs)} launches, kmer widths "
                f"{sorted({x['mu'].shape[1] for x in xs})}: "
                f"{times[case]:.4f} ms")
-    result = {"card": cs.card(), "root": os.path.abspath(a.root),
-              "ms": times, "sha256": digests}
-    if a.paths:
-        launches, path_ms, _ = cs.phase_eventalign(dev)
-        cm_launches, cm_path_ms = cs.phase_call_methylation(dev)
-        launches["forward_fill"] = cm_launches["forward_fill"]
-        path_ms["forward_fill"] = cm_path_ms["forward_fill"]
-        result["path_ms"] = {k: path_ms[k] for k in KERNELS}
-        result["path_launches"] = {k: launches[k] for k in KERNELS}
+    for case, arrays, flags in indexed_cases(cs, model, cap):
+        def run():
+            return pi.forward_indexed_scores(*arrays, flags, device=dev)
+        digests[case] = sha(run())
+        times[case] = cs.kernel_ms(run, "forward_indexed", REPS)
+        walls[case] = cs.cuda_ms(run, reps=REPS)
+        cs.log(f"{case}: {len(arrays[6])} segments, kmer counts "
+               f"{int(arrays[4][arrays[6][:, 2]].min())}-"
+               f"{int(arrays[4][arrays[6][:, 2]].max())}: kernels "
+               f"{times[case]:.4f} ms per flush (flush {walls[case]:.4f} ms "
+               f"with its uploads and fetch)")
+    for case, x, n, s, k in seg_cases(cs, dev, cap):
+        bk, vk = sv.seg_viterbi_fill(x, n, s, k)
+        digests[case] = sha(bk.contiguous().cpu().numpy(), vk.cpu().numpy())
+        del bk, vk
+        times[case] = cs.cuda_ms(lambda: sv.seg_viterbi_fill(x, n, s, k),
+                                 reps=REPS)
+        cs.log(f"{case}: {x.shape[1]} reads, up to {x.shape[0]} samples: "
+               f"{times[case]:.4f} ms")
+    result.update(ms=times, wall_ms=walls, sha256=digests)
     print(json.dumps(result), flush=True)
     if a.json:
         with open(a.json, "w") as fh:
