@@ -8,8 +8,11 @@ Phases (any failure exits non-zero; nothing is caught):
      nanopolish_tpu_torch/csrc/ (one nvcc per source, all at once);
   2. banded-alignment kernels (fill, backtrack) against their plain
      PyTorch versions on the card, bit for bit, on 32 reads x 2 kb plus
-     tiny, garbage, noisy and mixed-length batches; then timing at 256
-     reads x 8 kb (2 events/base, r9.4_450bps 6-mer);
+     tiny, garbage, noisy and mixed-length batches and two whose bands
+     run along an edge (far more kmers than events, and far more events
+     than kmers); then timing at 256 reads x 8 kb (2 events/base,
+     r9.4_450bps 6-mer), beside an estimate of the fill's chain-latency
+     floor (logged only);
   3. profile-HMM Viterbi kernels (fill, backtrack) against their plain
      versions on 512 eventalign-shaped segments with all four soft-clip
      flag combinations (identical traces and tracebacks), and on one
@@ -17,7 +20,10 @@ Phases (any failure exits non-zero; nothing is caught):
      the warp kernel at 1, 2, 4, 8 kmers per lane; 512: the block
      kernel; 2,048 and 32,768: the wide row, its rows in shared memory
      and in global scratch), each with n_kmers short of the width, all
-     four clip flags and a one-event segment; then timing;
+     four clip flags and a one-event segment; the backtrack also at
+     1,024 kmers (the block row) and in a one-segment and a 32-segment
+     launch; then timing, the backtrack beside an estimate of its
+     chain-latency floor (logged only);
   4. the Forward kernels' log1pf against torch.log1p on every float in
      [0, 1]; the profile-HMM Forward kernel against its plain version, bit
      for bit, on 2,048 call-methylation-shaped segments (17-221 kmers, 30-460
@@ -120,6 +126,12 @@ SUB = {"A": "G", "C": "T", "G": "A", "T": "C"}
 # published peaks of one H100 SXM (dense, no sparsity)
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# dependent cycles of one step of a chain, for the logged floor estimates:
+# a band of the banded fill (the edge broadcasts, the placement compare and
+# select, two adds and two maxima per cell, the neighbour shuffles), and a
+# step of the Viterbi walk (a shared-memory load and the decode)
+BANDED_CHAIN_CYCLES = 60
+VIT_BT_STEP_CYCLES = 50
 
 
 def log(msg: str) -> None:
@@ -170,21 +182,26 @@ def cuda_ms(fn, reps: int = 3) -> float:
 def kernel_ms(fn, kernel: str, reps: int = 3) -> float:
     """Device milliseconds of one port kernel (cuda_build.KERNELS) per
     fn() call, from torch.profiler over reps calls after a warm-up: the
-    kernel alone, without the host work and copies fn() also does."""
+    kernel alone, without the host work and copies fn() also does.  A
+    profile has come back with fewer of the kernel's launches than were
+    made, and once with none: the time is the mean of the launches it
+    recorded times the launches made (cuda_build.LAUNCHES), and with none
+    recorded another profile is taken, failing after three."""
     import torch
+    from nanopolish_tpu_torch.utils import cuda_build
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    # a profile has come back once without the device time of kernels
-    # that fn() launched: take another, and fail after three
     for _ in range(3):
+        made = cuda_build.LAUNCHES[kernel]
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        ms = kernel_path_ms(prof)[kernel] / reps
-        if ms > 0:
-            return ms
+        made = cuda_build.LAUNCHES[kernel] - made
+        us, seen = kernel_device_us(prof)[kernel]
+        if seen:
+            return us / seen * made / reps / 1e3
     fail(f"torch.profiler recorded no device time for {kernel}")
 
 
@@ -284,6 +301,12 @@ def phase_banded(model, dev, report):
         "mixed": banded_case(model, 4, 280, 590, seed=31,
                              n_events=[590, 95, 590, 160],
                              n_kmers=[280, 45, 280, 80]),
+        "edge_kmers": banded_case(model, 4, 300, 120, epk=0.4, seed=7,
+                                  n_events=[120, 90, 120, 60],
+                                  n_kmers=[300, 300, 250, 300]),
+        "edge_events": banded_case(model, 4, 40, 400, epk=10.0, seed=8,
+                                   n_events=[400, 400, 300, 400],
+                                   n_kmers=[40, 30, 40, 25]),
     }
     for name, (ev, nev, mu, sigma, nk) in cases.items():
         x = ba.prepare_banded_inputs(ev, nev, mu, sigma, np.log(sigma), nk,
@@ -332,8 +355,13 @@ def phase_banded(model, dev, report):
     torch.cuda.synchronize()
     fb, ff, bb, bf = banded_work(nev, nk)
     reads_s = B / ((fill_ms + bt_ms) / 1e3)
+    clk = sm_clock_mhz()
+    n_bands = ba.n_bands_for(T, K)
+    floor = n_bands * BANDED_CHAIN_CYCLES / (clk * 1e3)
     log(f"banded bench {B} reads x {K} kmers x {T} events: fill {fill_ms:.3f} ms "
-        f"(plain {fill_plain_ms:.1f} ms), backtrack {bt_ms:.3f} ms "
+        f"(plain {fill_plain_ms:.1f} ms; chain latency floor {floor:.3f} ms, "
+        f"an estimate: {BANDED_CHAIN_CYCLES} cycles x {n_bands} bands at "
+        f"{clk:.0f} MHz), backtrack {bt_ms:.3f} ms "
         f"(plain {bt_plain_ms:.1f} ms); {reads_s:.1f} reads/s; "
         f"failed={int(res.failed.sum())}/{B}")
     for name, ms, pms, nbytes, flops, err in (
@@ -485,17 +513,29 @@ def phase_viterbi(model, dev, report):
             fail("viterbi tracebacks differ between the cpu plain path and "
                  "the kernels")
     fill_ms = cuda_ms(lambda: pv.viterbi_fill(*fargs))
-    bt_ms = cuda_ms(lambda: pv.viterbi_backtrack(tk, x["n_events"],
-                                                 x["n_kmers"]))
+    bt_ms = kernel_ms(lambda: pv.viterbi_backtrack(tk, x["n_events"],
+                                                   x["n_kmers"]),
+                      "viterbi_backtrack", reps=10)
     lens = pk[:, 0].double().cpu().numpy()
     cells = float(np.sum(nev.astype(np.float64) * nk))
     fill_bytes = cells + float(np.sum(nev) * 4 + np.sum(nk) * 12 + S * 42)
     bt_bytes = float(np.sum(lens) * 5 + S * 12)
+    clk = sm_clock_mhz()
+    floor = float(lens.max()) * VIT_BT_STEP_CYCLES / (clk * 1e3)
     log(f"viterbi {S} segments (flags 0-3, kmer width {x['mu'].shape[1]}, "
         f"{layout_name(x['mu'].shape[1])}): traces and tracebacks == plain "
         f"(exact-tie differences: 0); fill {fill_ms:.4f} ms (plain "
         f"{fill_plain_ms:.1f} ms), backtrack {bt_ms:.4f} ms (plain "
-        f"{bt_plain_ms:.1f} ms)")
+        f"{bt_plain_ms:.1f} ms; chain latency floor {floor:.4f} ms, an "
+        f"estimate: {VIT_BT_STEP_CYCLES} cycles x the longest walk's "
+        f"{int(lens.max())} steps at {clk:.0f} MHz)")
+    # the backtrack alone in a one-segment and a wavefront-sized launch
+    for n in (1, 32):
+        pn = pv.viterbi_backtrack(tk[:n].contiguous(), x["n_events"][:n],
+                                  x["n_kmers"][:n])
+        if path_max_abs_err(pn, pp[:n]) != 0.0:
+            fail(f"viterbi_backtrack: a {n}-segment launch differs from plain")
+    log("viterbi_backtrack 1- and 32-segment launches == plain")
     err = max_abs_err(tk[live].float(), tp[live].float())
     for kp in HMM_WIDTHS:
         arrays = width_batch(model, kp, WIDTH_SEGMENTS, seed=kp)
@@ -508,6 +548,14 @@ def phase_viterbi(model, dev, report):
         log(f"viterbi width {kp} ({layout_name(kp)}): {WIDTH_SEGMENTS} "
             f"segments, 0 of {int(livew.sum())} trace cells and 0 tracebacks "
             f"differ from plain; fill {ms:.4f} ms")
+    # the block row's widest width: the backtrack's 256-kmer window
+    xw = pv.prepare_viterbi_inputs(*width_batch(model, 1024, 8, seed=1024),
+                                   device=dev)
+    wargs, tkw, tpw, livew, *_ = viterbi_check(xw, "width-1024")
+    err = max(err, max_abs_err(tkw[livew].float(), tpw[livew].float()))
+    log(f"viterbi width 1024 ({layout_name(1024)}): 8 segments, 0 of "
+        f"{int(livew.sum())} trace cells and 0 tracebacks differ from plain")
+    del wargs, tkw, tpw, livew
     for kp in WIDE_WIDTHS:
         xw = pv.prepare_viterbi_inputs(*wide_batch(model, kp, seed=kp),
                                        device=dev)
@@ -1624,13 +1672,14 @@ def card_busy(prof):
     return sum(busy.values()), top
 
 
-def kernel_path_ms(prof):
-    """Device milliseconds of each port kernel (cuda_build.KERNELS) in a
-    torch.profiler run, from the CUDA function names: csrc/<name>.cu
-    defines <name>_kernel, <name>_warp_kernel<R> or <name>_block_kernel."""
+def kernel_device_us(prof):
+    """Device microseconds and recorded launches of each port kernel
+    (cuda_build.KERNELS) in a torch.profiler run, from the CUDA function
+    names: csrc/<name>.cu defines <name>_kernel, <name>_warp_kernel<R> or
+    <name>_block_kernel."""
     import re
     from nanopolish_tpu_torch.utils import cuda_build
-    out = {name: 0.0 for name in cuda_build.KERNELS}
+    out = {name: (0.0, 0) for name in cuda_build.KERNELS}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
         if us is None:
@@ -1641,7 +1690,9 @@ def kernel_path_ms(prof):
             continue
         hits = [n for n in cuda_build.KERNELS if m.group(1).startswith(n + "_")]
         if hits:
-            out[max(hits, key=len)] += us / 1e3
+            name = max(hits, key=len)
+            t, n = out[name]
+            out[name] = (t + us, n + ev.count)
     return out
 
 
@@ -1654,7 +1705,8 @@ def profiled_run(fn, kernels):
     with torch.profiler.profile(activities=acts) as prof:
         wall, launches = timed_run(fn, kernels)
     busy_s, top = card_busy(prof)
-    return wall, launches, busy_s, top, kernel_path_ms(prof)
+    return wall, launches, busy_s, top, {
+        name: us / 1e3 for name, (us, _) in kernel_device_us(prof).items()}
 
 
 def phase_polya(dev):

@@ -39,3 +39,31 @@ __device__ __forceinline__ float npt_shfl_prev(float x, int d, int gl) {
 __device__ __forceinline__ int npt_clampi(int v, int lo, int hi) {
     return v < lo ? lo : (v > hi ? hi : v);
 }
+
+// 16-byte asynchronous copy global -> shared (cp.async.cg: through L2,
+// bypassing L1); both addresses 16-byte aligned.  Copies issued by a
+// thread since its last commit form one group; wait_all waits for all of
+// the thread's groups, so a warp that shares what it staged also needs a
+// __syncwarp() after it.
+__device__ __forceinline__ void npt_cp_async16(void* smem, const void* gmem) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void npt_cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void npt_cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// named barrier id shared by nthreads threads (a multiple of 32): sync
+// waits for the other participants, arrive counts this warp and goes on.
+// Both order this thread's earlier memory accesses before the barrier
+// completes for every participant.
+__device__ __forceinline__ void npt_bar_sync(int id, int nthreads) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(nthreads) : "memory");
+}
+__device__ __forceinline__ void npt_bar_arrive(int id, int nthreads) {
+    asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(nthreads) : "memory");
+}

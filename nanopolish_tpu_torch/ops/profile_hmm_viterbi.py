@@ -46,6 +46,10 @@ WIDE_THREADS = 1024
 # it besides its row buffer (the tree: one float per thread)
 SMEM_BLOCK_MAX = 232448
 WIDE_TREE_BYTES = 4 * WIDE_THREADS
+# the backtrack's staged trace tile (csrc/viterbi_backtrack.cu TILE_BYTES)
+# and its widest kmer window
+BT_TILE_BYTES = 8192
+BT_WINDOW_MAX = 256
 
 
 def row_layout(kp: int) -> Tuple[str, int]:
@@ -61,6 +65,14 @@ def row_layout(kp: int) -> Tuple[str, int]:
     if kp <= ROW_WARP_MAX:
         return ("warp", kp // 32)
     return ("block", 0) if kp <= ROW_BLOCK_MAX else ("wide", kp // WIDE_THREADS)
+
+
+def backtrack_tile(kp: int) -> Tuple[int, int]:
+    """(rows, window) of the trace tile csrc/viterbi_backtrack.cu stages in
+    shared memory for a ``kmer_width`` kp: a window of the whole row up to
+    256 kmers, else of 256 kmers, and as many rows as fill BT_TILE_BYTES."""
+    window = min(kp, BT_WINDOW_MAX)
+    return BT_TILE_BYTES // window, window
 
 
 def wide_scratch(kp: int, B: int, dev):
@@ -116,9 +128,13 @@ def viterbi_backtrack(trace, n_events, n_kmers):
     cuda_build.check_tensor("trace", trace, torch.uint8, (B, T, KP), dev)
     cuda_build.check_tensor("n_events", n_events, torch.int32, (B,), dev)
     cuda_build.check_tensor("n_kmers", n_kmers, torch.int32, (B,), dev)
+    if trace.data_ptr() % 16:
+        raise ValueError("trace: the kernel stages it in 16-byte copies and "
+                         "needs a 16-byte aligned start")
+    rows, window = backtrack_tile(KP)
     path = torch.empty((B, 1 + T + KP), dtype=torch.int64, device=dev)
-    cuda_build.launch("viterbi_backtrack", trace.data_ptr(), T, KP,
-                      n_events.data_ptr(), n_kmers.data_ptr(), B,
+    cuda_build.launch("viterbi_backtrack", trace.data_ptr(), T, KP, window,
+                      rows, n_events.data_ptr(), n_kmers.data_ptr(), B,
                       path.data_ptr())
     cuda_build.count_launch("viterbi_backtrack")
     return path

@@ -10,15 +10,20 @@ transition terms (transition_params_f32).  The kernels themselves run
 only on a GPU (marked ``cuda``).
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from nanopolish_tpu.models.pore_model import PoreModelSet
+from nanopolish_tpu.ops.banded_align import _banded_forward as jax_forward
 from nanopolish_tpu.ops.banded_align import banded_align_batch as jax_banded
 from nanopolish_tpu.ops.pallas_banded_exact import banded_align_exact as jax_exact
 from nanopolish_tpu_torch.ops import banded_align as ba
 from nanopolish_tpu_torch.ops import banded_exact as bx
+from nanopolish_tpu_torch.ops.emissions import fma32, log_normal_fused
 
 torch.set_num_threads(2)
 
@@ -63,6 +68,12 @@ CASES = {
                        nev=[90] * 4, nk=[40] * 4),
     "tiny_126x130": dict(K=126, T=130, noise=1.0, seed=5, epk=130 / 126,
                          nev=[130] * 4, nk=[126] * 4),
+    # bands that run along an edge: far more kmers than events (the band
+    # moves right nearly every band) and far more events than kmers
+    "edge_kmers": dict(K=300, T=120, noise=1.0, seed=7, epk=0.4,
+                       nev=[120, 90, 120, 60], nk=[300, 300, 250, 300]),
+    "edge_events": dict(K=40, T=400, noise=1.0, seed=8, epk=10.0,
+                        nev=[400, 400, 300, 400], nk=[40, 30, 40, 25]),
 }
 
 
@@ -132,6 +143,165 @@ def test_fill_layout_and_band_positions():
     assert bool(((best_e >= 0) & (best_e < 90)).all())
 
 
+def _kernel_constant(name):
+    src = open(os.path.join(os.path.dirname(bx.__file__), "..", "csrc",
+                            "banded_fill.cu")).read()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def ring_fill(x, lookahead):
+    """banded_fill_plain's recurrence with every emission taken from a
+    model of csrc/banded_fill.cu's producer ring: chunks of ``lookahead``
+    bands, each band a slot of 100 + 2 lookahead emissions along its
+    anti-diagonal (e + k = band - 2) from kmer kb on, kb the chain's ll_k
+    at the end of the chunk before the previous one.  Asserts that every
+    slot the chain reads (both placements' candidates at each of the 100
+    offsets) lies in the slot, and that the bands the kernel takes as
+    steady (no edge rules) have only valid cells below offset 100, none
+    in the trim column, and the last kmer past the band.  Returns
+    banded_fill_plain's outputs and the number of steady bands."""
+    ev, nev, mu, sigma, c = (x[k] for k in ("event_mean", "n_events", "mu",
+                                            "sigma", "c"))
+    nk, lps, lpt = x["n_kmers"], x["lp_stay"], x["lp_step"]
+    B, T = ev.shape
+    K = mu.shape[1]
+    n_bands = ba.n_bands_for(T, K)
+    span = ba.BANDWIDTH + 2 * lookahead
+    f32, i64 = torch.float32, torch.int64
+    offs = torch.arange(ba.LANES, dtype=i64)[None, :]
+    inband = offs < ba.BANDWIDTH
+    neg = torch.tensor(float("-inf"), dtype=f32)
+    lp_skip = torch.tensor(float(np.float32(ba.LP_SKIP)), dtype=f32)
+    lp_trim = torch.tensor(float(np.float32(ba.LP_TRIM)), dtype=f32)
+    nev64, nk64 = nev.to(i64)[:, None], nk.to(i64)[:, None]
+    trace = torch.zeros((B, n_bands, ba.TRACE_BYTES), dtype=torch.uint8)
+    moves = torch.zeros((B, n_bands), dtype=torch.uint8)
+    half = ba.HALF_BANDWIDTH
+    sp2 = torch.where(offs == half, torch.zeros(()), neg).expand(B, -1)
+    sp = torch.where(offs == half, lp_trim, neg).expand(B, -1)
+    trace[:, 1, half // 4] = ba.FROM_U << (2 * (half % 4))
+    ll_e = torch.full((B,), half, dtype=i64)
+    ll_k = torch.full((B,), -1 - half, dtype=i64)
+    r_prev = torch.zeros(B, dtype=i64)
+    best_s = torch.full((B,), float("-inf"), dtype=f32)
+    best_e = torch.zeros(B, dtype=i64)
+    kbase = [ll_k.clone(), ll_k.clone()]
+    n_steady = 0
+    t = torch.arange(span, dtype=i64)[None, :]
+    n_chunks = -(-(n_bands - 2) // lookahead)
+    for ch in range(n_chunks):
+        kb = kbase[ch & 1]
+        bands = range(2 + ch * lookahead,
+                      min(2 + (ch + 1) * lookahead, n_bands))
+        ring = []                                # the producers' slots
+        for bi in bands:
+            k = kb[:, None] + t
+            e = (bi - 2 - k).clamp(0, T - 1)
+            kc = k.clamp(0, K - 1)
+            ring.append(log_normal_fused(
+                torch.gather(ev, 1, e), torch.gather(mu, 1, kc),
+                torch.gather(sigma, 1, kc), torch.gather(c, 1, kc)))
+        for slot, bi in zip(ring, bands):
+            cand = ll_k[:, None] - kb[:, None] + offs
+            assert bool(((cand >= 0) & (cand + 1 < span))[:, :100].all())
+            # the kernel's steady bands skip the edge rules
+            steady = (ll_e >= ba.BANDWIDTH - 1) & (ll_e + 1 < nev64[:, 0]) & \
+                (ll_k >= 0) & (ll_k + ba.BANDWIDTH + 1 < nk64[:, 0])
+            n_steady += int(steady.sum())
+            ll, ur = sp[:, 0], sp[:, ba.BANDWIDTH - 1]
+            both_ob = torch.isneginf(ll) & torch.isneginf(ur)
+            right = torch.where(both_ob, bool(bi % 2 == 1), ll < ur)
+            r = right.to(i64)
+            ll_e, ll_k = ll_e + (1 - r), ll_k + r
+            rb = right[:, None]
+            up = torch.where(rb, ba._shift_left(sp, float("-inf")), sp)
+            left = torch.where(rb, sp, ba._shift_right(sp, float("-inf")))
+            amt = (r_prev + r - 1)[:, None]
+            diag = torch.where(amt == 1, ba._shift_left(sp2, float("-inf")),
+                               torch.where(amt == 0, sp2, ba._shift_right(
+                                   sp2, float("-inf"))))
+            ei, ki = ll_e[:, None] - offs, ll_k[:, None] + offs
+            valid = (ei >= 0) & (ei < nev64) & (ki >= 0) & (ki < nk64) & inband
+            # ... as every cell below offset 100 is valid there, none is
+            # in the trim column and the last kmer is past the band
+            assert bool((valid == inband)[steady].all())
+            assert bool((nk64[:, 0] - 1 - ll_k >= ba.BANDWIDTH)[steady].all())
+            em = torch.gather(slot, 1, (ki - kb[:, None]).clamp(0, span - 1))
+            sd, su = (diag + lpt[:, None]) + em, (up + lps[:, None]) + em
+            sl = left + lp_skip
+            m2 = torch.maximum(sd, su)
+            f2 = torch.where(m2 == su, ba.FROM_U, ba.FROM_D)
+            m3 = torch.maximum(m2, sl)
+            code = torch.where(m3 == sl, ba.FROM_L, f2)
+            cell = torch.where(valid, m3, neg)
+            code = torch.where(valid, code, 0)
+            trim = (ki == -1) & (ei >= 0) & (ei < nev64) & inband
+            cell = torch.where(trim, lp_trim * (ei.to(f32) + 1.0), cell)
+            code = torch.where(trim, ba.FROM_U, code).to(torch.uint8)
+            end = fma32(nev.to(f32)[:, None] - ei.to(f32), lp_trim, cell)
+            end = torch.where(valid & (ki == nk64 - 1), end, neg)
+            cand_s, arg = torch.max(end, dim=1)
+            better = cand_s > best_s
+            best_s = torch.where(better, cand_s, best_s)
+            best_e = torch.where(better, ei[torch.arange(B), arg], best_e)
+            trace[:, bi, :] = ba._pack_codes(code)
+            moves[:, bi] = r.to(torch.uint8)
+            sp2, sp, r_prev = sp, cell, r
+        if ch + 2 < n_chunks:
+            kbase[ch & 1] = ll_k.clone()
+    return (trace, moves, ll_e.to(torch.int32), best_e.to(torch.int32),
+            best_s), n_steady
+
+
+def _inputs(case):
+    c = CASES[case]
+    ev, mu, sigma = _synthetic(4, c["K"], c["T"], epk=c.get("epk", 2.1),
+                               seed=c["seed"], noise=c["noise"])
+    return ev, np.array(c["nev"], np.int32), mu, sigma, \
+        np.array(c["nk"], np.int32)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.is_floating_point() else t
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + ["garbage"])
+def test_producer_ring_matches_plain_and_jax(case):
+    """The kernel's producer ring (LOOKAHEAD from csrc/banded_fill.cu)
+    covers every emission the chain reads, and the fill fed from it gives
+    banded_fill_plain's trace, moves, ll_e_last, best_e and best_s bit for
+    bit, and the JAX scan's per-band moves, placements and best event."""
+    if case == "garbage":
+        ev, mu, sigma = _synthetic(2, 300, 640, seed=9, garbage=True)
+        nev, nk = np.full(2, 640, np.int32), np.full(2, 300, np.int32)
+    else:
+        ev, nev, mu, sigma, nk = _inputs(case)
+    x = ba.prepare_banded_inputs(ev, nev, mu, sigma, np.log(sigma), nk,
+                                 device="cpu")
+    lookahead = _kernel_constant("LOOKAHEAD")
+    assert ba.BANDWIDTH + 2 * lookahead == 128
+    got, n_steady = ring_fill(x, lookahead)
+    if case == "clean":
+        assert n_steady > 0
+    ref = ba.banded_fill_plain(*(x[k] for k in (
+        "event_mean", "n_events", "mu", "sigma", "c", "n_kmers", "lp_stay",
+        "lp_step")))
+    for a, b in zip(got, ref):
+        assert torch.equal(_bits(a), _bits(b))
+    lp_stay, lp_step = ba.transition_params_f32(nev, nk)
+    tr, ll_e, best_event = jax_forward(
+        ev, nev, mu, sigma, np.log(sigma), nk, lp_stay, lp_step,
+        ba.n_bands_for(ev.shape[1], mu.shape[1]))
+    codes = np.asarray(tr).transpose(1, 0, 2)       # [B, n_bands, 128]
+    packed = got[0].numpy()
+    mine = np.stack([(packed >> (2 * q)) & 3 for q in range(4)], axis=-1)
+    np.testing.assert_array_equal(mine.reshape(codes.shape), codes)
+    ll_e = np.asarray(ll_e).T
+    np.testing.assert_array_equal(got[1].numpy()[:, 2:],
+                                  (np.diff(ll_e, axis=1) == 0)[:, 1:])
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(best_event))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -141,13 +311,17 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["mixed", "tiny_126x130"])
+@pytest.mark.parametrize("case", sorted(CASES) + ["2kb"])
 def test_kernels_match_plain_on_gpu(case, cuda_device):
-    c = CASES[case]
-    ev, mu, sigma = _synthetic(4, c["K"], c["T"], epk=c.get("epk", 2.1),
-                               seed=c["seed"], noise=c["noise"])
-    x = ba.prepare_banded_inputs(ev, c["nev"], mu, sigma, np.log(sigma),
-                                 c["nk"], device=cuda_device)
+    """Every case above, and one 2 kb read (4,000 events: ~430 chunks of
+    the fill's producer ring), kernels against plain bit for bit."""
+    if case == "2kb":
+        ev, mu, sigma = _synthetic(1, 2000, 4000, epk=2.0, seed=1)
+        nev, nk = np.array([4000], np.int32), np.array([2000], np.int32)
+    else:
+        ev, nev, mu, sigma, nk = _inputs(case)
+    x = ba.prepare_banded_inputs(ev, nev, mu, sigma, np.log(sigma), nk,
+                                 device=cuda_device)
     args = (x["event_mean"], x["n_events"], x["mu"], x["sigma"], x["c"],
             x["n_kmers"], x["lp_stay"], x["lp_step"])
     fk = bx.banded_fill(*args)

@@ -21,6 +21,7 @@ from nanopolish_tpu.ops.profile_hmm import (BlockTransitions,
                                             viterbi_backtrack)
 from nanopolish_tpu_torch.ops import profile_hmm as ph
 from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
+from tests.backtrack_tiles import MOVES, tiled_paths
 from tests.kchain_lanes import chain_inputs, lane_schedule_chain
 
 torch.set_num_threads(2)
@@ -264,6 +265,145 @@ def test_wide_lane_schedule_matches_kstate_chain(R):
     np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
 
 
+def _fill_plain(lv, Ts, mu, sd, Ks, epb, flags):
+    x = pv.prepare_viterbi_inputs(lv, Ts, mu, sd, Ks, epb, flags,
+                                  device="cpu")
+    return x, pv.viterbi_fill(x["levels"], x["n_events"], x["mu"],
+                              x["sigma"], x["c"], x["n_kmers"], x["trans"],
+                              x["clips"])
+
+
+def test_backtrack_tile_constants_match_kernel():
+    """backtrack_tile's tile size is the kernel's TILE_BYTES, every width's
+    tile fits it with a window of 16-byte groups, and the model decodes
+    with the kernel's MOVES."""
+    import os
+    src = open(os.path.join(os.path.dirname(pv.__file__), "..", "csrc",
+                            "viterbi_backtrack.cu")).read()
+    assert f"constexpr int TILE_BYTES = {pv.BT_TILE_BYTES};" in src
+    assert f"constexpr unsigned MOVES = {hex(MOVES)}u;" in src
+    for kp in (32, 64, 128, 256, 512, 1024, 2048, 32768):
+        rows, window = pv.backtrack_tile(kp)
+        assert window == min(kp, pv.BT_WINDOW_MAX) and window % 16 == 0
+        assert rows * window == pv.BT_TILE_BYTES and rows >= 32
+
+
+def test_moves_decode_matches_reference():
+    """The kernel's decode (a nibble of MOVES picked by the state's move
+    field) gives the reference's next state, kmer step and soft-clip stop
+    for every state and every trace byte."""
+    from tests.backtrack_tiles import FIELD
+    for st in (ph.PSR9_KMER_SKIP, ph.PSR9_BAD_EVENT, ph.PSR9_MATCH):
+        sh, msk, msh = FIELD[st]
+        for byte in range(256):
+            if st == ph.PSR9_MATCH:
+                mv = byte & 7
+            elif st == ph.PSR9_BAD_EVENT:
+                mv = ph.HMT_FROM_SAME_B if (byte >> 3) & 1 else \
+                    ph.HMT_FROM_SAME_M
+            else:
+                mv = (byte >> 4) & 7
+            nst = ph.PSR9_MATCH if mv in (ph.HMT_FROM_SAME_M,
+                                          ph.HMT_FROM_PREV_M) else \
+                ph.PSR9_BAD_EVENT if mv in (ph.HMT_FROM_SAME_B,
+                                            ph.HMT_FROM_PREV_B) else \
+                ph.PSR9_KMER_SKIP
+            dki = mv in (ph.HMT_FROM_PREV_M, ph.HMT_FROM_PREV_B,
+                         ph.HMT_FROM_PREV_K)
+            info = (MOVES >> (((byte >> sh) & msk) << msh)) & 15
+            assert bool(info & 8) == (mv == ph.HMT_FROM_SOFT), (st, byte)
+            if mv != ph.HMT_FROM_SOFT:
+                assert (info & 3, (info >> 2) & 1) == (nst, dki), (st, byte)
+
+
+def test_tiled_walk_eventalign_segments():
+    """Eventalign-shaped segments (95-115 kmers, 200-260 events, width
+    128): the staged walk (tests/backtrack_tiles.py) gives the plain
+    traceback's paths, its window is the whole row, so no refill is ever
+    forced, and a walk stages a tile per 64 rows."""
+    rng = np.random.default_rng(5)
+    B = 8
+    nk = rng.integers(95, 116, B)
+    nev = rng.integers(200, 261, B)
+    lv, Ts, mu, sd, Ks, epb = _batch(B, 116, 261, seed=5)
+    Ks[:], Ts[:] = nk, nev
+    x, tr = _fill_plain(lv, Ts, mu, sd, Ks, epb, np.arange(B) % 4)
+    assert tr.shape[2] == 128
+    ref = ph.viterbi_backtrack_plain(tr, x["n_events"], x["n_kmers"]).numpy()
+    got, staged, forced = tiled_paths(tr.numpy(), Ts, Ks,
+                                      *pv.backtrack_tile(128))
+    np.testing.assert_array_equal(got, ref)
+    assert (ref[:, 0] > 200).all() and not forced.any()
+    assert (staged <= -(-Ts // 64) + 1).all()
+
+
+@pytest.mark.parametrize("kp,B,T", [(32, 6, 84), (64, 6, 148),
+                                    (128, 6, 276), (256, 4, 300),
+                                    (512, 4, 300), (1024, 3, 300),
+                                    (2048, 2, 48)])
+def test_tiled_walk_matches_plain(kp, B, T):
+    """Every row layout's width (warp 32-256, block 512-1,024, wide 2,048):
+    the staged walk equals viterbi_backtrack_plain, with one segment of
+    one event and one of none; past 1,024 kmers with a few dozen events
+    the K-state runs leave the 256-kmer window."""
+    lv, Ts, mu, sd, Ks, epb = _batch(B, kp, T, seed=kp)
+    Ks[0] = kp - 1
+    Ts[1] = 1
+    if kp == 2048:
+        Ks[:] = [1100, 1500]
+    else:
+        Ts[2] = 0
+    x, tr = _fill_plain(lv, Ts, mu, sd, Ks, epb, np.arange(B) % 4)
+    assert tr.shape[2] == kp
+    ref = ph.viterbi_backtrack_plain(tr, x["n_events"], x["n_kmers"]).numpy()
+    got, staged, forced = tiled_paths(tr.numpy(), Ts, Ks,
+                                      *pv.backtrack_tile(kp))
+    np.testing.assert_array_equal(got, ref)
+    assert ref[1, 0] >= 1 and staged[1] == 1
+    if kp == 2048:
+        assert forced.sum() > 0
+    else:
+        assert ref[2, 0] == 0 and staged[2] == 0
+
+
+def test_tiled_walk_long_kmer_skip():
+    """A hand-made trace whose walk skips 600 kmers in one row (a K-state
+    run across three 256-kmer windows) and then steps down the rows: the
+    staged walk follows it as the plain traceback does, staging the
+    window anew twice."""
+    T, KP = 70, 1024
+    tr = np.zeros((1, T, KP), np.uint8)    # M from the same kmer, row - 1
+    tr[0, 69, 900] = ph.HMT_FROM_PREV_K      # M at (69, 900) from K at 899
+    tr[0, 68, 301:900] = ph.HMT_FROM_PREV_K << 4    # K from K, kmer - 1
+    tr[0, 68, 300] = ph.HMT_FROM_PREV_M << 4        # K at 300 from M at 299
+    nev, nk = np.array([70], np.int32), np.array([901], np.int32)
+    ref = ph.viterbi_backtrack_plain(torch.from_numpy(tr),
+                                     torch.from_numpy(nev),
+                                     torch.from_numpy(nk)).numpy()
+    got, staged, forced = tiled_paths(tr, nev, nk, *pv.backtrack_tile(KP))
+    np.testing.assert_array_equal(got, ref)
+    assert forced[0] >= 2 and ref[0, 0] == 1 + 600 + 69
+
+
+def test_tiled_walk_jax_traces():
+    """Traces from the JAX scan, packed as the kernels pack them: the
+    staged walk's paths are the JAX path's tracebacks."""
+    lv, Ts, mu, sd, Ks, epb = _batch(6, 120, 240, seed=3)
+    table = ph.make_transitions(epb)
+    _, traces = profile_hmm_viterbi(lv, Ts, mu, sd, np.log(sd), Ks, epb,
+                                    flags=3, with_trace=True,
+                                    trans=_jax_trans(table))
+    ref = viterbi_backtrack(np.asarray(traces), Ts, Ks)
+    jt = np.asarray(traces)                         # [T, B, K, (K, B, M)]
+    packed = (jt[..., 2] | ((jt[..., 1] == 2).astype(np.uint8) << 3)
+              | (jt[..., 0] << 4)).transpose(1, 0, 2)
+    kp = pv.kmer_width(packed.shape[2])
+    wide = np.zeros(packed.shape[:2] + (kp,), np.uint8)
+    wide[:, :, :packed.shape[2]] = packed
+    got, _, _ = tiled_paths(wide, Ts, Ks, *pv.backtrack_tile(kp))
+    assert all(_same(r, g) for r, g in zip(ref, ph.paths_to_segments(got)))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -273,13 +413,16 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kp", [32, 64, 128, 256, 512, 2048, 32768])
+@pytest.mark.parametrize("kp", [32, 64, 128, 256, 512, 1024, 2048, 32768])
 def test_kernels_match_plain_on_gpu(cuda_device, kp):
     """Every row layout (warp kernel at R = 1, 2, 4, 8; block kernel at
-    512; wide row at 2,048, and at 32,768 with its rows in global
-    scratch): n_kmers not a multiple of 32 R, all four clip flags, one
-    segment with a single event."""
+    512 and 1,024; wide row at 2,048, and at 32,768 with its rows in
+    global scratch; the backtrack's whole-row and 256-kmer windows):
+    n_kmers not a multiple of 32 R, all four clip flags, one segment with
+    a single event."""
     B, T = (16, 2 * kp + 20) if kp <= 512 else (4, 48)
+    if kp == 1024:
+        B, T = 4, 300
     lv, Ts, mu, sd, Ks, epb = _batch(B, kp, T, seed=kp)
     Ks[0] = kp - 1
     Ts[1] = 1
@@ -298,3 +441,26 @@ def test_kernels_match_plain_on_gpu(cuda_device, kp):
     ref = ph.paths_to_segments(
         ph.viterbi_backtrack_plain(tp, x["n_events"], x["n_kmers"]).cpu().numpy())
     assert all(_same(r, g) for r, g in zip(ref, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 32])
+def test_backtrack_batches_match_plain_on_gpu(cuda_device, B):
+    """Eventalign-shaped segments in a one-segment launch and in a
+    32-segment wavefront launch (eight blocks of four warps): the kernel's
+    paths equal the plain traceback's entry for entry."""
+    rng = np.random.default_rng(B)
+    lv, Ts, mu, sd, Ks, epb = _batch(B, 116, 261, seed=B)
+    Ks[:] = rng.integers(95, 116, B)
+    Ts[:] = rng.integers(200, 261, B)
+    x = pv.prepare_viterbi_inputs(lv, Ts, mu, sd, Ks, epb,
+                                  np.arange(B, dtype=np.int32) % 4,
+                                  device=cuda_device)
+    tr = pv.viterbi_fill(x["levels"], x["n_events"], x["mu"], x["sigma"],
+                         x["c"], x["n_kmers"], x["trans"], x["clips"])
+    got = pv.viterbi_backtrack(tr, x["n_events"], x["n_kmers"]).cpu()
+    ref = ph.viterbi_backtrack_plain(tr, x["n_events"], x["n_kmers"]).cpu()
+    assert torch.equal(got[:, 0], ref[:, 0])
+    for b in range(B):
+        n = int(ref[b, 0])
+        assert torch.equal(got[b, 1:1 + n], ref[b, 1:1 + n])

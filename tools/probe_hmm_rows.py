@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time one checkout's profile-HMM and segmentation kernels on one card.
+"""Time one checkout's profile-HMM, banded and segmentation kernels on one card.
 
     python3 tools/probe_hmm_rows.py [--root DIR] [--json FILE]
                                     [--against FILE] [--sass DIR] [--paths]
@@ -7,7 +7,8 @@
 
 Builds the kernels of the checkout at --root (default: the one holding
 this script) with that checkout's own utils/cuda_build, and drives its
-public wrappers (ops/profile_hmm_viterbi.viterbi_fill,
+public wrappers (ops/profile_hmm_viterbi.viterbi_fill and
+viterbi_backtrack, ops/banded_exact.banded_fill,
 ops/profile_hmm_forward.forward_fill,
 ops/profile_hmm_indexed.forward_indexed_scores,
 ops/segmentation_viterbi.seg_viterbi_fill) on the batches of this
@@ -15,6 +16,12 @@ checkout's chip_smoke.py, so that two checkouts run the same inputs:
 
   vit-check    chip_smoke.py's 512 eventalign-shaped Viterbi segments
   vit-wave     32 of them, a launch of eventalign's wavefront
+  vit-bt-check, vit-bt-wave
+               the traceback of the same 512 and 32 segments (their
+               traces from the checkout's fill)
+  banded-check chip_smoke.py's banded fill batch, 256 reads x 8 kb
+  banded-ea    the banded fill launch of the eventalign run on
+               chip_smoke.py's 64 reads x 8 kb (--capture)
   fwd-check    chip_smoke.py's 2,048 call-methylation-shaped Forward
                segments at one kmer width (256)
   fwd-bucketed the same 2,048 launched as segments.forward_arrays_async
@@ -36,21 +43,25 @@ checkout's chip_smoke.py, so that two checkouts run the same inputs:
 An indexed case's time is the device time of its forward_indexed kernels
 per flush (torch.profiler), since the two checkouts launch a flush
 differently; idx cases also report the flush's CUDA-event time with its
-uploads and fetch (wall_ms).  Every other time is a CUDA-event mean over
-REPS calls after a warm-up.
+uploads and fetch (wall_ms).  The vit-bt and banded cases' times are the
+kernel's device time per call too (a ~20 us traceback is shorter than
+its wrapper's host work), with the call's CUDA-event time in wall_ms.  Every other time is a CUDA-event mean over REPS calls after
+a warm-up.
 
---capture FILE: the idx-flush and seg-polya inputs.  When FILE does not
-exist, the run builds chip_smoke.py's 50 kb variants and 512-read polya
-corpora, runs both paths (recording the largest forward_indexed_scores
-flush and the polya segmentation launch) and writes FILE; later runs read
-it.  With --paths the run also reports path ms: each kernel's summed
+--capture FILE: the idx-flush, seg-polya and banded-ea inputs.  When
+FILE does not exist, the run builds chip_smoke.py's eventalign, 50 kb
+variants and 512-read polya corpora, runs the three paths (recording the
+eventalign ingest's banded fill launch, the largest
+forward_indexed_scores flush and the polya segmentation launch) and
+writes FILE; later runs read it.  With --paths the run also reports path ms: each kernel's summed
 device time on its own main path (chip_smoke phase 6: eventalign,
 call-methylation, variants, polya) and its launches.
 
 Prints ptxas's registers and spills, one line per case and one JSON
 line: the card's name and power limit, the times (ms) and a sha256 of
 each case's output (the trace cells of the live event rows; the scores;
-the backpointer bytes and final scores).  --json writes that line to
+the backpointer bytes and final scores; each traceback's entries up
+to its length; the banded fill's five outputs).  --json writes that line to
 FILE; --against FILE fails the run unless every output equals FILE's.
 With --sass DIR, writes each kernel's SASS (cuobjdump) into DIR and
 prints instruction and branch counts per kernel function.
@@ -78,8 +89,8 @@ import sys
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("viterbi_fill", "forward_fill", "forward_indexed",
-           "seg_viterbi_fill")
+KERNELS = ("banded_fill", "viterbi_fill", "viterbi_backtrack", "forward_fill",
+           "forward_indexed", "seg_viterbi_fill")
 REPS = 10
 
 
@@ -199,14 +210,17 @@ def seg_cases(cs, dev, cap):
 
 
 def capture(cs, dev, path):
-    """Run the variants and polya main paths once, recording the largest
+    """Run the eventalign, variants and polya main paths once, recording
+    the eventalign ingest's banded fill launch, the largest
     forward_indexed_scores flush and the polya segmentation launch; write
-    them to path (npz)."""
+    them to path (npz).  Returns each path's launches and path ms."""
     from nanopolish_tpu_torch.alignment import segments
     from nanopolish_tpu_torch.apps import variants
+    from nanopolish_tpu_torch.ops import banded_exact as bx
     from nanopolish_tpu_torch.ops import segmentation_viterbi as sv
     got = {}
-    flush_fn, seg_fn = segments.forward_indexed_scores, sv.seg_viterbi_fill
+    flush_fn, seg_fn, band_fn = (segments.forward_indexed_scores,
+                                 sv.seg_viterbi_fill, bx.banded_fill)
     callers = (segments, variants)           # both flush through it
 
     def flush_spy(*a, **k):
@@ -222,18 +236,58 @@ def capture(cs, dev, path):
                            consts, np.float32))
         return seg_fn(x, n, s, consts)
 
+    def band_spy(*a):
+        if "band0" not in got:
+            got.update({f"band{i}": v.cpu().numpy() for i, v in enumerate(a)})
+        return band_fn(*a)
+
     for mod in callers:
         mod.forward_indexed_scores = flush_spy
     sv.seg_viterbi_fill = seg_spy
+    bx.banded_fill = band_spy
     try:
+        launches, path_ms, _ = cs.phase_eventalign(dev)
         own = {"forward_indexed": cs.phase_variants(dev),
                "seg_viterbi_fill": cs.phase_polya(dev)}
     finally:
         for mod in callers:
             mod.forward_indexed_scores = flush_fn
         sv.seg_viterbi_fill = seg_fn
+        bx.banded_fill = band_fn
     np.savez(path, **got)
-    return own
+    return (launches, path_ms), own
+
+
+def backtrack_cases(cs, model, dev):
+    """(case, trace, n_events, n_kmers) of viterbi_backtrack: the traces
+    of vit-check's and vit-wave's segments from this checkout's fill."""
+    from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
+    check = cs.viterbi_batch(model, 512, seed=7)
+    out = []
+    for case, n in (("vit-bt-check", 512), ("vit-bt-wave", 32)):
+        x = pv.prepare_viterbi_inputs(*(v[:n] for v in check), device=dev)
+        tr = pv.viterbi_fill(x["levels"], x["n_events"], x["mu"], x["sigma"],
+                             x["c"], x["n_kmers"], x["trans"], x["clips"])
+        out.append((case, tr, x["n_events"], x["n_kmers"]))
+    return out
+
+
+def banded_cases(cs, model, dev, cap):
+    """(case, banded_fill arguments) of banded-check (chip_smoke phase 2's
+    timed batch) and banded-ea (the captured eventalign launch)."""
+    import torch
+    from nanopolish_tpu_torch.ops import banded_align as ba
+    ev, nev, mu, sigma, nk = cs.banded_case(model, 256, 8000, 16000, seed=3)
+    x = ba.prepare_banded_inputs(ev, nev, mu, sigma, np.log(sigma), nk,
+                                 device=dev)
+    out = [("banded-check", tuple(x[k] for k in (
+        "event_mean", "n_events", "mu", "sigma", "c", "n_kmers", "lp_stay",
+        "lp_step")))]
+    if cap is not None and "band0" in cap:
+        out.append(("banded-ea", tuple(torch.as_tensor(cap[f"band{i}"],
+                                                       device=dev)
+                                       for i in range(8))))
+    return out
 
 
 def fill_digest(name, x, out) -> str:
@@ -245,6 +299,14 @@ def fill_digest(name, x, out) -> str:
         out = out[(rows < x["n_events"][:, None, None].long()).expand(
             out.shape)]
     return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+
+
+def path_digest(path) -> str:
+    """sha256 of a traceback's entries up to each path's length (the rest
+    are unspecified)."""
+    import torch
+    step = torch.arange(path.shape[1], device=path.device)[None, :]
+    return sha(torch.where(step <= path[:, :1], path, 0).cpu().numpy())
 
 
 def sha(*arrays) -> str:
@@ -294,12 +356,12 @@ def main() -> int:
         sass(cs, a.sass)
 
     result = {"card": cs.card(), "root": os.path.abspath(a.root)}
-    own = None
+    own = ea = None
     if a.capture and not os.path.exists(a.capture):
-        own = capture(cs, dev, a.capture)
+        ea, own = capture(cs, dev, a.capture)
     cap = np.load(a.capture) if a.capture else None
     if a.paths:
-        launches, path_ms, _ = cs.phase_eventalign(dev)
+        launches, path_ms = ea or cs.phase_eventalign(dev)[:2]
         cm_launches, cm_path_ms = cs.phase_call_methylation(dev)
         if own is None:
             own = {"forward_indexed": cs.phase_variants(dev),
@@ -310,6 +372,7 @@ def main() -> int:
         result["path_ms"] = {k: path_ms[k] for k in KERNELS}
         result["path_launches"] = {k: launches[k] for k in KERNELS}
 
+    from nanopolish_tpu_torch.ops import banded_exact as bx
     fill = {"viterbi_fill": pv.viterbi_fill, "forward_fill": pf.forward_fill}
     model = PoreModelSet.instance().get_model(
         "r9.4_450bps", "nucleotide", "template", 6)
@@ -325,6 +388,24 @@ def main() -> int:
                f"{len(xs)} launches, kmer widths "
                f"{sorted({x['mu'].shape[1] for x in xs})}: "
                f"{times[case]:.4f} ms")
+    for case, tr, nev, nk in backtrack_cases(cs, model, dev):
+        def run():
+            return pv.viterbi_backtrack(tr, nev, nk)
+        digests[case] = path_digest(run())
+        times[case] = cs.kernel_ms(run, "viterbi_backtrack", REPS)
+        walls[case] = cs.cuda_ms(run, reps=REPS)
+        cs.log(f"{case}: {tr.shape[0]} segments, kmer width {tr.shape[2]}: "
+               f"kernel {times[case]:.4f} ms (call {walls[case]:.4f} ms)")
+        del tr
+    for case, args in banded_cases(cs, model, dev, cap):
+        def run():
+            return bx.banded_fill(*args)
+        digests[case] = sha(*(t.cpu().numpy() for t in run()))
+        times[case] = cs.kernel_ms(run, "banded_fill", REPS)
+        walls[case] = cs.cuda_ms(run, reps=REPS)
+        cs.log(f"{case}: {args[0].shape[0]} reads, {args[0].shape[1]} "
+               f"events x {args[2].shape[1]} kmers: kernel "
+               f"{times[case]:.4f} ms (call {walls[case]:.4f} ms)")
     for case, arrays, flags in indexed_cases(cs, model, cap):
         def run():
             return pi.forward_indexed_scores(*arrays, flags, device=dev)
