@@ -11,8 +11,8 @@ Phases (any failure exits non-zero; nothing is caught):
      tiny, garbage, noisy and mixed-length batches and two whose bands
      run along an edge (far more kmers than events, and far more events
      than kmers); then timing at 256 reads x 8 kb (2 events/base,
-     r9.4_450bps 6-mer), beside an estimate of the fill's chain-latency
-     floor (logged only);
+     r9.4_450bps 6-mer), beside estimates of the fill's and the
+     backtrack's chain-latency floors (logged only);
   3. profile-HMM Viterbi kernels (fill, backtrack) against their plain
      versions on 512 eventalign-shaped segments with all four soft-clip
      flag combinations (identical traces and tracebacks), and on one
@@ -44,9 +44,12 @@ Phases (any failure exits non-zero; nothing is caught):
      fused) against their plain versions, bit for bit (backpointer
      bytes, final scores, labels, summary), with the polya and the
      detect-polyi parameters: the three batches of
-     tests/test_pallas_segmentation.py and a mixed-length batch of 512
-     reads x 2,000-65,536 samples; then timing on that batch, beside an
-     estimate of the fill's chain-latency floor (logged only);
+     tests/test_pallas_segmentation.py, a batch at the backtrack's edges
+     (reads of 1-3 and 12 samples, walks of one 4,096-sample tile less
+     one, one and one more) and a mixed-length batch of 512 reads x
+     2,000-65,536 samples; then timing on that batch, beside estimates of
+     both kernels' chain-latency floors (logged only); then the backtrack
+     alone on random backpointer bytes, rows at every alignment;
   5. the goldens on the card through the CLI entry points: the 4-read
      eventalign pipeline of tests/test_golden_outputs.py (byte for byte),
      the 3-read methylation pipeline (TSV and both modbam styles) and the
@@ -117,6 +120,7 @@ LLR = 5          # log_lik_ratio column of the call-methylation TSV
 IDX_SCREEN, IDX_CALL = 8192, 512
 # segmentation check: a mixed-length batch of direct-RNA-sized reads
 SEG_READS, SEG_MAX = 512, 65536
+SEG_EDGES = (1, 2, 3, 12, 4097, 4098, 4099, 4100, 40)
 # the polya / detect-polyi main path: tools/perf_e2e_polya.py's corpus
 POLYA_READS, POLYA_NT, POLYA_TRANSCRIPT = 512, 120, 500
 # the variants main path: a draft window polished by tiled reads
@@ -132,6 +136,12 @@ PEAK_BYTES = 3.35e12
 # step of the Viterbi walk (a shared-memory load and the decode)
 BANDED_CHAIN_CYCLES = 60
 VIT_BT_STEP_CYCLES = 50
+# a visited cell of the banded walk (two broadcast shared-memory loads, the
+# 2-bit decode, the select of the next offset), and a step of the
+# segmentation backtrack's threads (one application of a map: a shift and
+# a mask)
+BANDED_BT_STEP_CYCLES = 30
+SEG_BT_STEP_CYCLES = 8
 
 
 def log(msg: str) -> None:
@@ -223,6 +233,15 @@ def card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def kernel_constant(name: str, const: str) -> int:
+    """An integer constexpr of csrc/<name>.cu."""
+    import re
+    with open(os.path.join(ROOT, "nanopolish_tpu_torch", "csrc",
+                           f"{name}.cu")) as fh:
+        return int(re.search(rf"constexpr int {const} = (\d+);",
+                             fh.read()).group(1))
 
 
 def bound(nbytes: float, flops: float):
@@ -338,8 +357,9 @@ def phase_banded(model, dev, report):
     tail = (x["event_mean"], x["mu"], x["sigma"], x["c"], x["n_kmers"])
     fill = bx.banded_fill(*args)
     fill_ms = cuda_ms(lambda: bx.banded_fill(*args))
-    bt_ms = cuda_ms(lambda: bx.banded_backtrack(fill[0], fill[1], fill[2],
-                                                fill[3], *tail))
+    bt_ms = kernel_ms(lambda: bx.banded_backtrack(fill[0], fill[1], fill[2],
+                                                  fill[3], *tail),
+                      "banded_backtrack")
     fill_plain_ms, fp = once_ms(lambda: ba.banded_fill_plain(*args))
     bt_plain_ms, bp = once_ms(lambda: ba.banded_backtrack_plain(
         fp[0], fp[1], fp[2], fp[3], *tail))
@@ -358,11 +378,15 @@ def phase_banded(model, dev, report):
     clk = sm_clock_mhz()
     n_bands = ba.n_bands_for(T, K)
     floor = n_bands * BANDED_CHAIN_CYCLES / (clk * 1e3)
+    visits = int(bk[3][:, 0].max())
+    bt_floor = visits * BANDED_BT_STEP_CYCLES / (clk * 1e3)
     log(f"banded bench {B} reads x {K} kmers x {T} events: fill {fill_ms:.3f} ms "
         f"(plain {fill_plain_ms:.1f} ms; chain latency floor {floor:.3f} ms, "
         f"an estimate: {BANDED_CHAIN_CYCLES} cycles x {n_bands} bands at "
         f"{clk:.0f} MHz), backtrack {bt_ms:.3f} ms "
-        f"(plain {bt_plain_ms:.1f} ms); {reads_s:.1f} reads/s; "
+        f"(plain {bt_plain_ms:.1f} ms; chain latency floor {bt_floor:.3f} ms, "
+        f"an estimate: {BANDED_BT_STEP_CYCLES} cycles x the longest walk's "
+        f"{visits} visited cells at {clk:.0f} MHz); {reads_s:.1f} reads/s; "
         f"failed={int(res.failed.sum())}/{B}")
     for name, ms, pms, nbytes, flops, err in (
             ("banded_fill", fill_ms, fill_plain_ms, fb, ff,
@@ -913,6 +937,12 @@ def seg_batches():
                             scal3)
     rng = np.random.default_rng(3)
     out["dpi-shaped"] = ([seg_read(rng, 200, 150, 300, 400)], scal3[:1])
+    # the backtrack's edges: reads of 1-3 samples, one shorter than a
+    # thread's 16-byte group, walks of one tile (4,096 samples) less one,
+    # one and one more, and reads shorter than the padded length
+    rng = np.random.default_rng(11)
+    out["edges"] = ([seg_read(rng, n_transcript=3600)[:n] for n in SEG_EDGES],
+                    [scal3[i % 3] for i in range(len(SEG_EDGES))])
     rng = np.random.default_rng(29)
     lens = np.sort(rng.integers(2000, SEG_MAX + 1, SEG_READS))[::-1]
     lens[0] = SEG_MAX
@@ -1021,18 +1051,29 @@ def phase_segmentation(dev, report):
                 log(f"{line}; {segs[0]}")
                 continue
             fill_ms = cuda_ms(lambda: sv.seg_viterbi_fill(x, n, s, k))
-            bt_ms = cuda_ms(lambda: sv.seg_backtrack(bk, n))
+            bt_ms = kernel_ms(lambda: sv.seg_backtrack(bk, n), "seg_backtrack")
             fb, ff, bb, bf = seg_work([len(r) for r in reads],
                                       dpi=pname == "dpi")
             (fbms, fby), (bbms, bby) = bound(fb, ff), bound(bb, bf)
             clk = sm_clock_mhz()
-            floor = max(map(len, reads)) * SEG_CHAIN_CYCLES / (clk * 1e3)
+            n_max = max(map(len, reads))
+            floor = n_max * SEG_CHAIN_CYCLES / (clk * 1e3)
+            threads = kernel_constant("seg_backtrack", "THREADS")
+            spt = kernel_constant("seg_backtrack", "SPT")
+            tiles = -(-(n_max - 2) // (threads * spt))
+            steps = tiles * (2 * spt + 5 + threads // 32)
+            bt_floor = steps * SEG_BT_STEP_CYCLES / (clk * 1e3)
             log(f"{line}; fill {fill_ms:.3f} ms (plain {fill_plain_ms:.1f} "
                 f"ms, bound {fbms:.4f} ms {fby}, chain latency floor "
                 f"{floor:.3f} ms, an estimate: {SEG_CHAIN_CYCLES} cycles x "
-                f"{max(map(len, reads))} samples at {clk:.0f} MHz), "
-                f"backtrack {bt_ms:.3f} ms "
-                f"(plain {bt_plain_ms:.1f} ms, bound {bbms:.4f} ms {bby}); "
+                f"{n_max} samples at {clk:.0f} MHz), "
+                f"backtrack {bt_ms:.4f} ms "
+                f"(plain {bt_plain_ms:.1f} ms, bound {bbms:.4f} ms {bby}, "
+                f"chain latency floor {bt_floor:.4f} ms, an estimate: "
+                f"{SEG_BT_STEP_CYCLES} cycles x {steps} steps a thread: "
+                f"{tiles} tiles of {threads} x {spt} samples, each {spt} "
+                f"composed, {spt} replayed, 5 scan levels and "
+                f"{threads // 32} warp totals, at {clk:.0f} MHz); "
                 f"{len(reads) / ((fill_ms + bt_ms) / 1e3):.0f} reads/s")
             if timed is None:             # the polya parameters
                 timed = {"seg_viterbi_fill": dict(
@@ -1046,6 +1087,43 @@ def phase_segmentation(dev, report):
             torch.cuda.empty_cache()
     for name, r in timed.items():
         report[name].update(r)
+    seg_backtrack_random(dev)
+
+
+def random_backpointers(rng, N, B):
+    """[N, B] uint8 backpointer bytes that keep each state for a while
+    (its "stay" bit set with probability 0.97, P's code 0 with 0.9) and
+    reach every state, with random bits 6-7 (ignored by the decode)."""
+    stay = rng.random((N, B, 4)) < 0.97
+    code = rng.choice(4, size=(N, B), p=[0.9, 0.05, 0.03, 0.02])
+    return (stay[..., 0] | stay[..., 1] << 1 | code << 2 | stay[..., 2] << 4
+            | stay[..., 3] << 5 | rng.integers(0, 4, (N, B)) << 6
+            ).astype(np.uint8)
+
+
+def seg_backtrack_random(dev):
+    """seg_backtrack against its plain version on random backpointer
+    bytes at every row alignment: 48 reads of 1-4,111 samples in a
+    4,111-sample batch (random_backpointers)."""
+    import torch
+    from nanopolish_tpu_torch.ops import segmentation_hmm as sh
+    from nanopolish_tpu_torch.ops import segmentation_viterbi as sv
+    rng = np.random.default_rng(5)
+    N, B = 4111, 48
+    ns = np.concatenate([[1, 2, 3, 4, 17, 18], rng.integers(1, N + 1, B - 8),
+                         [N - 1, N]]).astype(np.int32)
+    bptr = torch.as_tensor(random_backpointers(rng, N, B), device=dev)
+    n = torch.as_tensor(ns, device=dev)
+    sk, lk = sv.seg_backtrack(bptr, n, labels=True)
+    sp, lp = sh.seg_backtrack_plain(bptr, n)
+    if not (bits_equal(sk, sp) and bits_equal(lk, lp)):
+        fail(f"seg_backtrack: {int((lk != lp).sum())} labels, "
+             f"{int((sk != sp).any(1).sum())} summaries differ from plain "
+             f"on random backpointer bytes")
+    log(f"seg_backtrack on random backpointer bytes ({B} reads of 1-{N} "
+        f"samples, rows at every alignment): == plain (labels, summary); "
+        f"{int((sp[:, :4] >= 0).sum())} transitions, "
+        f"{int(sp[:, 4].sum())} cliff samples")
 
 
 # ---------------------------------------------------------------- phase 5 --

@@ -50,6 +50,13 @@ __device__ __forceinline__ void npt_cp_async16(void* smem, const void* gmem) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                  :: "r"(s), "l"(gmem) : "memory");
 }
+// the same for 4 bytes (cp.async.ca: through L1); both addresses 4-byte
+// aligned
+__device__ __forceinline__ void npt_cp_async4(void* smem, const void* gmem) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(s), "l"(gmem) : "memory");
+}
 __device__ __forceinline__ void npt_cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

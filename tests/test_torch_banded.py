@@ -24,6 +24,7 @@ from nanopolish_tpu.ops.pallas_banded_exact import banded_align_exact as jax_exa
 from nanopolish_tpu_torch.ops import banded_align as ba
 from nanopolish_tpu_torch.ops import banded_exact as bx
 from nanopolish_tpu_torch.ops.emissions import fma32, log_normal_fused
+from tests import backtrack_chunks as bc
 
 torch.set_num_threads(2)
 
@@ -143,9 +144,9 @@ def test_fill_layout_and_band_positions():
     assert bool(((best_e >= 0) & (best_e < 90)).all())
 
 
-def _kernel_constant(name):
+def _kernel_constant(name, kernel="banded_fill"):
     src = open(os.path.join(os.path.dirname(bx.__file__), "..", "csrc",
-                            "banded_fill.cu")).read()
+                            f"{kernel}.cu")).read()
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
@@ -302,6 +303,62 @@ def test_producer_ring_matches_plain_and_jax(case):
     np.testing.assert_array_equal(got[3].numpy(), np.asarray(best_event))
 
 
+def test_backtrack_chunk_constants_match_kernel():
+    """The model's chunk and band width are csrc/banded_backtrack.cu's."""
+    assert _kernel_constant("CH", "banded_backtrack") == bc.CH
+    assert _kernel_constant("LANES", "banded_backtrack") == bc.LANES == \
+        ba.LANES
+
+
+def _backtrack_inputs(case):
+    """banded_backtrack_plain's arguments for a CASES entry (or the
+    garbage reads), from the plain fill."""
+    if case == "garbage":
+        ev, mu, sigma = _synthetic(2, 300, 640, seed=9, garbage=True)
+        nev, nk = np.full(2, 640, np.int32), np.full(2, 300, np.int32)
+    else:
+        ev, nev, mu, sigma, nk = _inputs(case)
+    x = ba.prepare_banded_inputs(ev, nev, mu, sigma, np.log(sigma), nk,
+                                 device="cpu")
+    fp = ba.banded_fill_plain(*(x[k] for k in (
+        "event_mean", "n_events", "mu", "sigma", "c", "n_kmers", "lp_stay",
+        "lp_step")))
+    return (ev, nev, mu, sigma, nk), fp[:4] + tuple(
+        x[k] for k in ("event_mean", "mu", "sigma", "c", "n_kmers"))
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + ["garbage"])
+def test_chunked_walk_matches_plain_and_jax(case):
+    """The model of the kernel's walk (tests/backtrack_chunks.py: chunks,
+    band jumps, the moves as the path, the rebuilt events and kmers, the
+    ordered summed emission, the kmer-skip runs and base->event writes
+    across chunks) gives banded_backtrack_plain's four outputs bit for
+    bit, and after QC the JAX scan path's BandedAlignResult; its walks
+    cross chunk edges on D moves, and most chunks skip the end tests."""
+    (ev, nev, mu, sigma, nk), args = _backtrack_inputs(case)
+    *got, counts = bc.chunked_backtrack(*args)
+    for a, b in zip(got, ba.banded_backtrack_plain(*args)):
+        assert torch.equal(_bits(a), _bits(b))
+    lp_stay, lp_step = ba.transition_params_f32(nev, nk)
+    ref = jax_banded(ev, nev, mu, sigma, np.log(sigma), nk,
+                     lp_stay=lp_stay, lp_step=lp_step)
+    _assert_identical(ref, ba.finish_banded(*got, args[-1]))
+    assert counts["d_over_edge"] > 0
+    if case in ("clean", "noisy", "mixed"):
+        assert counts["chunks"] > counts["far"] > counts["chunks"] // 2
+
+
+def test_chunked_walk_one_read_d_move_over_chunk_edge():
+    """One read whose walk jumps over the first band of a chunk on a D
+    move (the offset change then spans two chunks' placement bits)."""
+    _, args = _backtrack_inputs("clean")
+    one = tuple(a[:1] for a in args)
+    *got, counts = bc.chunked_backtrack(*one)
+    assert counts["d_over_edge"] > 0
+    for a, b in zip(got, ba.banded_backtrack_plain(*one)):
+        assert torch.equal(_bits(a), _bits(b))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -311,13 +368,17 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(CASES) + ["2kb"])
+@pytest.mark.parametrize("case", sorted(CASES) + ["2kb", "garbage"])
 def test_kernels_match_plain_on_gpu(case, cuda_device):
-    """Every case above, and one 2 kb read (4,000 events: ~430 chunks of
-    the fill's producer ring), kernels against plain bit for bit."""
+    """Every case above, the garbage reads, and one 2 kb read (4,000
+    events: ~430 chunks of the fill's producer ring, ~190 of the
+    backtrack's), kernels against plain bit for bit."""
     if case == "2kb":
         ev, mu, sigma = _synthetic(1, 2000, 4000, epk=2.0, seed=1)
         nev, nk = np.array([4000], np.int32), np.array([2000], np.int32)
+    elif case == "garbage":
+        ev, mu, sigma = _synthetic(2, 300, 640, seed=9, garbage=True)
+        nev, nk = np.full(2, 640, np.int32), np.full(2, 300, np.int32)
     else:
         ev, nev, mu, sigma, nk = _inputs(case)
     x = ba.prepare_banded_inputs(ev, nev, mu, sigma, np.log(sigma), nk,

@@ -27,6 +27,7 @@ from nanopolish_tpu.ops import segmentation_hmm as jsh
 from nanopolish_tpu_torch.apps.detect_polyi import DPI_PARAMS
 from nanopolish_tpu_torch.ops import segmentation_hmm as sh
 from nanopolish_tpu_torch.ops import segmentation_viterbi as sv
+from tests import backtrack_chunks as bc
 
 torch.set_num_threads(2)
 
@@ -51,9 +52,11 @@ def _synthetic_read(rng, n_leader=300, n_adapter=200, n_polya=400,
 
 def _case(lengths):
     """tests/test_pallas_segmentation.py's inputs: samples [B, N] padded
-    with 100.0, n [B], scalings [B, 3]."""
+    with 100.0, n [B], scalings [B, 3]; reads past 1,560 samples get a
+    longer transcript."""
     rng = np.random.default_rng(7)
-    reads = [_synthetic_read(rng)[:n] for n in lengths]
+    reads = [_synthetic_read(rng, n_transcript=max(600, n - 960))[:n]
+             for n in lengths]
     B, N = len(reads), max(max(lengths), 8)
     samples = np.full((B, N), 100.0, np.float32)
     for i, r in enumerate(reads):
@@ -240,6 +243,102 @@ def test_every_kernel_has_its_source_and_c_signature():
         assert f"npt_launch_{name}(" in open(src).read()
 
 
+def _kernel_source(name):
+    import os
+    return open(os.path.join(os.path.dirname(sv.__file__), "..", "csrc",
+                             f"{name}.cu")).read()
+
+
+def test_scan_constants_match_kernel():
+    """The model's block, group and map layout are the kernel's."""
+    src = _kernel_source("seg_backtrack")
+    assert f"constexpr int THREADS = {bc.THREADS};" in src
+    assert f"constexpr int SPT = {bc.SPT};" in src
+    assert "return (int)((m >> x5) & 31u);" in src      # 5-bit fields
+    ident = "(0u << 0) | (5u << 5) | (10u << 10) | (15u << 15) |"
+    assert ident in src and bc.IDENT == sum(5 * s << 5 * s for s in range(6))
+
+
+def test_map_table_matches_decode_table():
+    """Every field of the 64 byte maps is _decode_table's predecessor (all
+    64 x 6), and composing maps is applying them in turn (associative)."""
+    tab = bc.map_table()
+    dec = sh._decode_table(torch.device("cpu")).numpy()
+    for byte in range(64):
+        for s in range(6):
+            assert bc.apply(int(tab[byte]), 5 * s) == 5 * int(dec[byte, s])
+    rng = np.random.default_rng(0)
+    a, b, c = (tab[rng.integers(0, 64, 200)] for _ in range(3))
+    np.testing.assert_array_equal(bc.compose(bc.compose(a, b), c),
+                                  bc.compose(a, bc.compose(b, c)))
+    for s in range(6):
+        np.testing.assert_array_equal(bc.apply(bc.compose(a, b), 5 * s),
+                                      bc.apply(b, bc.apply(a, 5 * s)))
+
+
+def _decoded(bptr):
+    """[N, B, 6] predecessors of [N, B] bytes, the JAX scan's layout."""
+    return sh._decode_table(torch.device("cpu")).numpy()[bptr & 63]
+
+
+# n = 1, 2, 3; reads shorter than a thread's 16-byte group; walks of one
+# tile (THREADS x SPT samples) less one, one and one more; all but the
+# longest read of a batch are shorter than its padded length
+SCAN_LENGTHS = {"1-3": (1, 2, 3), "short": (17, 5, 12),
+                "tile": (4097, 4098, 4099, 4100)}
+
+
+@pytest.mark.parametrize("which", ["polya", "dpi"])
+@pytest.mark.parametrize("lengths", sorted(SCAN_LENGTHS))
+def test_scan_model_matches_plain_and_jax(lengths, which):
+    """The model of the kernel's map scan on the plain fill's backpointers
+    gives seg_backtrack_plain's labels and summary exactly, and the JAX
+    _backward_labels and _seg_summary on the same bytes."""
+    from nanopolish_tpu.ops.pallas_segmentation import _seg_summary
+    samples, ns, sc = _case(SCAN_LENGTHS[lengths])
+    bptr, _, want_summ, want_lab = _plain(samples, ns, sc, _params(which))
+    got_summ, got_lab = bc.scan_backtrack(bptr, ns)
+    np.testing.assert_array_equal(got_lab, want_lab)
+    np.testing.assert_array_equal(got_summ, want_summ)
+    jlab = np.asarray(jsh._backward_labels(jnp.asarray(_decoded(bptr)),
+                                           jnp.asarray(ns)))
+    np.testing.assert_array_equal(got_lab, jlab)
+    jsum = np.asarray(_seg_summary(
+        jnp.asarray(np.broadcast_to(jlab[:, None, :],
+                                    (jlab.shape[0], 8, jlab.shape[1]))),
+        jnp.asarray(ns)))
+    np.testing.assert_array_equal(got_summ, jsum)
+
+
+def _random_backpointers(rng, N, B):
+    """Bytes that keep each state for a while and reach every state (the
+    stay bits set with probability 0.97, P's code 0 with 0.9), with random
+    bits 6-7 that the decode ignores."""
+    stay = rng.random((N, B, 4)) < 0.97
+    code = rng.choice(4, size=(N, B), p=[0.9, 0.05, 0.03, 0.02])
+    return (stay[..., 0] | stay[..., 1] << 1 | code << 2 | stay[..., 2] << 4
+            | stay[..., 3] << 5 | rng.integers(0, 4, (N, B)) << 6
+            ).astype(np.uint8)
+
+
+@pytest.mark.parametrize("align", [0, 1, 7, 15])
+def test_scan_model_random_bytes_any_alignment(align):
+    """On random bytes, with each read's row starting at any offset in its
+    16-byte group, the model gives seg_backtrack_plain's labels and
+    summary, every transition and cliffs included."""
+    rng = np.random.default_rng(align)
+    N, B = 4111, 12
+    ns = np.array([1, 2, 3, 4, 17, 18, 4095, 4096, 4097, 4098, N - 1, N],
+                  np.int32)
+    bptr = _random_backpointers(rng, N, B)
+    want_summ, want_lab = sh.seg_backtrack_plain(torch.from_numpy(bptr),
+                                                 torch.from_numpy(ns))
+    got_summ, got_lab = bc.scan_backtrack(bptr, ns, aligns=[align] * B)
+    np.testing.assert_array_equal(got_lab, want_lab.numpy())
+    np.testing.assert_array_equal(got_summ, want_summ.numpy())
+    assert (got_summ[:, :4] >= 0).sum() >= 20 and got_summ[:, 4].sum() > 0
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -251,11 +350,15 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["polya", "dpi"])
 @pytest.mark.parametrize("lengths", [(1560, 900, 1233),
-                                     (1, 2, 31, 32, 33, 64, 65, 1500)])
+                                     (1, 2, 31, 32, 33, 64, 65, 1500),
+                                     (1, 2, 3, 4097, 4098, 4099, 4100),
+                                     (65600, 2000)])
 def test_kernels_match_plain_on_gpu(cuda_device, which, lengths):
-    """One warp per read, 32 samples a chunk: reads that end inside, at
-    and just past a chunk, and the read-major bytes the fill hands to
-    the backtrack."""
+    """The fill's warp per read, 32 samples a chunk: reads that end
+    inside, at and just past a chunk, and the read-major bytes the fill
+    hands to the backtrack; the backtrack's block per read: n = 1-3,
+    walks of one tile less one, one and one more, and a read of 65,600
+    samples (17 tiles)."""
     samples, ns, sc = _case(lengths)
     x = torch.from_numpy(samples.T.copy()).to(cuda_device)
     n = torch.from_numpy(ns).to(cuda_device)

@@ -11,8 +11,9 @@ public wrappers (ops/profile_hmm_viterbi.viterbi_fill and
 viterbi_backtrack, ops/banded_exact.banded_fill,
 ops/profile_hmm_forward.forward_fill,
 ops/profile_hmm_indexed.forward_indexed_scores,
-ops/segmentation_viterbi.seg_viterbi_fill) on the batches of this
-checkout's chip_smoke.py, so that two checkouts run the same inputs:
+ops/segmentation_viterbi.seg_viterbi_fill, ops/banded_exact.banded_backtrack,
+ops/segmentation_viterbi.seg_backtrack) on the batches of this checkout's
+chip_smoke.py, so that two checkouts run the same inputs:
 
   vit-check    chip_smoke.py's 512 eventalign-shaped Viterbi segments
   vit-wave     32 of them, a launch of eventalign's wavefront
@@ -39,13 +40,21 @@ checkout's chip_smoke.py, so that two checkouts run the same inputs:
                chip_smoke.py's 512 reads x 2,000-65,536 samples, polya and
                detect-polyi parameters
   seg-polya    the polya run's segmentation launch (--capture)
+  banded-bt-check, banded-bt-ea
+               the banded backtrack of banded-check's and banded-ea's
+               reads (their trace from the checkout's fill)
+  seg-bt-check, seg-bt-check-dpi, seg-bt-polya
+               the segmentation backtrack (summary only, as the main path
+               calls it) of seg-check's, seg-check-dpi's and seg-polya's
+               reads (their backpointers from the checkout's fill)
 
 An indexed case's time is the device time of its forward_indexed kernels
 per flush (torch.profiler), since the two checkouts launch a flush
 differently; idx cases also report the flush's CUDA-event time with its
-uploads and fetch (wall_ms).  The vit-bt and banded cases' times are the
-kernel's device time per call too (a ~20 us traceback is shorter than
-its wrapper's host work), with the call's CUDA-event time in wall_ms.  Every other time is a CUDA-event mean over REPS calls after
+uploads and fetch (wall_ms).  The vit-bt, banded and seg-bt cases' times
+are the kernel's device time per call too (a ~20 us traceback is shorter
+than its wrapper's host work), with the call's CUDA-event time in
+wall_ms.  Every other time is a CUDA-event mean over REPS calls after
 a warm-up.
 
 --capture FILE: the idx-flush, seg-polya and banded-ea inputs.  When
@@ -61,7 +70,8 @@ Prints ptxas's registers and spills, one line per case and one JSON
 line: the card's name and power limit, the times (ms) and a sha256 of
 each case's output (the trace cells of the live event rows; the scores;
 the backpointer bytes and final scores; each traceback's entries up
-to its length; the banded fill's five outputs).  --json writes that line to
+to its length; the banded fill's five outputs; the banded backtrack's
+four; the segmentation backtrack's summary and labels).  --json writes that line to
 FILE; --against FILE fails the run unless every output equals FILE's.
 With --sass DIR, writes each kernel's SASS (cuobjdump) into DIR and
 prints instruction and branch counts per kernel function.
@@ -89,8 +99,9 @@ import sys
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("banded_fill", "viterbi_fill", "viterbi_backtrack", "forward_fill",
-           "forward_indexed", "seg_viterbi_fill")
+KERNELS = ("banded_fill", "banded_backtrack", "viterbi_fill",
+           "viterbi_backtrack", "forward_fill", "forward_indexed",
+           "seg_viterbi_fill", "seg_backtrack")
 REPS = 10
 
 
@@ -255,6 +266,7 @@ def capture(cs, dev, path):
         sv.seg_viterbi_fill = seg_fn
         bx.banded_fill = band_fn
     np.savez(path, **got)
+    own["seg_backtrack"] = own["seg_viterbi_fill"]
     return (launches, path_ms), own
 
 
@@ -366,6 +378,7 @@ def main() -> int:
         if own is None:
             own = {"forward_indexed": cs.phase_variants(dev),
                    "seg_viterbi_fill": cs.phase_polya(dev)}
+            own["seg_backtrack"] = own["seg_viterbi_fill"]
         own["forward_fill"] = (cm_launches, cm_path_ms)
         for k, (ln, pm) in own.items():
             launches[k], path_ms[k] = ln[k], pm[k]
@@ -406,6 +419,18 @@ def main() -> int:
         cs.log(f"{case}: {args[0].shape[0]} reads, {args[0].shape[1]} "
                f"events x {args[2].shape[1]} kmers: kernel "
                f"{times[case]:.4f} ms (call {walls[case]:.4f} ms)")
+        fill = run()
+        tail = (args[0], args[2], args[3], args[4], args[5])
+
+        def run_bt():
+            return bx.banded_backtrack(fill[0], fill[1], fill[2], fill[3],
+                                       *tail)
+        bt = case.replace("banded-", "banded-bt-")
+        digests[bt] = sha(*(t.cpu().numpy() for t in run_bt()))
+        times[bt] = cs.kernel_ms(run_bt, "banded_backtrack", REPS)
+        walls[bt] = cs.cuda_ms(run_bt, reps=REPS)
+        cs.log(f"{bt}: kernel {times[bt]:.4f} ms (call {walls[bt]:.4f} ms)")
+        del fill
     for case, arrays, flags in indexed_cases(cs, model, cap):
         def run():
             return pi.forward_indexed_scores(*arrays, flags, device=dev)
@@ -425,6 +450,18 @@ def main() -> int:
                                  reps=REPS)
         cs.log(f"{case}: {x.shape[1]} reads, up to {x.shape[0]} samples: "
                f"{times[case]:.4f} ms")
+        bk, _ = sv.seg_viterbi_fill(x, n, s, k)
+
+        def run_bt():
+            return sv.seg_backtrack(bk, n)
+        bt = case.replace("seg-", "seg-bt-")
+        summ, lab = sv.seg_backtrack(bk, n, labels=True)
+        digests[bt] = sha(summ.cpu().numpy(), lab.cpu().numpy())
+        del summ, lab
+        times[bt] = cs.kernel_ms(run_bt, "seg_backtrack", REPS)
+        walls[bt] = cs.cuda_ms(run_bt, reps=REPS)
+        cs.log(f"{bt}: kernel {times[bt]:.4f} ms (call {walls[bt]:.4f} ms)")
+        del bk
     result.update(ms=times, wall_ms=walls, sha256=digests)
     print(json.dumps(result), flush=True)
     if a.json:
