@@ -74,7 +74,23 @@ Phases (any failure exits non-zero; nothing is caught):
      torch.profiler, and `vcf2fasta` on its VCF; then `polya` and
      `detect-polyi` on 512 direct-RNA reads (tools/perf_e2e_polya.py's
      corpus: seed 43, a planted 120-nt tail, ~19.5k samples per read),
-     with the card's busy time;
+     with the card's busy time; then the training paths: `methyltrain` at
+     full width (the r9.4_450bps cpg 6-mer model, all 15,625 kmers,
+     MAX_EVENTS 1,000) on 64 reads x 8 kb of cpg-methylated signal from a
+     100 kb genome, its start model's M-kmer means raised by 4 pA, `-c
+     --output-scores`, 5 rounds, held to the recovery rule of
+     tests/test_methyltrain_e2e.py; the mixture EM alone at full shape
+     (15,625 kmers x 1,000 events x 2 components) on the card and on the
+     cpu, its time beside its bound; `methyltrain` on 8 of those reads, 2
+     rounds, on the card and on the cpu (the cpu run in a second process
+     from the start of this phase; integer summary columns identical,
+     trained values within the EM tolerance, score lines under the
+     printed-output rule); `train-poremodel-from-basecalls` on the card on
+     the eventalign corpus's 64 reads and on 64 reads of one 400-base
+     stretch (its levels against the model that made the signal), and on
+     8 of the short reads on the card and on the cpu (byte-identical
+     models); one JSON line of the training paths' launches and device ms
+     per kernel;
   7. one JSON line describing each kernel (with `path_ms`, its summed
      device time in one run of its own main path), then the result line.
 
@@ -126,6 +142,31 @@ POLYA_READS, POLYA_NT, POLYA_TRANSCRIPT = 512, 120, 500
 # the variants main path: a draft window polished by tiled reads
 VAR_WINDOW, VAR_READS, VAR_READ_LEN = 50_000, 250, 2000
 SUB = {"A": "G", "C": "T", "G": "A", "T": "C"}
+# the training phase: methyltrain on the r9.4_450bps cpg 6-mer model (all
+# 15,625 states, MAX_EVENTS 1,000) over MAIN_READS reads of cpg-methylated
+# signal, its M-kmer means raised by TRAIN_PERTURB pA at the start
+NUC_KEY = ("r9.4_450bps", "nucleotide", "template", 6)
+CPG_KEY = ("r9.4_450bps", "cpg", "template", 6)
+TRAIN_SEED, TRAIN_PERTURB, TRAIN_ROUNDS = 51, 4.0, 5
+TRAIN_MIN_EVENTS, TRAIN_MIN_M_KMERS = 30, 100
+TRAIN_KERNELS = ("banded_fill", "banded_backtrack", "viterbi_fill",
+                 "viterbi_backtrack", "forward_fill")
+# card against cpu: TRAIN_SUBSET reads, TRAIN_SUBSET_ROUNDS rounds
+TRAIN_SUBSET, TRAIN_SUBSET_ROUNDS, TRAIN_SUBSET_MIN_EVENTS = 8, 2, 10
+# torch threads of the subset's cpu run (a second process at nice 10)
+CPU_SUBSET_THREADS = 4
+# the EM tolerance (tests/test_torch_methyltrain.py: MEAN_ATOL and
+# APP_STDV_RTOL)
+EM_MEAN_ATOL, EM_STDV_RTOL = 1e-4, 1e-3
+# train-poremodel-from-basecalls: rounds; on TP_SHORT_LEN-base reads of one
+# stretch, the least kmers updated and the largest median |level - builtin|
+# over them: the JAX app's 173 kmers and 10.512 pA on 8 such reads
+# (tools/train_poremodel_levels.py --reads 8 --read-len 400 --genome-len
+# 400), the median given 25% for the other reads' kmers
+TP_ROUNDS, TP_SHORT_LEN, TP_SHORT_MIN_UPDATED = 3, 400, 100
+TP_LEVEL_MAX = 13.1
+# the EM alone at full shape: every cpg 6-mer, MAX_EVENTS events
+EM_R, EM_N = 15_625, 1000
 
 # published peaks of one H100 SXM (dense, no sparsity)
 PEAK_F32_FLOPS = 67e12
@@ -194,24 +235,28 @@ def kernel_ms(fn, kernel: str, reps: int = 3) -> float:
     fn() call, from torch.profiler over reps calls after a warm-up: the
     kernel alone, without the host work and copies fn() also does.  A
     profile has come back with fewer of the kernel's launches than were
-    made, and once with none: the time is the mean of the launches it
-    recorded times the launches made (cuda_build.LAUNCHES), and with none
-    recorded another profile is taken, failing after three."""
+    made, and with none three times running (seg_backtrack, 30 us a
+    launch): the time is the mean of the launches it recorded times the
+    launches made (cuda_build.LAUNCHES), and with none recorded another
+    profile is taken over twice the calls, failing after six."""
     import torch
     from nanopolish_tpu_torch.utils import cuda_build
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+    for attempt in range(6):
+        calls = reps << attempt
         made = cuda_build.LAUNCHES[kernel]
         with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         made = cuda_build.LAUNCHES[kernel] - made
-        us, seen = kernel_device_us(prof)[kernel]
+        us, seen = kernel_device_us(prof.key_averages())[kernel]
         if seen:
-            return us / seen * made / reps / 1e3
+            return us / seen * made / calls / 1e3
+        log(f"torch.profiler recorded none of {made} {kernel} launches; "
+            f"profiling again over {2 * calls} calls")
     fail(f"torch.profiler recorded no device time for {kernel}")
 
 
@@ -1140,12 +1185,14 @@ def _adc(pa):
 
 
 def build_pipeline(d, genome_len, plan, read_len, seed, shift=1.5,
-                   scale=1.01, methylated=(), sort_bam=False):
+                   scale=1.01, methylated=(), sort_bam=False,
+                   meth_ref=False, leader=400, trailer=100):
     """Reference FASTA, basecalls, slow5 signal, readdb index and BAM for
     reads placed at plan = [(name, pos, is_rev)] (the layout of
     tests/test_golden_outputs.py; BAM records in plan order unless
     sort_bam).  Reads named in ``methylated`` carry signal drawn from the
-    cpg model over their CpG-methylated basecall."""
+    cpg model over their CpG-methylated basecall; with ``meth_ref`` the
+    reference is the CpG-methylated genome."""
     from nanopolish_tpu_torch.apps import index as index_app
     from nanopolish_tpu_torch.io.bam import BamRecord, BamWriter
     from nanopolish_tpu_torch.io.slow5 import Slow5Writer
@@ -1163,7 +1210,8 @@ def build_pipeline(d, genome_len, plan, read_len, seed, shift=1.5,
     cpg = pms.get_model("r9.4_450bps", "cpg", "template", 6)
     genome = random_sequence(rng, genome_len)
     ref_fa = os.path.join(d, "ref.fa")
-    _write_fa(ref_fa, "tig1", genome)
+    _write_fa(ref_fa, "tig1", METHYL_CPG_ALPHABET.methylate(genome)
+              if meth_ref else genome)
     fastq, slow5 = os.path.join(d, "reads.fastq"), os.path.join(d, "sig.slow5")
     with open(fastq, "w") as fq, Slow5Writer(slow5) as sw:
         for name, pos, is_rev in plan:
@@ -1174,11 +1222,11 @@ def build_pipeline(d, genome_len, plan, read_len, seed, shift=1.5,
             if name in methylated:
                 pa = synthetic_raw_signal(
                     rng, METHYL_CPG_ALPHABET.methylate(basecall), cpg, sc,
-                    samples_per_base=10.0, leader=400, trailer=100)
+                    samples_per_base=10.0, leader=leader, trailer=trailer)
             else:
                 pa = synthetic_raw_signal(rng, basecall, model, sc,
-                                          samples_per_base=10.0, leader=400,
-                                          trailer=100)
+                                          samples_per_base=10.0,
+                                          leader=leader, trailer=trailer)
             sw.write(name, _adc(pa), 8192.0, 0.0, 1400.0, 4000.0)
     index_app.main([fastq, "--slow5", slow5])
     bam = os.path.join(d, "aln.bam")
@@ -1735,11 +1783,12 @@ def phase_variants(dev, window=VAR_WINDOW, n_reads=VAR_READS,
     return launches, path_ms
 
 
-def card_busy(prof):
+def card_busy(averages):
     """Seconds of kernel and copy time on the card in a torch.profiler
-    run (CUDA activity only), and the six largest by name."""
+    run (CUDA activity only; its key_averages()), and the six largest by
+    name."""
     busy = {}
-    for ev in prof.key_averages():
+    for ev in averages:
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0.0)
@@ -1750,15 +1799,15 @@ def card_busy(prof):
     return sum(busy.values()), top
 
 
-def kernel_device_us(prof):
+def kernel_device_us(averages):
     """Device microseconds and recorded launches of each port kernel
-    (cuda_build.KERNELS) in a torch.profiler run, from the CUDA function
-    names: csrc/<name>.cu defines <name>_kernel, <name>_warp_kernel<R> or
-    <name>_block_kernel."""
+    (cuda_build.KERNELS) in a torch.profiler run (its key_averages()),
+    from the CUDA function names: csrc/<name>.cu defines <name>_kernel,
+    <name>_warp_kernel<R> or <name>_block_kernel."""
     import re
     from nanopolish_tpu_torch.utils import cuda_build
     out = {name: (0.0, 0) for name in cuda_build.KERNELS}
-    for ev in prof.key_averages():
+    for ev in averages:
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0.0)
@@ -1782,9 +1831,11 @@ def profiled_run(fn, kernels):
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         wall, launches = timed_run(fn, kernels)
-    busy_s, top = card_busy(prof)
+    # key_averages() once: it is slow on a path of many launches
+    averages = prof.key_averages()
+    busy_s, top = card_busy(averages)
     return wall, launches, busy_s, top, {
-        name: us / 1e3 for name, (us, _) in kernel_device_us(prof).items()}
+        name: us / 1e3 for name, (us, _) in kernel_device_us(averages).items()}
 
 
 def phase_polya(dev):
@@ -1847,9 +1898,433 @@ def phase_polya(dev):
     return outs["polya"][1:]
 
 
+# ------------------------------------------------------- phase 6: training --
+
+def train_genome() -> str:
+    """The 100 kb genome build_pipeline draws first from TRAIN_SEED."""
+    from nanopolish_tpu_torch.utils.synthetic import random_sequence
+    return random_sequence(np.random.default_rng(TRAIN_SEED), MAIN_GENOME_LEN)
+
+
+def predicted_trainable(min_events=None, n_reads=None):
+    """M-kmers of the training corpus that at least min_events interior
+    read positions cover (each read's kmers in its own orientation, five
+    rows off either end): a prediction of the kmers methyltrain trains
+    before any signal exists, counting one used event per position."""
+    from nanopolish_tpu_torch.utils.alphabet import (DNA_ALPHABET,
+                                                     METHYL_CPG_ALPHABET)
+    min_events = TRAIN_MIN_EVENTS if min_events is None else min_events
+    genome = train_genome()
+    counts = np.zeros(METHYL_CPG_ALPHABET.num_strings(6), np.int64)
+    for _, pos, is_rev in main_plan()[:n_reads]:
+        seg = genome[pos:pos + MAIN_READ_LEN]
+        read = DNA_ALPHABET.reverse_complement(seg) if is_rev else seg
+        ranks = METHYL_CPG_ALPHABET.seq_to_kmer_ranks(
+            METHYL_CPG_ALPHABET.methylate(read), 6)
+        np.add.at(counts, ranks[6:-6], 1)
+    is_m = np.array(["M" in k for k in METHYL_CPG_ALPHABET.all_kmers(6)])
+    return int(((counts >= min_events) & is_m).sum())
+
+
+def build_train_corpus(d):
+    """MAIN_READS reads x MAIN_READ_LEN bases of cpg-methylated signal from
+    the 100 kb genome, the methylated genome as reference, built as
+    tests/test_methyltrain_e2e.py:25-80 builds its corpus (signal from the
+    true cpg model over the methylated read, no scaling, leader 450,
+    trailer 90); the start model is the cpg model with its M-kmer means
+    raised by TRAIN_PERTURB, named in a fofn.  Returns (argv of the
+    inputs, the true model, the M-kmer mask)."""
+    from nanopolish_tpu_torch.models.pore_model import PoreModelSet
+    plan = main_plan()
+    ref_fa, fastq, bam = build_pipeline(
+        d, MAIN_GENOME_LEN, plan, MAIN_READ_LEN, seed=TRAIN_SEED, shift=0.0,
+        scale=1.0, methylated={name for name, _, _ in plan}, sort_bam=True,
+        meth_ref=True, leader=450, trailer=90)
+    true_cpg = PoreModelSet.instance().get_model(*CPG_KEY)
+    is_m = np.array(["M" in true_cpg.alphabet.rank_to_kmer(r, 6)
+                     for r in range(true_cpg.num_states)])
+    start = true_cpg.level_mean.copy()
+    start[is_m] += TRAIN_PERTURB
+    model_path = os.path.join(d, "start.model")
+    true_cpg.with_states(start, true_cpg.level_stdv.copy()).write(
+        model_path, "r9.4_450bps.cpg.6mer.template.start")
+    fofn = os.path.join(d, "models.fofn")
+    with open(fofn, "w") as fh:
+        fh.write(model_path + "\n")
+    return (["-r", fastq, "-b", bam, "-g", ref_fa, "-m", fofn],
+            true_cpg, is_m)
+
+
+def run_methyltrain(argv, d, dev_type, fn_wrap=None):
+    """methyltrain's main in directory d on dev_type, the pore models reset
+    before and after.  Returns (stdout, [(round end time, kmers trained,
+    integer columns of every kmer, trained means, trained stdvs)], the
+    trained model, the start time, what fn_wrap returned).  fn_wrap(run)
+    may wrap the call (the profiled or timed run)."""
+    from nanopolish_tpu_torch.apps import methyltrain as mt_app
+    from nanopolish_tpu_torch.models.pore_model import PoreModelSet
+    os.makedirs(d, exist_ok=True)
+    real = mt_app.retrain_model_from_events
+    rounds = []
+    out = io.StringIO()
+    box = {}
+
+    def retrain(model, summaries, *a, **k):
+        res = real(model, summaries, *a, **k)
+        if dev_type == "cuda":
+            import torch
+            torch.cuda.synchronize()
+        rounds.append((time.perf_counter(), res[1], np.array(
+            [(x.num_matches, x.num_skips, x.num_stays, len(x.events))
+             for x in summaries]), res[0].level_mean, res[0].level_stdv))
+        return res
+
+    def run():
+        box["t0"] = time.perf_counter()
+        with contextlib.chdir(d):
+            mt_app.main(argv + ["--device", dev_type], stdout=out)
+
+    mt_app.retrain_model_from_events = retrain
+    PoreModelSet.reset()
+    try:
+        wrapped = fn_wrap(run) if fn_wrap is not None else run()
+        trained = PoreModelSet.instance().get_model(*CPG_KEY)
+    finally:
+        mt_app.retrain_model_from_events = real
+        PoreModelSet.reset()
+    return out.getvalue(), rounds, trained, box["t0"], wrapped
+
+
+def summary_rows(d):
+    with open(os.path.join(d, "methyltrain.summary")) as fh:
+        return [ln.rstrip("\n").split("\t") for ln in fh][1:]
+
+
+def phase_methyltrain(dev, inputs, true_cpg, is_m, setup_s):
+    """Part 1: methyltrain at full width (15,625 cpg 6-mers, MAX_EVENTS
+    1,000) on MAIN_READS reads x 8 kb (build_train_corpus), -c
+    --output-scores, TRAIN_ROUNDS rounds, under torch.profiler; the
+    recovery rule of tests/test_methyltrain_e2e.py.  Returns the launches
+    and device ms per kernel."""
+    d = os.path.join(WORK, "train")
+    argv = inputs + ["-c", "--output-scores", "--rounds", str(TRAIN_ROUNDS),
+                     "--min-events", str(TRAIN_MIN_EVENTS)]
+    out, rounds, trained, start, prof = run_methyltrain(
+        argv, os.path.join(d, "run"), dev.type,
+        lambda run: profiled_run(run, TRAIN_KERNELS))
+    wall, launches, busy_s, top, path_ms = prof
+    ends = [start] + [r[0] for r in rounds]
+    round_s = [round(b - a, 3) for a, b in zip(ends, ends[1:])]
+    n_trained = [r[1] for r in rounds]
+    rows = summary_rows(os.path.join(d, "run"))
+    ranks = [true_cpg.alphabet.kmer_rank(f[1], 6) for f in rows
+             if f[6] == "1" and "M" in f[1]]
+    err_after = float(np.mean(np.abs(trained.level_mean[ranks] -
+                                     true_cpg.level_mean[ranks]))) \
+        if ranks else float("nan")
+    scores = [ln.split() for ln in out.splitlines()]
+    bad = [f for f in scores if len(f) != 6 or
+           f[4] not in ("Original", "Rescaled", "Delta")]
+    values = np.array([float(f[5]) for f in scores if len(f) == 6])
+    m_trained = [int((r[2][is_m, 3] >= TRAIN_MIN_EVENTS).sum())
+                 for r in rounds]
+    log(f"training path methyltrain {MAIN_READS} reads x {MAIN_READ_LEN} "
+        f"bases on {dev.type} ({card()}): {TRAIN_ROUNDS} rounds in "
+        f"{wall:.2f} s (set-up {setup_s:.1f} s; under torch.profiler), "
+        f"round walls s {json.dumps(round_s)}, reads/s per round "
+        f"{json.dumps([round(MAIN_READS / r, 2) for r in round_s])}, "
+        f"{TRAIN_ROUNDS / wall:.4f} rounds/s; kmers trained per round "
+        f"{json.dumps(n_trained)}, of them M-kmers {json.dumps(m_trained)} "
+        f"(predicted {predicted_trainable()} from the corpus); the last "
+        f"round's {len(ranks)} M-kmers' mean error {err_after:.3f} pA after "
+        f"a {TRAIN_PERTURB} pA perturbation; {len(scores)} score lines, "
+        f"{int((~np.isfinite(values)).sum())} of them not finite (reads "
+        f"whose recalibration diverged); card busy {busy_s:.4f} s (idle share "
+        f"{1 - busy_s / wall:.4f}), by kernel {json.dumps(top)}; launches "
+        f"{json.dumps(launches)}; path ms {json.dumps(path_ms)}")
+    if len(ranks) < TRAIN_MIN_M_KMERS or \
+            not err_after < 0.6 * TRAIN_PERTURB:
+        fail(f"methyltrain trained {len(ranks)} M-kmers to a mean error of "
+             f"{err_after:.3f} pA (rule: >= {TRAIN_MIN_M_KMERS} kmers, "
+             f"< {0.6 * TRAIN_PERTURB} pA)")
+    if bad or len(scores) < 3 * TRAIN_ROUNDS * MAIN_READS * 0.9:
+        fail(f"methyltrain --output-scores: {len(scores)} lines, "
+             f"{len(bad)} malformed")
+    for name in TRAIN_KERNELS:
+        if not path_ms[name] > 0.0:
+            fail(f"torch.profiler shows no device time for {name} on the "
+                 f"methyltrain path ({launches[name]} launches)")
+    return launches, path_ms
+
+
+def subset_argv(inputs):
+    """methyltrain's arguments for the card-against-cpu subset."""
+    return inputs + ["-c", "--output-scores", "--rounds",
+                     str(TRAIN_SUBSET_ROUNDS), "--min-events",
+                     str(TRAIN_SUBSET_MIN_EVENTS), "--max-reads",
+                     str(TRAIN_SUBSET)]
+
+
+def start_cpu_subset(inputs):
+    """Start the subset's --device cpu run in a second process (this
+    script with --cpu-subset DIR), so that it runs beside the card's
+    phase 6; it is killed if this process exits first."""
+    import atexit
+    d = os.path.join(WORK, "train_subset")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "argv.json"), "w") as fh:
+        json.dump(subset_argv(inputs), fh)
+    with open(os.path.join(d, "cpu_run.log"), "w") as logf:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--cpu-subset", d], stdout=logf,
+                                stderr=subprocess.STDOUT, cwd=ROOT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def cpu_subset_run(d) -> int:
+    """--cpu-subset DIR: the subset's methyltrain run on the cpu, its
+    outputs saved under DIR for the main process."""
+    import torch
+    sys.path.insert(0, ROOT)
+    os.nice(10)
+    torch.set_num_threads(CPU_SUBSET_THREADS)
+    with open(os.path.join(d, "argv.json")) as fh:
+        argv = json.load(fh)
+    t0 = time.perf_counter()
+    out, rounds, trained, _, _ = run_methyltrain(
+        argv, os.path.join(d, "cpu"), "cpu")
+    np.savez(os.path.join(d, "cpu_result.npz"),
+             n=np.array([r[1] for r in rounds]),
+             ints=np.stack([r[2] for r in rounds]),
+             mean=np.stack([r[3] for r in rounds]),
+             stdv=np.stack([r[4] for r in rounds]),
+             final_mean=trained.level_mean, final_stdv=trained.level_stdv,
+             seconds=time.perf_counter() - t0)
+    with open(os.path.join(d, "cpu_stdout.txt"), "w") as fh:
+        fh.write(out)
+    return 0
+
+
+def model_diff(mean_a, stdv_a, mean_b, stdv_b):
+    """(max |d mean|, max relative d stdv, means that differ) of two trained
+    models; a value that is not finite must be so in both (else inf)."""
+    fin = np.isfinite(mean_b) & np.isfinite(stdv_b)
+    if not np.array_equal(fin, np.isfinite(mean_a) & np.isfinite(stdv_a)):
+        return float("inf"), float("inf"), int((~fin).sum())
+    dm = np.abs(mean_a[fin] - mean_b[fin])
+    ds = np.abs(stdv_a[fin] - stdv_b[fin]) / stdv_b[fin]
+    return (float(dm.max(initial=0.0)), float(ds.max(initial=0.0)),
+            int((dm > 0).sum()))
+
+
+def phase_training_subset(dev, inputs, cpu_proc, ea_corpus):
+    """Part 2: methyltrain on TRAIN_SUBSET of the reads, card against
+    --device cpu (integer columns identical every round, trained values
+    within the EM tolerance, score lines under the printed-output rule);
+    train-poremodel-from-basecalls on the card on the eventalign corpus's
+    reads and on MAIN_READS short reads of one stretch (its bootstrapped
+    levels against the model that made the signal), and on TRAIN_SUBSET
+    of the short reads card against cpu (byte-identical models).  Returns
+    the eventalign-corpus run's launches and device ms per kernel."""
+    from nanopolish_tpu_torch.apps import train_poremodel_from_basecalls as tp
+    from nanopolish_tpu_torch.models.pore_model import (PoreModel,
+                                                        PoreModelSet)
+    d = os.path.join(WORK, "train_subset")
+    t0 = time.perf_counter()
+    g_out, g_rounds, g_model, _, launches = run_methyltrain(
+        subset_argv(inputs), os.path.join(d, dev.type), dev.type,
+        lambda run: timed_run(run, TRAIN_KERNELS)[1])
+    log(f"methyltrain {TRAIN_SUBSET} reads, {TRAIN_SUBSET_ROUNDS} rounds on "
+        f"{dev.type}: {time.perf_counter() - t0:.2f} s, kmers trained "
+        f"{json.dumps([r[1] for r in g_rounds])}; launches "
+        f"{json.dumps(launches)}")
+    t0 = time.perf_counter()
+    if cpu_proc.wait() != 0:
+        with open(os.path.join(d, "cpu_run.log")) as fh:
+            fail(f"the subset's cpu run failed:\n{fh.read()[-4000:]}")
+    c = np.load(os.path.join(d, "cpu_result.npz"))
+    with open(os.path.join(d, "cpu_stdout.txt")) as fh:
+        c_out = fh.read()
+    log(f"methyltrain {TRAIN_SUBSET} reads, {TRAIN_SUBSET_ROUNDS} rounds on "
+        f"cpu (a second process at nice 10, {CPU_SUBSET_THREADS} torch "
+        f"threads, beside the card's phase 6): {float(c['seconds']):.2f} s, "
+        f"waited "
+        f"{time.perf_counter() - t0:.2f} s for it; kmers trained "
+        f"{json.dumps(c['n'].tolist())}")
+    if len(g_rounds) != TRAIN_SUBSET_ROUNDS or len(c["n"]) != len(g_rounds):
+        fail("methyltrain subset: rounds missing")
+    diffs = []
+    for r, g in enumerate(g_rounds):
+        if not np.array_equal(g[2], c["ints"][r]) or g[1] != c["n"][r]:
+            fail(f"methyltrain round {r}: integer columns differ on "
+                 f"{int((g[2] != c['ints'][r]).any(1).sum())} kmers, card "
+                 f"vs cpu")
+        diffs.append(model_diff(g[3], g[4], c["mean"][r], c["stdv"][r]))
+    dm, ds, _ = model_diff(g_model.level_mean, g_model.level_stdv,
+                           c["final_mean"], c["final_stdv"])
+    rep = assert_agree(g_out, c_out, f"methyltrain --output-scores on "
+                                     f"{dev.type} vs the cpu")
+    log(f"methyltrain subset card vs cpu: integer columns identical in "
+        f"{len(g_rounds)} rounds; trained values by round (max |d mean| pA, "
+        f"max rel d stdv, means differing) {json.dumps(diffs)}; final model "
+        f"{dm:.3g} pA, {ds:.3g}; {rep['rows']} score lines, {rep['differ']} "
+        f"differ")
+    if dm > EM_MEAN_ATOL or ds > EM_STDV_RTOL or any(
+            a > EM_MEAN_ATOL or b > EM_STDV_RTOL for a, b, _ in diffs):
+        fail(f"methyltrain trained values differ beyond the EM tolerance "
+             f"({EM_MEAN_ATOL} pA, {EM_STDV_RTOL} relative)")
+    if rep["rows"] < 3 * TRAIN_SUBSET_ROUNDS * TRAIN_SUBSET * 0.9:
+        fail(f"methyltrain subset printed {rep['rows']} score lines")
+
+    # train-poremodel-from-basecalls on the eventalign corpus's reads, and
+    # on short reads of one stretch, where its bootstrap takes hold
+    d = os.path.join(WORK, "train_poremodel")
+    _, short_fastq, _ = build_pipeline(
+        os.path.join(d, "short"), TP_SHORT_LEN, tp_short_plan(MAIN_READS),
+        TP_SHORT_LEN, seed=99)
+    truth = PoreModelSet.instance().get_model(*NUC_KEY)
+    for corpus, fastq, bound in (
+            (f"{MAIN_READS} reads x {MAIN_READ_LEN} bases (eventalign)",
+             ea_corpus[1], None),
+            (f"{MAIN_READS} reads x {TP_SHORT_LEN} bases of one stretch",
+             short_fastq, TP_LEVEL_MAX)):
+        path = os.path.join(d, f"{len(corpus)}.model")
+        wall, launches, busy_s, top, path_ms = profiled_run(
+            lambda: tp.main(["-r", fastq, "--rounds", str(TP_ROUNDS), "-o",
+                             path, "--device", dev.type]),
+            ("banded_fill", "banded_backtrack"))
+        m = PoreModel.from_file(path)
+        upd = m.level_stdv != 2.5
+        med = float(np.median(np.abs(m.level_mean[upd] -
+                                     truth.level_mean[upd]))) \
+            if upd.any() else float("nan")
+        log(f"training path train-poremodel-from-basecalls {corpus}, "
+            f"{TP_ROUNDS} rounds on {dev.type} ({card()}): {wall:.2f} s "
+            f"(under torch.profiler), {TP_ROUNDS / wall:.4f} rounds/s; "
+            f"{int(upd.sum())} of {upd.size} kmers updated, median |level - "
+            f"builtin| over them {med:.3f} pA (bound {bound} pA); card busy "
+            f"{busy_s:.4f} s (idle share {1 - busy_s / wall:.4f}), by kernel "
+            f"{json.dumps(top)}; launches {json.dumps(launches)}; path ms "
+            f"{json.dumps(path_ms)}")
+        for name in ("banded_fill", "banded_backtrack"):
+            if not path_ms[name] > 0.0:
+                fail(f"torch.profiler shows no device time for {name} on "
+                     f"the train-poremodel path")
+        if bound is None:
+            # on 8 kb reads no read passes the banded QC under the start
+            # model, so no kmer updates and the model file is the start
+            # model whatever the alignments (as in the JAX app,
+            # tools/train_poremodel_levels.py --reads 8 --read-len 8000
+            # --genome-len 100000); card and cpu are compared below
+            ea_launches, ea_ms = launches, path_ms
+            continue
+        if not med <= bound or upd.sum() < TP_SHORT_MIN_UPDATED:
+            fail(f"train-poremodel updated {int(upd.sum())} kmers, median "
+                 f"|level - builtin| {med:.3f} pA (bound {bound} pA)")
+        files = {}
+        for dt in (dev.type, "cpu"):
+            files[dt] = os.path.join(d, f"subset_{len(corpus)}_{dt}.model")
+            t0 = time.perf_counter()
+            tp.main(["-r", fastq, "--rounds", str(TP_ROUNDS), "--max-reads",
+                     str(TRAIN_SUBSET), "-o", files[dt], "--device", dt])
+            log(f"train-poremodel {TRAIN_SUBSET} of the {corpus} on {dt}: "
+                f"{time.perf_counter() - t0:.2f} s")
+        with open(files[dev.type], "rb") as a, open(files["cpu"], "rb") as b:
+            if a.read() != b.read():
+                fail(f"train-poremodel model files differ, card vs cpu, on "
+                     f"{TRAIN_SUBSET} of the {corpus}")
+        log(f"train-poremodel {TRAIN_SUBSET} of the {corpus}: model files "
+            f"byte-identical, card vs cpu")
+    return ea_launches, ea_ms
+
+
+def tp_short_plan(n):
+    """n reads of the whole TP_SHORT_LEN-base genome, random strands (the
+    plan of tools/train_poremodel_levels.py at --read-len 400
+    --genome-len 400)."""
+    rng = np.random.default_rng(2024)
+    return [(f"r{i:03d}", int(pos), bool(rng.integers(0, 2)))
+            for i, pos in enumerate(rng.integers(0, 1, n))]
+
+
+EM_SEED = 7
+
+
+def em_inputs(R=EM_R, N=EM_N, seed=EM_SEED):
+    """Full-shape EM inputs as methyltrain makes them: per-kmer event
+    counts 1-N (a random mask of tails), levels around each kmer's mean
+    with 5% from a component 4 pA lower, scaled read variances 0.9-1.2,
+    the second component disabled on every third kmer."""
+    rng = np.random.default_rng(seed)
+    mu_t = rng.uniform(60, 120, R).astype(np.float32)
+    n = rng.integers(1, N + 1, R)
+    mask = np.arange(N)[None, :] < n[:, None]
+    svar = rng.uniform(0.9, 1.2, (R, N)).astype(np.float32)
+    low = rng.random((R, N)) < 0.05
+    levels = (mu_t[:, None] - 4.0 * low + rng.standard_normal(
+        (R, N), np.float32) * 2.0 * svar).astype(np.float32)
+    levels[~mask] = 1.0
+    svar[~mask] = 1.0
+    logw = np.tile(np.log([0.95, 0.05]).astype(np.float32), (R, 1))
+    logw[::3] = (0.0, -np.inf)
+    mu0 = np.stack([mu_t + 4.0, mu_t - 4.0], 1).astype(np.float32)
+    sd0 = np.tile(np.array([2.0, 2.5], np.float32), (R, 1))
+    return levels, svar, mask, logw, mu0, sd0
+
+
+# f64 operations of one EM iteration per (kmer, event, component), as
+# ops/mixture_em.train_gaussian_mixture_batched does them: the component
+# width (1), z (2), the log density (a log and four) (5), the weighted
+# numerator (1), the logsumexp over components (max, subtract, exp, add,
+# and its log and add shared by the components) (5), the responsibility
+# (subtract, exp, select) (3), the three sums (3), resp * x (1), the
+# deviation (2) and resp * dev * dev (2)
+EM_OPS = 1 + 2 + 5 + 1 + 5 + 3 + 3 + 1 + 2 + 2
+# H100 SXM fp64 outside the tensor cores (NVIDIA's data sheet)
+PEAK_F64_FLOPS = 34e12
+
+
+def phase_em(dev):
+    """Part 3: the mixture EM alone at full shape on the card and on the
+    CPU port, the same inputs; its time by CUDA events beside its bound."""
+    import torch
+    from nanopolish_tpu_torch.ops.mixture_em import \
+        train_gaussian_mixture_batched as em
+    x = em_inputs()
+    R, N = x[0].shape
+    t0 = time.perf_counter()
+    want = em(*x, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    xd = [torch.as_tensor(a, device=dev) for a in x]
+    ms = cuda_ms(lambda: em(*xd, device=dev))
+    got = em(*xd, device=dev)
+    dm = float((got.means.cpu() - want.means).abs().max())
+    ds = float(((got.stdvs.cpu() - want.stdvs).abs() / want.stdvs).max())
+    dw = max_abs_err(got.log_weights.cpu(), want.log_weights)
+    same = float((got.means.cpu() == want.means).float().mean())
+    nbytes = R * N * (4 + 4 + 1) + 6 * R * 2 * 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = EM_OPS * R * N * 2 * 10 / PEAK_F64_FLOPS * 1e3
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "operations")
+    log(f"mixture EM [{R} kmers x {N} events x 2 components], 10 iterations "
+        f"({card()}): card {ms:.3f} ms (CUDA events, mean of 3), cpu "
+        f"{cpu_s:.2f} s; bound {b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f} ms "
+        f"at {PEAK_BYTES / 1e12} TB/s, f64 operations {t_ops:.4f} ms at "
+        f"{PEAK_F64_FLOPS / 1e12} TFLOP/s); card vs cpu max |d mean| {dm:.3g} "
+        f"pA, max rel d stdv {ds:.3g}, max |d log weight| {dw:.3g}, means "
+        f"bit-identical {same:.6f}")
+    if dm > EM_MEAN_ATOL or ds > EM_STDV_RTOL or not math.isfinite(dw) or \
+            dw > EM_MEAN_ATOL:
+        fail("mixture EM: card and cpu differ beyond the EM tolerance")
+
+
 # ------------------------------------------------------------------- main --
 
 def main() -> int:
+    if sys.argv[1:2] == ["--cpu-subset"]:
+        return cpu_subset_run(sys.argv[2])
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -1882,11 +2357,34 @@ def main() -> int:
     # each kernel's launches and device time are those of its own slice's
     # main path: eventalign (banded, Viterbi), call-methylation (Forward),
     # variants (indexed Forward), polya (segmentation)
+    # the training corpus, and the methyltrain subset's cpu run, started
+    # now in a second process at low priority so that it runs beside the
+    # card's main paths
+    t0 = time.perf_counter()
+    inputs, true_cpg, is_m = build_train_corpus(os.path.join(WORK, "train"))
+    train_setup_s = time.perf_counter() - t0
+    cpu_proc = start_cpu_subset(inputs)
     launches, path_ms, ea_corpus = phase_eventalign(dev)
     own = {"forward_fill": phase_call_methylation(dev)}
     phase_scorereads_phase(dev, ea_corpus)
     own["forward_indexed"] = phase_variants(dev)
     own["seg_viterbi_fill"] = own["seg_backtrack"] = phase_polya(dev)
+    # the training paths: methyltrain (banded kernels at ingest, Viterbi
+    # every round, Forward for --output-scores), train-poremodel (banded)
+    t0 = time.perf_counter()
+    mt_launches, mt_ms = phase_methyltrain(dev, inputs, true_cpg, is_m,
+                                           train_setup_s)
+    phase_em(dev)
+    tp_launches, tp_ms = phase_training_subset(dev, inputs, cpu_proc,
+                                               ea_corpus)
+    log(json.dumps({"training_paths": {
+        "methyltrain": {name: {"launches": mt_launches[name],
+                               "path_ms": mt_ms[name]}
+                        for name in TRAIN_KERNELS},
+        "train-poremodel-from-basecalls": {
+            name: {"launches": tp_launches[name], "path_ms": tp_ms[name]}
+            for name in ("banded_fill", "banded_backtrack")}},
+        "seconds": round(time.perf_counter() - t0, 1)}))
     for name, (path_launches, path_times) in own.items():
         launches[name] = path_launches[name]
         path_ms[name] = path_times[name]

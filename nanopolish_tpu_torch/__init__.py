@@ -9,7 +9,7 @@ Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``, CLI ``--device cpu``), where every kernel is replaced
 by its plain PyTorch version.
 
-Subcommands ported so far: index, eventalign.
+Every subcommand of the JAX package runs here, training included.
 """
 
 __version__ = "0.1.0"

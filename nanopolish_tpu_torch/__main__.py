@@ -31,10 +31,9 @@ SUBCOMMANDS = {
     "polya": _lazy("polya"),
     "detect-polyi": _lazy("detect_polyi"),
     "fast5-check": _lazy("fast5_check"),
+    "methyltrain": _lazy("methyltrain"),
+    "train-poremodel-from-basecalls": _lazy("train_poremodel_from_basecalls"),
 }
-
-# subcommands of nanopolish_tpu that this package does not run yet
-NOT_PORTED = ("methyltrain", "train-poremodel-from-basecalls")
 
 
 def main(argv=None):
@@ -49,10 +48,6 @@ def main(argv=None):
         from . import __version__
         print(f"nanopolish_tpu_torch {__version__}")
         return 0
-    if argv[0] in NOT_PORTED:
-        print(f"error: {argv[0]} is not yet ported to nanopolish_tpu_torch",
-              file=sys.stderr)
-        return 2
     cmd = SUBCOMMANDS.get(argv[0])
     if cmd is None:
         print(f"error: unrecognized command {argv[0]!r}", file=sys.stderr)

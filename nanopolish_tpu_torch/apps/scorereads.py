@@ -62,6 +62,38 @@ def _segment_tasks(sr, strand_idx, fai, contig, alignment,
     return tasks
 
 
+def read_model_scores(items, alphabet: str = "nucleotide",
+                      device=None) -> List[float]:
+    """``read_model_score`` of each (sr, strand_idx, fai, contig,
+    alignment) item, every 500-event chunk of every item Forward-scored in
+    one batch on ``device``."""
+    device = resolve_device(device)
+    per_item = [_segment_tasks(*it, alphabet=alphabet) for it in items]
+    segments = [t["segment"] for tasks in per_item for t in tasks]
+    scores = forward_segments(segments, device=device) if segments else []
+    out, si = [], 0
+    for tasks in per_item:
+        if not tasks:
+            out.append(float("-inf"))
+            continue
+        mine = scores[si:si + len(tasks)]
+        si += len(tasks)
+        out.append(sum(float(s) for s in mine) /
+                   sum(t["n_events"] for t in tasks))
+    return out
+
+
+def read_model_score(sr, strand_idx, fai, contig, alignment,
+                     alphabet: str = "nucleotide", device=None) -> float:
+    """Average per-event Forward log-likelihood of a read's alignment
+    (model_score, scorereads.cpp:116-203), its 500-event chunks scored on
+    ``device`` (``cuda`` unless ``cpu`` is asked); methyltrain
+    --output-scores (methyltrain.cpp:380-404) scores its reads in batches
+    through ``read_model_scores``."""
+    return read_model_scores([(sr, strand_idx, fai, contig, alignment)],
+                             alphabet=alphabet, device=device)[0]
+
+
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="nanopolish_tpu_torch scorereads",
                                 description="score reads against an alignment")

@@ -75,7 +75,10 @@ def test_eventalign_without_cuda_exits_with_reason():
     ["variants", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa", "-w",
      "tig1:0-100", "--consensus"],
     ["polya", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa"],
-    ["detect-polyi", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa"]])
+    ["detect-polyi", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa"],
+    ["methyltrain", "-r", "x.fastq", "-b", "x.bam", "-g", "x.fa", "-m",
+     "x.fofn"],
+    ["train-poremodel-from-basecalls", "-r", "x.fastq"]])
 def test_forward_subcommands_without_cuda_exit_with_reason(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -86,6 +89,10 @@ def test_forward_subcommands_without_cuda_exit_with_reason(argv):
 
 
 def _library_calls():
+    from nanopolish_tpu_torch.apps import scorereads as sc
+    from nanopolish_tpu_torch.apps import train_poremodel_from_basecalls as tp
+    from nanopolish_tpu_torch.models.pore_model import PoreModelSet
+    from nanopolish_tpu_torch.ops import mixture_em as em
     from nanopolish_tpu_torch.alignment.segments import (ScoreBatcher,
                                                          forward_arrays,
                                                          forward_segments,
@@ -139,7 +146,30 @@ def _library_calls():
             torch.zeros((8, 1), dtype=torch.uint8,
                         device=resolve_device(kw.get("device"))),
             _seg_tensors(**kw)[1]),
+        "read_model_score": lambda **kw: sc.read_model_scores([], **kw),
+        "train_gaussian_mixture_batched":
+            lambda **kw: em.train_gaussian_mixture_batched(
+                ev, ev, ev > 0, np.zeros((1, 2), np.float32),
+                np.ones((1, 2), np.float32), np.ones((1, 2), np.float32),
+                **kw),
+        "train_invgaussian_mixture_batched":
+            lambda **kw: em.train_invgaussian_mixture_batched(
+                ev, ev, ev, ev, ev > 0, *([np.ones((1, 2), np.float32)] * 5),
+                **kw),
+        "train_poremodel_banded_align_exact":
+            lambda **kw: tp._align_and_collect(
+                [("q", "ACGTACGTAGGT", _Events(np.full(12, 90.0)))],
+                PoreModelSet.instance().get_model(
+                    "r9.4_450bps", "nucleotide", "template", 6), 6, **kw),
     }
+
+
+class _Events:
+    def __init__(self, mean):
+        self.mean = mean
+
+    def __len__(self):
+        return len(self.mean)
 
 
 def _seg_tensors(device=None, ev=np.full((8, 1), 90.0, np.float32)):
@@ -166,12 +196,61 @@ def test_library_entry_points_default_to_cuda(name):
     call(device="cpu")
 
 
-def test_unported_subcommands_exit_2():
-    r = subprocess.run([sys.executable, "-m", "nanopolish_tpu_torch",
-                        "methyltrain"], cwd=ROOT, capture_output=True,
-                       text=True, timeout=300)
-    assert r.returncode == 2
-    assert "not yet ported to nanopolish_tpu_torch" in r.stderr
+def test_every_subcommand_of_the_jax_package_dispatches():
+    """Every subcommand of nanopolish_tpu.__main__ has its own module in
+    the port, with a main; nothing answers "not yet ported"."""
+    import importlib
+
+    from nanopolish_tpu import __main__ as jax_main
+    from nanopolish_tpu_torch import __main__ as port_main
+    assert set(jax_main.SUBCOMMANDS) <= set(port_main.SUBCOMMANDS)
+    assert not hasattr(port_main, "NOT_PORTED")
+    for name in jax_main.SUBCOMMANDS:
+        mod = importlib.import_module(
+            f"nanopolish_tpu_torch.apps.{name.replace('-', '_')}")
+        assert callable(mod.main), name
+    r = subprocess.run([sys.executable, "-m", "nanopolish_tpu_torch"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    listed = {ln.strip() for ln in r.stderr.splitlines()}
+    assert set(jax_main.SUBCOMMANDS) <= listed
+
+
+@pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])
+def test_trained_model_files_carry_across(tmp_path, direction):
+    """A model file written as the port's methyltrain writes its rounds
+    (PoreModel.with_states(...).write) loads into the JAX PoreModelSet
+    through a fofn with arrays equal to the port's own load of it, and
+    the other way round."""
+    from nanopolish_tpu_torch.models.pore_model import PoreModel, PoreModelSet
+    from nanopolish_tpu.models.pore_model import PoreModel as JaxModel
+    key = ("r9.4_450bps", "cpg", "template", 6)
+    rng = np.random.default_rng(5)
+    src_set, dst_set = (PoreModelSet, JaxModels) \
+        if direction == "port_to_jax" else (JaxModels, PoreModelSet)
+    src = src_set.instance().get_model(*key)
+    trained = src.with_states(
+        src.level_mean + rng.normal(0, 1, src.num_states).astype(np.float32),
+        src.level_stdv * rng.uniform(0.8, 1.2, src.num_states))
+    name = "r9.4_450bps.cpg.6mer.template.round0.model"
+    path = str(tmp_path / name)
+    trained.write(path, name)
+    fofn = tmp_path / "models.fofn"
+    fofn.write_text(path + "\n")
+    dst_set.reset()
+    try:
+        loaded = dst_set.instance().initialize(str(fofn))[0]
+        assert dst_set.instance().get_model(*key) is loaded
+        assert loaded.key() == key and loaded.name == name
+    finally:
+        dst_set.reset()
+    own = (PoreModel if direction == "jax_to_port" else JaxModel
+           ).from_file(path)
+    for f in ("level_mean", "level_stdv", "sd_mean", "sd_stdv",
+              "level_log_stdv", "sd_lambda", "sd_log_lambda"):
+        np.testing.assert_array_equal(getattr(loaded, f), getattr(own, f),
+                                      err_msg=f)
+    np.testing.assert_allclose(loaded.level_mean, trained.level_mean,
+                               atol=5e-7)
 
 
 @pytest.mark.parametrize("kernel", ["seg_viterbi_fill", "seg_backtrack"])
