@@ -91,6 +91,19 @@ Phases (any failure exits non-zero; nothing is caught):
      8 of the short reads on the card and on the cpu (byte-identical
      models); one JSON line of the training paths' launches and device ms
      per kernel;
+  6b. several processes on the one card (the usable cores printed):
+     `parallel.launch` of call-methylation over 1, 2 and 4 processes and
+     of `eventalign --summary` over 2, each child on its own `--shard
+     i/n` and on the card, the shards' rows held to phase 6's
+     single-process outputs (their union equal, no row in two shards),
+     sites/s and rows/s by process count; then the sharded methyltrain
+     round (`parallel.make_train_step`) at full table width (the
+     r9.4_450bps nucleotide 6-mers, on the eventalign corpus's events and
+     basecall kmers) on a 1 x 1 mesh (one process, a one-rank NCCL group)
+     and a 2 x 2 mesh (four processes over gloo on the one card): n_scored
+     equal, trained values within the EM tolerance, losses within 2e-3
+     nats or 1e-5 relative, the banded and Forward kernels launched in
+     every rank; one `parallel_paths` JSON line;
   7. one JSON line describing each kernel (with `path_ms`, its summed
      device time in one run of its own main path), then the result line.
 
@@ -167,6 +180,22 @@ TP_ROUNDS, TP_SHORT_LEN, TP_SHORT_MIN_UPDATED = 3, 400, 100
 TP_LEVEL_MAX = 13.1
 # the EM alone at full shape: every cpg 6-mer, MAX_EVENTS events
 EM_R, EM_N = 15_625, 1000
+# the multi-process phase: parallel.launch of call-methylation over each
+# of PAR_CM_PROCS processes and of eventalign over PAR_EA_PROCS, on one
+# card; the train step (r9.4_450bps nucleotide 6-mers, the eventalign
+# corpus) on meshes of (data, model) processes: one process over a
+# one-rank NCCL group, four over gloo; its kernels, launched in every
+# rank; the loss tolerance (tests/test_torch_parallel.py); the 1 x 1
+# step's Forward inputs (the wide row at its kmer width) of its
+# PAR_FWD_READS longest reads, held to the plain version
+PAR_CM_PROCS, PAR_EA_PROCS = (1, 2, 4), 2
+PAR_MESHES = ((1, 1), (2, 2))
+PAR_KERNELS = ("banded_fill", "banded_backtrack", "forward_fill")
+PAR_LOSS_ATOL, PAR_LOSS_RTOL = 2e-3, 1e-5
+PAR_CHILD_TIMEOUT = 300
+PAR_FWD_READS = 4
+FWD_ARGS = ("levels", "n_events", "mu", "sigma", "c", "n_kmers", "trans",
+            "clips")
 
 # published peaks of one H100 SXM (dense, no sparsity)
 PEAK_F32_FLOPS = 67e12
@@ -1595,7 +1624,7 @@ def phase_call_methylation(dev):
         f"{busy_s:.4f} s (idle share {1 - busy_s / wall:.4f}), by kernel "
         f"{json.dumps(top)}; launches {json.dumps(launches)}; path ms "
         f"{json.dumps(path_ms)}")
-    return launches, path_ms
+    return launches, path_ms, (ref_fa, fastq, bam)
 
 
 def build_phased(d):
@@ -2322,9 +2351,340 @@ def phase_em(dev):
 
 # ------------------------------------------------------------------- main --
 
+# ------------------------------------------------------- multi-process --
+
+def table_rows(text: str) -> list:
+    return [ln for ln in text.splitlines()[1:] if ln]
+
+
+def shard_union(texts, want: set, what: str) -> None:
+    """Fail unless the shards' rows are the single-process run's rows
+    (``want``), with no row in two shards
+    (tests/test_distributed.py:102-112's rule)."""
+    union = set()
+    for t in texts:
+        rows = table_rows(t)
+        r = set(rows)
+        if len(r) != len(rows) or union & r:
+            fail(f"{what}: a row repeats within or across shards")
+        union |= r
+    if union != want:
+        fail(f"{what}: the shards hold {len(union)} rows, the "
+             f"single-process run {len(want)}; {len(union ^ want)} differ")
+
+
+def launch_shards(argv, n, d, name):
+    """``parallel.launch -n n`` of a subcommand, every child on its own
+    ``--shard {i}/{n}`` and stdout file; (wall of launch.main, stdout
+    texts)."""
+    from nanopolish_tpu_torch.parallel import launch
+    pattern = os.path.join(d, f"{name}.{n}.{{i}}.out")
+    t0 = time.perf_counter()
+    rc = launch.main(["-n", str(n), "--stdout", pattern, "--", *argv,
+                      "--shard", "{i}/{n}"], timeout=PAR_CHILD_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"parallel.launch -n {n} {name}: a child exited with {rc}")
+    return wall, [open(pattern.replace("{i}", str(i))).read()
+                  for i in range(n)]
+
+
+def phase_parallel_serving(dev, meth_corpus, ea_corpus):
+    """Sharded call-methylation (N = PAR_CM_PROCS) and eventalign
+    --summary (N = PAR_EA_PROCS) through parallel.launch, each child on
+    ``dev``, held to phase 6's single-process outputs."""
+    ref_fa, fastq, bam = meth_corpus
+    d = os.path.join(WORK, "parallel")
+    os.makedirs(d, exist_ok=True)
+    single = set(table_rows(open(os.path.join(
+        WORK, "main_meth", "methylation.tsv")).read()))
+    out = {"call-methylation": {}, "eventalign": {}}
+    for n in PAR_CM_PROCS:
+        wall, texts = launch_shards(
+            ["call-methylation", "-r", fastq, "-b", bam, "-g", ref_fa,
+             "--device", dev.type], n, d, "call-methylation")
+        shard_union(texts, single, f"call-methylation over {n} processes")
+        out["call-methylation"][n] = {
+            "wall_s": wall, "sites": len(single),
+            "sites_per_s": len(single) / wall}
+        log(f"parallel call-methylation, {n} process(es) on one card: "
+            f"{len(single)} sites in {wall:.2f} s "
+            f"({len(single) / wall:.1f} sites/s; the wall of launch.main)")
+    ref_fa, fastq, bam = ea_corpus
+    single = set(table_rows(open(os.path.join(
+        WORK, "main", "eventalign.tsv")).read()))
+    single_sum = set(table_rows(open(os.path.join(
+        WORK, "main", "summary.tsv")).read()))
+    n = PAR_EA_PROCS
+    summary = os.path.join(d, f"summary.{n}.{{i}}.tsv")
+    wall, texts = launch_shards(
+        ["eventalign", "-r", fastq, "-b", bam, "-g", ref_fa, "--device",
+         dev.type, "--summary", summary], n, d, "eventalign")
+    shard_union(texts, single, f"eventalign over {n} processes")
+    shard_union([open(summary.replace("{i}", str(i))).read()
+                 for i in range(n)], single_sum,
+                f"eventalign --summary over {n} processes")
+    out["eventalign"][n] = {"wall_s": wall, "rows": len(single),
+                            "rows_per_s": len(single) / wall}
+    log(f"parallel eventalign --summary, {n} processes on one card: "
+        f"{len(single)} rows in {wall:.2f} s ({len(single) / wall:.0f} "
+        f"rows/s; the wall of launch.main)")
+    return out
+
+
+def train_step_batch(ea_corpus, dev, d) -> str:
+    """The train step's inputs: the eventalign corpus's reads as ingest
+    detects their events, each against its basecall's kmer ranks, and the
+    r9.4_450bps nucleotide 6-mer table; saved as d/batch.npz."""
+    from nanopolish_tpu_torch.io.readdb import ReadDB
+    from nanopolish_tpu_torch.models.pore_model import PoreModelSet
+    from nanopolish_tpu_torch.models.read_loader import load_squiggle_reads
+    from nanopolish_tpu_torch.parallel import TrainBatch, pad_batch_to_multiple
+    _, fastq, _ = ea_corpus
+    db = ReadDB()
+    db.load(fastq)
+    names = [name for name, _, _ in main_plan()]
+    reads = load_squiggle_reads(names, db, device=dev)
+    model = PoreModelSet.instance().get_model(*NUC_KEY)
+    events = [reads[n].events[0] if n in reads and reads[n].has_events_for_strand(0)
+              else None for n in names]
+    ranks = [model.alphabet.seq_to_kmer_ranks(reads[n].read_sequence, model.k)
+             if n in reads else np.zeros(0, np.int64) for n in names]
+    B = len(names)
+    T = max(len(e) for e in events if e is not None)
+    K = max(len(r) for r in ranks)
+    ev_mean = np.zeros((B, T), np.float32)
+    ev_time = np.zeros((B, T), np.float32)
+    n_events = np.zeros(B, np.int32)
+    rank_mat = np.zeros((B, K), np.int32)
+    n_kmers = np.zeros(B, np.int32)
+    for b, (e, r) in enumerate(zip(events, ranks)):
+        if e is not None:
+            n_events[b] = len(e)
+            ev_mean[b, :len(e)] = e.mean
+            ev_time[b, :len(e)] = e.start_time
+        rank_mat[b, :len(r)] = r
+        n_kmers[b] = len(r)
+    arrays, _ = pad_batch_to_multiple(
+        [ev_mean, ev_time, n_events, rank_mat, n_kmers],
+        max(dp for dp, _ in PAR_MESHES))
+    path = os.path.join(d, "batch.npz")
+    np.savez(path, level_mean=model.level_mean.astype(np.float32),
+             level_stdv=model.level_stdv.astype(np.float32),
+             n_ranks=model.num_states,
+             **dict(zip(TrainBatch._fields, arrays)))
+    log(f"train step batch: {B} reads, {int(n_events.sum())} events "
+        f"(T {T}), {int(n_kmers.sum())} kmers (K {K}), {model.num_states} "
+        f"kmer states; {int(np.sum(n_events == 0))} reads without events")
+    return path
+
+
+def train_step_rank(d: str, mp: int, device: str) -> int:
+    """--train-step-rank DIR MP DEVICE: one rank of the train step on a
+    (n / MP, MP) mesh, n and the rank from the launcher's NPT_* env; one
+    process joins a one-rank group itself.  Two steps (the second timed
+    with the launch counts set to 0 before it); results under DIR, and
+    the one process's Forward inputs and scores of its PAR_FWD_READS
+    longest reads (DIR/forward_inputs.npz)."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from nanopolish_tpu_torch.parallel import (TrainBatch, make_mesh,
+                                               make_train_step, shard_model,
+                                               shard_reads)
+    from nanopolish_tpu_torch.parallel import train_step as ts
+    from nanopolish_tpu_torch.parallel.distributed import (auto_init, join,
+                                                           process_env)
+    from nanopolish_tpu_torch.utils import cuda_build
+    pid, n = process_env()
+    if n == 1:
+        join(os.environ["NPT_COORDINATOR"], 1, 0, device)
+    else:
+        auto_init(device=device)
+    a = np.load(os.path.join(d, "batch.npz"))
+    mesh = make_mesh(mp)
+    step = make_train_step(mesh, int(a["n_ranks"]), device=device)
+    level_mean, level_stdv = shard_model(mesh, a["level_mean"],
+                                         a["level_stdv"])
+    batch = TrainBatch(*shard_reads(mesh, *(a[f] for f in
+                                            TrainBatch._fields)))
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    forward, seen = ts.forward_scores, {}
+
+    def recorded(x):
+        seen.update(x, lp=forward(x))
+        return seen["lp"]
+
+    ts.forward_scores = recorded
+    walls = []
+    for _ in range(2):
+        dist.barrier()
+        sync()
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = step(level_mean, level_stdv, batch)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    np.savez(os.path.join(d, f"{n // mp}x{mp}.rank{pid}.npz"),
+             level_mean=res.level_mean.cpu().numpy(),
+             level_stdv=res.level_stdv.cpu().numpy(),
+             loss=res.loss.cpu().numpy(), n_scored=res.n_scored.cpu().numpy(),
+             model_index=mesh.model_index, walls=np.array(walls),
+             backend=dist.get_backend(),
+             launches=json.dumps(dict(cuda_build.LAUNCHES)))
+    if n == 1:
+        idx = torch.argsort(seen["n_events"], descending=True)[:PAR_FWD_READS]
+        np.savez(os.path.join(d, "forward_inputs.npz"),
+                 **{k: seen[k][idx].cpu().numpy() for k in FWD_ARGS + ("lp",)})
+    return 0
+
+
+def run_train_mesh(d, dp, mp, dev):
+    """The train step on a dp x mp mesh of processes (this script with
+    --train-step-rank); the ranks' results, each kernel of the step
+    launched in every rank."""
+    from nanopolish_tpu_torch.parallel.launch import free_port
+    n = dp * mp
+    coord = f"127.0.0.1:{free_port()}"
+    procs = []
+    for i in range(n):
+        env = dict(os.environ, NPT_COORDINATOR=coord, NPT_NUM_PROCS=str(n),
+                   NPT_PROC_ID=str(i))
+        with open(os.path.join(d, f"{dp}x{mp}.rank{i}.log"), "w") as logf:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--train-step-rank", d, str(mp), dev.type], env=env,
+                stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT))
+    deadline = time.perf_counter() + PAR_CHILD_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(d, f"{dp}x{mp}.rank{i}.log")) as fh:
+                tail = fh.read()[-3000:]
+            fail(f"train step {dp}x{mp}: rank {i} exited with "
+                 f"{p.returncode}:\n{tail}")
+    ranks = [dict(np.load(os.path.join(d, f"{dp}x{mp}.rank{i}.npz")))
+             for i in range(n)]
+    for i, r in enumerate(ranks):
+        launches = json.loads(str(r["launches"]))
+        for name in PAR_KERNELS:
+            if launches[name] <= 0:
+                fail(f"train step {dp}x{mp}: rank {i} launched no {name}")
+    return ranks
+
+
+def mesh_model(ranks, mp):
+    """The full table of a mesh's result (data row 0's model shards);
+    fail unless every rank of a model column holds the same shard and
+    every rank the same loss and n_scored."""
+    by_m = {}
+    for r in ranks:
+        by_m.setdefault(int(r["model_index"]), []).append(r)
+    for rows in by_m.values():
+        for r in rows[1:]:
+            if not (np.array_equal(r["level_mean"], rows[0]["level_mean"])
+                    and np.array_equal(r["level_stdv"],
+                                       rows[0]["level_stdv"])):
+                fail("train step: two data ranks disagree on a model shard")
+    for r in ranks:
+        if int(r["n_scored"]) != int(ranks[0]["n_scored"]) or \
+                float(r["loss"]) != float(ranks[0]["loss"]):
+            fail("train step: the ranks disagree on the loss or n_scored")
+    return (np.concatenate([by_m[m][0]["level_mean"] for m in range(mp)]),
+            np.concatenate([by_m[m][0]["level_stdv"] for m in range(mp)]))
+
+
+def step_forward_check(d, dev):
+    """forward_fill on the 1 x 1 step's own Forward inputs of its
+    PAR_FWD_READS longest reads (whole reads, the step's kmer width),
+    bit for bit against forward_fill_plain on the same card tensors and
+    against the step's scores."""
+    import torch
+    from nanopolish_tpu_torch.ops import profile_hmm as ph
+    from nanopolish_tpu_torch.ops import profile_hmm_forward as pf
+    a = np.load(os.path.join(d, "forward_inputs.npz"))
+    args = [torch.as_tensor(a[k], device=dev) for k in FWD_ARGS]
+    got = pf.forward_fill(*args)
+    plain_ms, ref = once_ms(lambda: ph.forward_fill_plain(*args))
+    kp = args[2].shape[1]
+    what = (f"the train step's Forward ({len(got)} whole reads of up to "
+            f"{int(a['n_events'].max())} events and {int(a['n_kmers'].max())}"
+            f" kmers, kmer width {kp}, {layout_name(kp)})")
+    if not bits_equal(got, ref):
+        fail(f"forward_fill differs from the plain version on {what}: max "
+             f"abs err {max_abs_err(got, ref)} nats")
+    if not bits_equal(got.cpu(), torch.as_tensor(a["lp"])):
+        fail(f"forward_fill on {what} differs from the step's own scores")
+    ms = cuda_ms(lambda: pf.forward_fill(*args))
+    log(f"forward on {what}: bit-identical to plain and to the step; kernel "
+        f"{ms:.4f} ms (plain {plain_ms:.1f} ms)")
+    return {"reads": len(got), "events": int(a["n_events"].max()),
+            "kmer_width": kp, "layout": layout_name(kp), "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def phase_parallel_train(dev, ea_corpus):
+    """The train step at full table width on each mesh of PAR_MESHES,
+    the meshes held to each other."""
+    d = os.path.join(WORK, "train_step")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    a = np.load(train_step_batch(ea_corpus, dev, d))
+    setup_s = time.perf_counter() - t0
+    results = {}
+    for dp, mp in PAR_MESHES:
+        t0 = time.perf_counter()
+        ranks = run_train_mesh(d, dp, mp, dev)
+        mean, stdv = mesh_model(ranks, mp)
+        results[(dp, mp)] = (ranks, mean, stdv, time.perf_counter() - t0)
+    (r1, m1, s1, _), (r2, m2, s2, _) = (results[k] for k in PAR_MESHES)
+    trained = np.nonzero(m1 != a["level_mean"])[0]
+    rows = len(m1) // max(mp for _, mp in PAR_MESHES)
+    if set(trained // rows) != set(range(len(m1) // rows)):
+        fail(f"train step: {len(trained)} kmers trained, not in every "
+             f"model shard")
+    n1, n2 = int(r1[0]["n_scored"]), int(r2[0]["n_scored"])
+    d_mean, d_stdv, n_diff = model_diff(m1, s1, m2, s2)
+    loss1, loss2 = float(r1[0]["loss"]), float(r2[0]["loss"])
+    if n1 != n2 or n1 == 0:
+        fail(f"train step: n_scored {n1} on 1x1, {n2} on 2x2")
+    if d_mean > EM_MEAN_ATOL or d_stdv > EM_STDV_RTOL:
+        fail(f"train step: meshes differ by {d_mean} pA (mean), {d_stdv} "
+             f"relative (stdv)")
+    if not (math.isfinite(loss1) and abs(loss1 - loss2) <= max(
+            PAR_LOSS_ATOL, PAR_LOSS_RTOL * abs(loss1))):
+        fail(f"train step: loss {loss1} on 1x1, {loss2} on 2x2")
+    out = {"forward_check": step_forward_check(d, dev)}
+    for (dp, mp), (ranks, _, _, wall) in results.items():
+        out[f"{dp}x{mp}"] = {
+            "processes": dp * mp, "backend": str(ranks[0]["backend"]),
+            "step_s": [float(max(r["walls"][k] for r in ranks))
+                       for k in range(2)],
+            "run_s": wall, "n_scored": int(ranks[0]["n_scored"]),
+            "loss": float(ranks[0]["loss"]),
+            "launches": [{k: v for k, v in json.loads(str(r["launches"]))
+                          .items() if k in PAR_KERNELS} for r in ranks]}
+    log(f"train step at full width ({len(m1)} kmers, {len(a['n_events'])} "
+        f"reads; batch set-up {setup_s:.1f} s): {len(trained)} kmers "
+        f"trained, n_scored {n1}, loss {loss1} (1x1) {loss2} (2x2); "
+        f"meshes differ by {d_mean} pA, {d_stdv} relative, {n_diff} means")
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cpu-subset"]:
         return cpu_subset_run(sys.argv[2])
+    if sys.argv[1:2] == ["--train-step-rank"]:
+        return train_step_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4])
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -2365,7 +2725,8 @@ def main() -> int:
     train_setup_s = time.perf_counter() - t0
     cpu_proc = start_cpu_subset(inputs)
     launches, path_ms, ea_corpus = phase_eventalign(dev)
-    own = {"forward_fill": phase_call_methylation(dev)}
+    *cm_path, meth_corpus = phase_call_methylation(dev)
+    own = {"forward_fill": cm_path}
     phase_scorereads_phase(dev, ea_corpus)
     own["forward_indexed"] = phase_variants(dev)
     own["seg_viterbi_fill"] = own["seg_backtrack"] = phase_polya(dev)
@@ -2385,6 +2746,17 @@ def main() -> int:
             name: {"launches": tp_launches[name], "path_ms": tp_ms[name]}
             for name in ("banded_fill", "banded_backtrack")}},
         "seconds": round(time.perf_counter() - t0, 1)}))
+    # several processes on the one card: sharded serving, then the
+    # sharded train step (its kernels in every rank)
+    t0 = time.perf_counter()
+    log(f"multi-process phase: {len(os.sched_getaffinity(0))} usable "
+        f"cores; {card()}")
+    serving = phase_parallel_serving(dev, meth_corpus, ea_corpus)
+    train = phase_parallel_train(dev, ea_corpus)
+    log(json.dumps({"parallel_paths": {
+        "card": card(), "cores": len(os.sched_getaffinity(0)),
+        "serving": serving, "train_step": train,
+        "seconds": round(time.perf_counter() - t0, 1)}}))
     for name, (path_launches, path_times) in own.items():
         launches[name] = path_launches[name]
         path_ms[name] = path_times[name]

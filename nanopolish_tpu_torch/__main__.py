@@ -5,35 +5,18 @@ Usage: python -m nanopolish_tpu_torch <subcommand> [args]
 
 from __future__ import annotations
 
+import importlib
 import sys
 
 from .models.read_builder import GLOBAL_READ_STATS
+from .parallel.distributed import auto_init
 from .utils.device import DeviceUnavailable
 
-
-def _lazy(name):
-    def run(argv):
-        import importlib
-        mod = importlib.import_module(f".apps.{name}",
-                                      package="nanopolish_tpu_torch")
-        return mod.main(argv)
-    return run
-
-
-SUBCOMMANDS = {
-    "index": _lazy("index"),
-    "eventalign": _lazy("eventalign"),
-    "call-methylation": _lazy("call_methylation"),
-    "scorereads": _lazy("scorereads"),
-    "phase-reads": _lazy("phase_reads"),
-    "variants": _lazy("variants"),
-    "vcf2fasta": _lazy("vcf2fasta"),
-    "polya": _lazy("polya"),
-    "detect-polyi": _lazy("detect_polyi"),
-    "fast5-check": _lazy("fast5_check"),
-    "methyltrain": _lazy("methyltrain"),
-    "train-poremodel-from-basecalls": _lazy("train_poremodel_from_basecalls"),
-}
+# each runs apps/<name with "-" as "_">.py's main
+SUBCOMMANDS = ("index", "eventalign", "call-methylation", "scorereads",
+               "phase-reads", "variants", "vcf2fasta", "polya",
+               "detect-polyi", "fast5-check", "methyltrain",
+               "train-poremodel-from-basecalls")
 
 
 def main(argv=None):
@@ -48,12 +31,18 @@ def main(argv=None):
         from . import __version__
         print(f"nanopolish_tpu_torch {__version__}")
         return 0
-    cmd = SUBCOMMANDS.get(argv[0])
-    if cmd is None:
+    if argv[0] not in SUBCOMMANDS:
         print(f"error: unrecognized command {argv[0]!r}", file=sys.stderr)
         return 1
+    app = importlib.import_module(f".apps.{argv[0].replace('-', '_')}",
+                                  package="nanopolish_tpu_torch")
     try:
-        ret = cmd(argv[1:])
+        # a launcher child joins its process group before any work, on
+        # the device its app's own parser gives (host-only apps have no
+        # --device and run on the cpu)
+        opt, _ = app.make_parser().parse_known_args(argv[1:])
+        auto_init(device=getattr(opt, "device", "cpu"))
+        ret = app.main(argv[1:])
     except DeviceUnavailable as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

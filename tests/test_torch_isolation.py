@@ -42,6 +42,36 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert leaked == ""
 
 
+@pytest.mark.parametrize("name", [
+    "nanopolish_tpu_torch.parallel", "nanopolish_tpu_torch.parallel.mesh",
+    "nanopolish_tpu_torch.parallel.distributed",
+    "nanopolish_tpu_torch.parallel.launch",
+    "nanopolish_tpu_torch.parallel.train_step",
+    "nanopolish_tpu_torch.ops.training"])
+def test_parallel_modules_are_in_the_no_jax_import_check(name):
+    """The multi-process modules are among those the jax-blocked probe
+    above imports."""
+    import pkgutil
+    pkg = nanopolish_tpu_torch
+    walked = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                    pkg.__name__ + ".")}
+    assert name in walked
+
+
+def test_launch_spawns_the_port(tmp_path):
+    """parallel.launch runs ``python -m nanopolish_tpu_torch``, not the
+    JAX package, in every child."""
+    from nanopolish_tpu_torch.parallel import launch
+    assert launch.child_argv(["eventalign"])[1:] == [
+        "-m", "nanopolish_tpu_torch", "eventalign"]
+    pattern = str(tmp_path / "v.{i}.txt")
+    assert launch.main(["-n", "2", "--stdout", pattern, "--",
+                        "--version"]) == 0
+    for i in range(2):
+        text = open(pattern.replace("{i}", str(i))).read()
+        assert text.startswith("nanopolish_tpu_torch "), text
+
+
 def test_sources_name_no_jax_package():
     pkg_dir = os.path.dirname(nanopolish_tpu_torch.__file__)
     for dirpath, _, files in os.walk(pkg_dir):
@@ -105,6 +135,7 @@ def _library_calls():
     from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
     from nanopolish_tpu_torch.ops import segmentation_hmm as sh
     from nanopolish_tpu_torch.ops import segmentation_viterbi as sv
+    from nanopolish_tpu_torch.parallel import Mesh, make_train_step
     ev = np.full((1, 8), 90.0, np.float32)
     mu = np.full((1, 4), 90.0, np.float32)
     sd = np.ones((1, 4), np.float32)
@@ -138,6 +169,8 @@ def _library_calls():
             np.zeros((1, 8), np.float32), np.zeros((1, 4), np.int32), 3,
             **kw),
         "ScoreBatcher": lambda **kw: ScoreBatcher(**kw),
+        "make_train_step": lambda **kw: make_train_step(Mesh(1, 1, 0), 4096,
+                                                        **kw),
         "segment_reads": lambda **kw: sh.segment_reads(
             [ev[0]], [(1.0, 0.0, 1.0)], **kw),
         "seg_viterbi_fill": lambda **kw: sv.seg_viterbi_fill(
