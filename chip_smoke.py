@@ -18,8 +18,9 @@ Phases (any failure exits non-zero; nothing is caught):
      flag combinations (identical traces and tracebacks), and on one
      batch at each row layout of the fill (kmer width 32, 64, 128, 256:
      the warp kernel at 1, 2, 4, 8 kmers per lane; 512: the block
-     kernel; 2,048 and 32,768: the wide row, its rows in shared memory
-     and in global scratch), each with n_kmers short of the width, all
+     kernel; 2,048, 32,768 and 131,072: the wide row, its rows in shared
+     memory and in global scratch, the last a 100 kb read's whole width),
+     each with n_kmers short of the width, all
      four clip flags and a one-event segment; the backtrack also at
      1,024 kmers (the block row) and in a one-segment and a 32-segment
      launch; then timing, the backtrack beside an estimate of its
@@ -104,8 +105,31 @@ Phases (any failure exits non-zero; nothing is caught):
      equal, trained values within the EM tolerance, losses within 2e-3
      nats or 1e-5 relative, the banded and Forward kernels launched in
      every rank; one `parallel_paths` JSON line;
+  6c. long reads and scale: the long-read corpus of
+     tests/test_longread_hardening.py (seed 41; reads of 100 kb and 4 x
+     30 kb, 9 samples a base) through ingest, `eventalign` and
+     `call-methylation -q cpg`, and the scale corpus of
+     tests/test_scale_hardening.py (500 reads x 1.2 kb over 50 kb) through
+     `eventalign --summary`, `call-methylation -q cpg` and `variants
+     --consensus -w tig1:20000-22000 -d 10`, on the card (built with
+     utils/synthetic.build_longread_corpus and build_scale_corpus), each
+     held to its JAX test's bars and to its ceilings (SCALE_CEILINGS: wall,
+     peak host RSS, peak device memory); then a subset of each (one 30 kb
+     read, 26 of the scale reads) on the card against a second process's
+     --device cpu runs (started with phase 6, at nice 10): eventalign
+     identical, call-methylation and variants under the printed-output
+     rule; one `scale_paths` JSON line (per run: wall, rate, Viterbi
+     rounds, peak RSS, peak device memory, and per kernel the launches
+     made and recorded and path ms);
   7. one JSON line describing each kernel (with `path_ms`, its summed
-     device time in one run of its own main path), then the result line.
+     device time in one run of its own main path, beside the launches
+     made and those torch.profiler recorded), then the result line.
+
+Every path ms comes from torch.profiler (profiled_run): where it
+recorded some but not all of a kernel's launches, the time is the mean of
+the recorded ones times the launches made; where it recorded none of a
+launched kernel's, the run is profiled again, and a second such profile
+fails.
 
 Everything it writes goes under build/chip_smoke/ in the checkout.
 """
@@ -133,9 +157,11 @@ MAIN_READS, MAIN_READ_LEN, MAIN_GENOME_LEN = 64, 8000, 100_000
 FWD_SEGMENTS, FWD_LONG = 2048, 64
 # one batch at each row layout of the profile-HMM fills (row_layout);
 # the wide row at 2,048 kmers (a scorereads chunk across deletions: 500
-# events) and at 32,768 (its rows in global scratch: 40 events)
+# events), at 32,768 (its rows in global scratch: 40 events) and at
+# 131,072 (a 100 kb read's whole width, in global scratch)
 HMM_WIDTHS, WIDTH_SEGMENTS = (32, 64, 128, 256, 512), 64
-WIDE_WIDTHS = {2048: (8, 400, 500), 32768: (4, 30, 40)}
+WIDE_WIDTHS = {2048: (8, 400, 500), 32768: (4, 30, 40),
+               131072: (2, 30, 40)}
 # f32 operations of the scan's Forward per (event, kmer) cell, with an
 # expf/log1pf pair counted as two and an fma as two: the emission (5),
 # the five M-term adds, nine logaddexps of six operations each (five for
@@ -196,6 +222,28 @@ PAR_CHILD_TIMEOUT = 300
 PAR_FWD_READS = 4
 FWD_ARGS = ("levels", "n_events", "mu", "sigma", "c", "n_kmers", "trans",
             "clips")
+# the long-read and scale phase: the cpu runs of a subset of each corpus
+# (one 30 kb read, its eventalign over a 4 kb window; 26 reads of the
+# scale corpus, its variants over a 700-base window) in a second process
+# of CPU_SCALE_THREADS torch threads at nice 10; the scale variants
+# window; the ceilings of each run (wall s, growth of the host's
+# resident set over the run's start in MiB, peak device MiB): about twice
+# what one run measured on an H100 (walls 1.343, 3.872, 0.557, 8.258,
+# 5.084, 2.136 s; RSS growth 671, 505, 158, 35, 62, 24 MiB, at least 512
+# MiB, as a sampled resident set moves by tens of MiB; device 67.7,
+# 67.7, 67.7, 42.6, 32.3, 10.0 MiB)
+LR_SUBSET, LR_SUBSET_WINDOW = ("lr1",), "tig1:10000-14000"
+SC_SUBSET = tuple(f"s{i:04d}" for i in range(190, 216))
+SC_SUBSET_WINDOW, SC_VAR_WINDOW = "tig1:20000-20700", "tig1:20000-22000"
+CPU_SCALE_THREADS = 2
+SCALE_CEILINGS = {
+    "longread ingest": (3.0, 1400.0, 136.0),
+    "longread eventalign": (8.0, 1024.0, 136.0),
+    "longread call-methylation": (1.2, 512.0, 136.0),
+    "scale eventalign --summary": (17.0, 512.0, 86.0),
+    "scale call-methylation": (10.5, 512.0, 65.0),
+    "scale variants --consensus": (4.5, 512.0, 20.0),
+}
 
 # published peaks of one H100 SXM (dense, no sparsity)
 PEAK_F32_FLOPS = 67e12
@@ -1541,7 +1589,7 @@ def phase_eventalign(dev):
                          dev.type, "--summary",
                          os.path.join(d, "summary.tsv")], stdout=fh)
 
-    wall, launches, busy_s, top, path_ms = profiled_run(
+    wall, launches, busy_s, top, path = profiled_run(
         run, ("banded_fill", "banded_backtrack", "viterbi_fill",
               "viterbi_backtrack"))
     rows = 0
@@ -1569,8 +1617,9 @@ def phase_eventalign(dev):
         f"({rows / wall:.0f} rows/s, {n_reads / wall:.2f} reads/s; set-up "
         f"{setup_s:.1f} s; under torch.profiler); card busy {busy_s:.4f} s "
         f"(idle share {1 - busy_s / wall:.4f}), by kernel {json.dumps(top)}; "
-        f"launches {json.dumps(launches)}; path ms {json.dumps(path_ms)}")
-    return launches, path_ms, (ref_fa, fastq, bam)
+        f"launches {json.dumps(launches)}; path ms (launches made, "
+        f"recorded) {json.dumps(path_summary(path))}")
+    return path, (ref_fa, fastq, bam)
 
 
 def phase_call_methylation(dev):
@@ -1590,7 +1639,7 @@ def phase_call_methylation(dev):
                          "--modbam-output-name", modbam,
                          "--device", dev.type], stdout=fh)
 
-    wall, launches, busy_s, top, path_ms = profiled_run(
+    wall, launches, busy_s, top, path = profiled_run(
         run, ("banded_fill", "banded_backtrack", "forward_fill"))
     llr = {True: [], False: []}
     names = set()
@@ -1623,8 +1672,8 @@ def phase_call_methylation(dev):
         f"{mean_m:.3f} methylated, {mean_u:.3f} unmethylated; card busy "
         f"{busy_s:.4f} s (idle share {1 - busy_s / wall:.4f}), by kernel "
         f"{json.dumps(top)}; launches {json.dumps(launches)}; path ms "
-        f"{json.dumps(path_ms)}")
-    return launches, path_ms, (ref_fa, fastq, bam)
+        f"(launches made, recorded) {json.dumps(path_summary(path))}")
+    return path, (ref_fa, fastq, bam)
 
 
 def build_phased(d):
@@ -1769,12 +1818,13 @@ def phase_variants(dev, window=VAR_WINDOW, n_reads=VAR_READS,
         setattr(o, a, timed(a, fn))
 
     def run():
+        stages.clear()
         va_app.main(["-r", fastq, "-b", bam, "-g", draft_fa, "-w",
                      f"tig1:0-{window - 1}", "--consensus", "-o", vcf, "-d",
                      "10", "--device", dev.type])
 
     try:
-        wall, launches, busy_s, top, path_ms = profiled_run(
+        wall, launches, busy_s, top, path = profiled_run(
             run, ("banded_fill", "banded_backtrack", "forward_indexed"))
     finally:
         for (o, a), fn in zip(patched, saved):
@@ -1801,7 +1851,7 @@ def phase_variants(dev, window=VAR_WINDOW, n_reads=VAR_READS,
         f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}; card "
         f"busy {busy_s:.3f} s (idle share {1 - busy_s / wall:.4f}), by "
         f"kernel {json.dumps(top)}; launches {json.dumps(launches)}; path ms "
-        f"{json.dumps(path_ms)}")
+        f"(launches made, recorded) {json.dumps(path_summary(path))}")
     if recovered < len(subs) - 2 or elsewhere > 6:
         fail(f"variants recovered {recovered} of {len(subs)} planted "
              f"substitutions with {elsewhere} calls elsewhere")
@@ -1809,7 +1859,7 @@ def phase_variants(dev, window=VAR_WINDOW, n_reads=VAR_READS,
             (diff is not None and diff > len(subs) - recovered + elsewhere):
         fail(f"vcf2fasta: {len(polished)} bases for a {len(truth)}-base "
              f"truth, {diff} differing")
-    return launches, path_ms
+    return path
 
 
 def card_busy(averages):
@@ -1852,19 +1902,55 @@ def kernel_device_us(averages):
     return out
 
 
+def path_times(averages, launches):
+    """Each port kernel's device time on a profiled path: {name: {"ms",
+    "made", "recorded"}}, with the launches made (cuda_build.LAUNCHES)
+    and those torch.profiler recorded.  Where it recorded some but not
+    all, the time is the mean of the recorded launches times those made
+    (as kernel_ms takes it); the second value is the kernels it recorded
+    none of, of those launched."""
+    path, empty = {}, []
+    for name, (us, seen) in kernel_device_us(averages).items():
+        made = launches[name]
+        if seen and seen != made:
+            log(f"torch.profiler recorded {seen} of {made} {name} launches; "
+                f"its path ms is their mean times {made}")
+            us = us / seen * made
+        elif made and not seen:
+            empty.append(name)
+        path[name] = {"ms": us / 1e3, "made": made, "recorded": seen}
+    return path, empty
+
+
+def path_summary(path):
+    """{kernel: [path ms, launches made, launches recorded]} of the
+    kernels a profiled path launched, for the logs."""
+    return {name: [round(p["ms"], 4), p["made"], p["recorded"]]
+            for name, p in path.items() if p["made"] or p["recorded"]}
+
+
 def profiled_run(fn, kernels):
     """timed_run under torch.profiler (CUDA activity only).  Returns (wall
-    seconds, launches, card busy seconds, the six largest by name, device
-    ms per port kernel)."""
+    seconds, launches, card busy seconds, the six largest by name, each
+    port kernel's path_times).  A profile that recorded none of a
+    launched kernel's launches is taken again (fn runs a second time);
+    a second such profile fails."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        wall, launches = timed_run(fn, kernels)
-    # key_averages() once: it is slow on a path of many launches
-    averages = prof.key_averages()
-    busy_s, top = card_busy(averages)
-    return wall, launches, busy_s, top, {
-        name: us / 1e3 for name, (us, _) in kernel_device_us(averages).items()}
+    for attempt in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            wall, launches = timed_run(fn, kernels)
+        # key_averages() once: it is slow on a path of many launches
+        averages = prof.key_averages()
+        busy_s, top = card_busy(averages)
+        path, empty = path_times(averages, launches)
+        if not empty:
+            return wall, launches, busy_s, top, path
+        log(f"torch.profiler recorded none of the launches of "
+            f"{', '.join(f'{n} ({launches[n]})' for n in empty)}"
+            + ("; profiling the run again" if attempt == 0 else ""))
+    fail(f"torch.profiler recorded no launch of {', '.join(empty)} in two "
+         f"profiles of one path")
 
 
 def phase_polya(dev):
@@ -1888,11 +1974,16 @@ def phase_polya(dev):
     outs = {}
     with rna_reads():
         for name, app in (("polya", polya_app), ("detect-polyi", dpi_app)):
-            out = io.StringIO()
-            wall, launches, busy_s, top, path_ms = profiled_run(
-                lambda: app.main(argv, stdout=out), kernels)
-            rows = [ln.split("\t") for ln in out.getvalue().splitlines()[1:]]
-            outs[name] = (rows, launches, path_ms)
+            out = [None]
+
+            def run():
+                out[0] = io.StringIO()
+                app.main(argv, stdout=out[0])
+
+            wall, launches, busy_s, top, path = profiled_run(run, kernels)
+            rows = [ln.split("\t")
+                    for ln in out[0].getvalue().splitlines()[1:]]
+            outs[name] = (rows, path)
             passed = [f for f in rows if f[-1] == "PASS"]
             tails = [float(f[8]) for f in passed]
             mean_tail = float(np.mean(tails)) if tails else float("nan")
@@ -1909,7 +2000,7 @@ def phase_polya(dev):
                 f"(planted {POLYA_NT}){extra}; card busy {busy_s:.4f} s "
                 f"(idle share {1 - busy_s / wall:.4f}), by kernel "
                 f"{json.dumps(top)}; launches {json.dumps(launches)}; path ms "
-                f"{json.dumps(path_ms)}")
+                f"(launches made, recorded) {json.dumps(path_summary(path))}")
             if len(rows) != POLYA_READS or any(
                     not all(math.isfinite(float(v)) for v in f[3:9])
                     for f in rows):
@@ -1924,7 +2015,7 @@ def phase_polya(dev):
     if bad:
         fail(f"detect-polyi called {len(bad)} pure poly(A) tails otherwise, "
              f"e.g. {bad[0]}")
-    return outs["polya"][1:]
+    return outs["polya"][1]
 
 
 # ------------------------------------------------------- phase 6: training --
@@ -2041,7 +2132,7 @@ def phase_methyltrain(dev, inputs, true_cpg, is_m, setup_s):
     out, rounds, trained, start, prof = run_methyltrain(
         argv, os.path.join(d, "run"), dev.type,
         lambda run: profiled_run(run, TRAIN_KERNELS))
-    wall, launches, busy_s, top, path_ms = prof
+    wall, launches, busy_s, top, path = prof
     ends = [start] + [r[0] for r in rounds]
     round_s = [round(b - a, 3) for a, b in zip(ends, ends[1:])]
     n_trained = [r[1] for r in rounds]
@@ -2070,7 +2161,8 @@ def phase_methyltrain(dev, inputs, true_cpg, is_m, setup_s):
         f"{int((~np.isfinite(values)).sum())} of them not finite (reads "
         f"whose recalibration diverged); card busy {busy_s:.4f} s (idle share "
         f"{1 - busy_s / wall:.4f}), by kernel {json.dumps(top)}; launches "
-        f"{json.dumps(launches)}; path ms {json.dumps(path_ms)}")
+        f"{json.dumps(launches)}; path ms (launches made, recorded) "
+        f"{json.dumps(path_summary(path))}")
     if len(ranks) < TRAIN_MIN_M_KMERS or \
             not err_after < 0.6 * TRAIN_PERTURB:
         fail(f"methyltrain trained {len(ranks)} M-kmers to a mean error of "
@@ -2080,10 +2172,10 @@ def phase_methyltrain(dev, inputs, true_cpg, is_m, setup_s):
         fail(f"methyltrain --output-scores: {len(scores)} lines, "
              f"{len(bad)} malformed")
     for name in TRAIN_KERNELS:
-        if not path_ms[name] > 0.0:
+        if not path[name]["ms"] > 0.0:
             fail(f"torch.profiler shows no device time for {name} on the "
                  f"methyltrain path ({launches[name]} launches)")
-    return launches, path_ms
+    return path
 
 
 def subset_argv(inputs):
@@ -2094,21 +2186,28 @@ def subset_argv(inputs):
                      str(TRAIN_SUBSET)]
 
 
-def start_cpu_subset(inputs):
-    """Start the subset's --device cpu run in a second process (this
-    script with --cpu-subset DIR), so that it runs beside the card's
-    phase 6; it is killed if this process exits first."""
+def start_cpu_process(flag, d, name, payload):
+    """Write payload to d/name as JSON and start this script with `flag d`
+    in a second process (its output in d/cpu_run.log), so that its cpu
+    runs go on beside the card's phases; it is killed if this process
+    exits first."""
     import atexit
-    d = os.path.join(WORK, "train_subset")
     os.makedirs(d, exist_ok=True)
-    with open(os.path.join(d, "argv.json"), "w") as fh:
-        json.dump(subset_argv(inputs), fh)
+    with open(os.path.join(d, name), "w") as fh:
+        json.dump(payload, fh)
     with open(os.path.join(d, "cpu_run.log"), "w") as logf:
         proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                 "--cpu-subset", d], stdout=logf,
+                                 flag, d], stdout=logf,
                                 stderr=subprocess.STDOUT, cwd=ROOT)
     atexit.register(lambda: proc.poll() is None and proc.kill())
     return proc
+
+
+def start_cpu_subset(inputs):
+    """The methyltrain subset's --device cpu run (--cpu-subset DIR)."""
+    return start_cpu_process("--cpu-subset",
+                             os.path.join(WORK, "train_subset"), "argv.json",
+                             subset_argv(inputs))
 
 
 def cpu_subset_run(d) -> int:
@@ -2219,7 +2318,7 @@ def phase_training_subset(dev, inputs, cpu_proc, ea_corpus):
             (f"{MAIN_READS} reads x {TP_SHORT_LEN} bases of one stretch",
              short_fastq, TP_LEVEL_MAX)):
         path = os.path.join(d, f"{len(corpus)}.model")
-        wall, launches, busy_s, top, path_ms = profiled_run(
+        wall, launches, busy_s, top, kpath = profiled_run(
             lambda: tp.main(["-r", fastq, "--rounds", str(TP_ROUNDS), "-o",
                              path, "--device", dev.type]),
             ("banded_fill", "banded_backtrack"))
@@ -2235,9 +2334,9 @@ def phase_training_subset(dev, inputs, cpu_proc, ea_corpus):
             f"builtin| over them {med:.3f} pA (bound {bound} pA); card busy "
             f"{busy_s:.4f} s (idle share {1 - busy_s / wall:.4f}), by kernel "
             f"{json.dumps(top)}; launches {json.dumps(launches)}; path ms "
-            f"{json.dumps(path_ms)}")
+            f"(launches made, recorded) {json.dumps(path_summary(kpath))}")
         for name in ("banded_fill", "banded_backtrack"):
-            if not path_ms[name] > 0.0:
+            if not kpath[name]["ms"] > 0.0:
                 fail(f"torch.profiler shows no device time for {name} on "
                      f"the train-poremodel path")
         if bound is None:
@@ -2246,7 +2345,7 @@ def phase_training_subset(dev, inputs, cpu_proc, ea_corpus):
             # model whatever the alignments (as in the JAX app,
             # tools/train_poremodel_levels.py --reads 8 --read-len 8000
             # --genome-len 100000); card and cpu are compared below
-            ea_launches, ea_ms = launches, path_ms
+            ea_path = kpath
             continue
         if not med <= bound or upd.sum() < TP_SHORT_MIN_UPDATED:
             fail(f"train-poremodel updated {int(upd.sum())} kmers, median "
@@ -2265,7 +2364,7 @@ def phase_training_subset(dev, inputs, cpu_proc, ea_corpus):
                      f"{TRAIN_SUBSET} of the {corpus}")
         log(f"train-poremodel {TRAIN_SUBSET} of the {corpus}: model files "
             f"byte-identical, card vs cpu")
-    return ea_launches, ea_ms
+    return ea_path
 
 
 def tp_short_plan(n):
@@ -2625,11 +2724,13 @@ def step_forward_check(d, dev):
     if not bits_equal(got.cpu(), torch.as_tensor(a["lp"])):
         fail(f"forward_fill on {what} differs from the step's own scores")
     ms = cuda_ms(lambda: pf.forward_fill(*args))
+    bms, by = bound(*forward_work(a["n_events"], a["n_kmers"]))
     log(f"forward on {what}: bit-identical to plain and to the step; kernel "
-        f"{ms:.4f} ms (plain {plain_ms:.1f} ms)")
+        f"{ms:.4f} ms (plain {plain_ms:.1f} ms), bound {bms:.4f} ms ({by}: "
+        f"{int(np.sum(a['n_events']))} event rows x their reads' kmers)")
     return {"reads": len(got), "events": int(a["n_events"].max()),
             "kmer_width": kp, "layout": layout_name(kp), "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
 
 
 def phase_parallel_train(dev, ea_corpus):
@@ -2680,11 +2781,363 @@ def phase_parallel_train(dev, ea_corpus):
     return out
 
 
+# ------------------------------------------- phase 6c: long reads, scale --
+
+def rss_mb() -> float:
+    """This process's resident set (VmRSS), MiB."""
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024.0
+    raise RuntimeError("/proc/self/status has no VmRSS")
+
+
+@contextlib.contextmanager
+def sampled_rss(period: float = 0.01):
+    """{"start", "peak"}: the resident set at the start and the largest a
+    thread reads every period seconds until the block ends (a run's own
+    peak: VmHWM cannot be reset, or is absent, on every machine)."""
+    import threading
+    box = {"start": rss_mb()}
+    box["peak"] = box["start"]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(period):
+            box["peak"] = max(box["peak"], rss_mb())
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield box
+    finally:
+        stop.set()
+        t.join()
+        box["peak"] = max(box["peak"], rss_mb())
+
+
+def scale_corpora():
+    """The long-read and scale corpora under WORK (utils/synthetic's
+    copies of tests/test_longread_hardening.py's and
+    tests/test_scale_hardening.py's fixtures, full size), each with its
+    subset's BAM."""
+    from nanopolish_tpu_torch.utils.synthetic import (build_longread_corpus,
+                                                      build_scale_corpus)
+    lr = build_longread_corpus(os.path.join(WORK, "longread"),
+                               subset=LR_SUBSET)
+    sc = build_scale_corpus(os.path.join(WORK, "scale"), subset=SC_SUBSET)
+    return lr, sc
+
+
+def scale_subset_runs(lr, sc, d):
+    """The subsets' runs, card and cpu alike: (name, app, argv, output
+    files, comparison rule)."""
+    lr_args = ["-r", lr["fastq"], "-b", lr["subset_bam"], "-g", lr["ref_fa"]]
+    sc_args = ["-r", sc["fastq"], "-b", sc["subset_bam"], "-g",
+               sc["draft_fa"]]
+    return [
+        ("longread eventalign", "eventalign",
+         lr_args + ["-w", LR_SUBSET_WINDOW], "stdout", "identical"),
+        ("longread call-methylation", "call_methylation",
+         lr_args + ["-q", "cpg"], "stdout", "printed"),
+        ("scale eventalign --summary", "eventalign",
+         sc_args + ["--summary", os.path.join(d, "{dev}.summary.tsv")],
+         "stdout", "identical"),
+        ("scale call-methylation", "call_methylation",
+         sc_args + ["-q", "cpg"], "stdout", "printed"),
+        ("scale variants --consensus", "variants",
+         sc_args + ["-w", SC_SUBSET_WINDOW, "--consensus", "-d", "10", "-o",
+                    os.path.join(d, "{dev}.vcf")], "{dev}.vcf", "printed"),
+    ]
+
+
+def run_subset(run, dev_type, d):
+    """One subset run on dev_type; returns its output text (stdout, or the
+    file it writes) and, for eventalign --summary, the summary's."""
+    import importlib
+    name, app, argv, out, _ = run
+    mod = importlib.import_module(f"nanopolish_tpu_torch.apps.{app}")
+    argv = [a.replace("{dev}", dev_type) for a in argv]
+    buf = io.StringIO()
+    if app == "variants":
+        mod.main(argv + ["--device", dev_type])
+    else:
+        mod.main(argv + ["--device", dev_type], stdout=buf)
+    text = buf.getvalue() if out == "stdout" else \
+        open(os.path.join(d, out.replace("{dev}", dev_type))).read()
+    if "--summary" in argv:
+        text += open(os.path.join(d, f"{dev_type}.summary.tsv")).read()
+    return text
+
+
+def start_cpu_scale(lr, sc):
+    """The long-read and scale subsets' --device cpu runs (--cpu-scale
+    DIR)."""
+    return start_cpu_process("--cpu-scale",
+                             os.path.join(WORK, "scale_subset"),
+                             "corpora.json", {"lr": lr, "sc": sc})
+
+
+def cpu_scale_run(d) -> int:
+    """--cpu-scale DIR: the subsets' runs on the cpu, each output saved
+    under DIR as cpu.<i>.txt for the main process."""
+    import torch
+    sys.path.insert(0, ROOT)
+    os.nice(10)
+    torch.set_num_threads(CPU_SCALE_THREADS)
+    with open(os.path.join(d, "corpora.json")) as fh:
+        c = json.load(fh)
+    secs = []
+    for i, run in enumerate(scale_subset_runs(c["lr"], c["sc"], d)):
+        t0 = time.perf_counter()
+        text = run_subset(run, "cpu", d)
+        secs.append(round(time.perf_counter() - t0, 2))
+        with open(os.path.join(d, f"cpu.{i}.txt"), "w") as fh:
+            fh.write(text)
+    with open(os.path.join(d, "cpu_seconds.json"), "w") as fh:
+        json.dump(secs, fh)
+    return 0
+
+
+def scale_run(name, fn, kernels):
+    """One profiled long-read or scale run, its peaks held to the
+    ceilings of SCALE_CEILINGS: wall, rate inputs, peak host RSS and
+    peak device memory, rounds (eventalign's Viterbi calls) and each
+    kernel's launches and path ms."""
+    import torch
+    from nanopolish_tpu_torch.alignment import eventalign as ea_core
+    real = ea_core.viterbi_segments
+    rounds = [0]
+
+    def counted(*a, **k):
+        rounds[0] += 1
+        return real(*a, **k)
+
+    ea_core.viterbi_segments = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        rounds[0] = 0
+        return fn()
+
+    try:
+        with sampled_rss() as rss:
+            wall, launches, busy_s, top, path = profiled_run(run, kernels)
+    finally:
+        ea_core.viterbi_segments = real
+    grown = rss["peak"] - rss["start"]
+    dev_mb = torch.cuda.max_memory_allocated() / 2**20
+    wall_max, rss_max, dev_max = SCALE_CEILINGS[name]
+    rec = {"wall_s": round(wall, 3), "rounds": rounds[0],
+           "peak_rss_mb": round(rss["peak"], 1),
+           "rss_start_mb": round(rss["start"], 1),
+           "peak_device_mb": round(dev_mb, 1),
+           "busy_s": round(busy_s, 4),
+           "kernels": {k: {"launches": p["made"],
+                           "launches_recorded": p["recorded"],
+                           "path_ms": round(p["ms"], 4)}
+                       for k, p in path.items() if p["made"]},
+           "ceilings": {"wall_s": wall_max, "rss_growth_mb": rss_max,
+                        "peak_device_mb": dev_max}}
+    log(f"{name} on the card ({card()}): {wall:.2f} s under torch.profiler, "
+        f"{rounds[0]} Viterbi rounds, peak RSS {rss['peak']:.1f} MiB (at its "
+        f"start {rss['start']:.1f}), peak device memory {dev_mb:.1f} MiB; "
+        f"card busy {busy_s:.4f} s (idle share "
+        f"{1 - busy_s / wall:.4f}), by kernel {json.dumps(top)}; path ms "
+        f"(launches made, recorded) {json.dumps(path_summary(path))}")
+    if wall > wall_max or grown > rss_max or dev_mb > dev_max:
+        fail(f"{name}: {wall:.2f} s, RSS grown by {grown:.1f} MiB, "
+             f"{dev_mb:.1f} MiB on the card, over its ceilings ({wall_max} s, "
+             f"{rss_max} MiB, {dev_max} MiB)")
+    return rec
+
+
+def read_spans(lines, name_col, lo_col, hi_col):
+    """Largest (max hi - min lo) of a TSV body's rows, read by read."""
+    by_read = {}
+    for line in lines:
+        f = line.split("\t")
+        lo, hi = by_read.get(f[name_col], (1 << 60, -1))
+        by_read[f[name_col]] = (min(lo, int(f[lo_col])),
+                                max(hi, int(f[hi_col])))
+    return max((hi - lo for lo, hi in by_read.values()), default=0)
+
+
+def phase_longread_scale(dev, lr, sc, cpu_proc):
+    """The long-read corpus (N50 30 kb, a 100 kb read) through ingest,
+    eventalign and call-methylation, and the scale corpus (500 reads x
+    1.2 kb over 50 kb) through eventalign --summary, call-methylation and
+    variants --consensus on a 2 kb window, on the card, each held to the
+    bars of tests/test_longread_hardening.py and
+    tests/test_scale_hardening.py and to its ceilings; then a subset of
+    each on the card against the second process's cpu runs.  Returns the
+    scale_paths record."""
+    from nanopolish_tpu_torch.apps import call_methylation as cm_app
+    from nanopolish_tpu_torch.apps import eventalign as ea_app
+    from nanopolish_tpu_torch.apps import variants as va_app
+    from nanopolish_tpu_torch.io.readdb import ReadDB
+    from nanopolish_tpu_torch.models.read_loader import load_squiggle_reads
+
+    banded = ("banded_fill", "banded_backtrack")
+    viterbi = banded + ("viterbi_fill", "viterbi_backtrack")
+    forward = banded + ("forward_fill",)
+    rec = {}
+    lengths = [p[3] for p in lr["plan"]]
+    names = [p[0] for p in lr["plan"]]
+    box = {}
+
+    def ingest():
+        db = ReadDB()
+        db.load(lr["fastq"])
+        box["reads"] = load_squiggle_reads(names, db, num_threads=4,
+                                           device=dev)
+
+    rec["longread ingest"] = r = scale_run("longread ingest", ingest, banded)
+    reads = box.pop("reads")
+    bad = []
+    for name, _, _, rlen in lr["plan"]:
+        sr = reads.get(name)
+        b2e = sr.base_to_event_map[0] if sr is not None else None
+        if b2e is None or b2e.shape[0] != rlen - 5 or \
+                not (b2e[:, 0] >= 0).mean() > 0.98 or \
+                not len(sr.events[0]) > rlen:
+            bad.append(name)
+    r["reads"] = len(reads)
+    r["bases"] = sum(lengths)
+    r["bases_per_s"] = round(sum(lengths) / r["wall_s"], 1)
+    if bad:
+        fail(f"long-read ingest: reads {bad} miss a full b2e map (length "
+             f"rlen - 5, > 98% valid) or have no more events than bases")
+    del reads
+
+    def app_run(app, argv, out_path):
+        def run():
+            with open(out_path, "w") as fh:
+                app.main(argv + ["--device", dev.type], stdout=fh)
+        return run
+
+    d = os.path.join(WORK, "longread")
+    args = ["-r", lr["fastq"], "-b", lr["bam"], "-g", lr["ref_fa"]]
+    ea_out = os.path.join(d, "eventalign.tsv")
+    rec["longread eventalign"] = r = scale_run(
+        "longread eventalign", app_run(ea_app, args, ea_out), viterbi)
+    lines = open(ea_out).read().splitlines()
+    span = read_spans(lines[1:], 2, 1, 1)
+    r.update(rows=len(lines) - 1, rows_per_s=round((len(lines) - 1) /
+                                                   r["wall_s"], 1),
+             span=span)
+    if not (len(lines) > sum(lengths) and span > 99_000):
+        fail(f"long-read eventalign: {len(lines)} lines for {sum(lengths)} "
+             f"bases, longest span {span} (bars: more lines than bases, a "
+             f"span over 99,000)")
+    cm_out = os.path.join(d, "methylation.tsv")
+    rec["longread call-methylation"] = r = scale_run(
+        "longread call-methylation",
+        app_run(cm_app, args + ["-q", "cpg"], cm_out), forward)
+    lines = [ln for ln in open(cm_out).read().splitlines()[1:] if ln]
+    span = read_spans(lines, 4, 2, 3)
+    r.update(rows=len(lines), rows_per_s=round(len(lines) / r["wall_s"], 1),
+             span=span)
+    if not (len(lines) > 3000 and span > 95_000):
+        fail(f"long-read call-methylation: {len(lines)} rows, longest span "
+             f"{span} (bars: > 3,000 rows, a span over 95,000)")
+
+    d = os.path.join(WORK, "scale")
+    args = ["-r", sc["fastq"], "-b", sc["bam"], "-g", sc["draft_fa"]]
+    ea_out, summary = os.path.join(d, "eventalign.tsv"), \
+        os.path.join(d, "summary.tsv")
+    rec["scale eventalign --summary"] = r = scale_run(
+        "scale eventalign --summary",
+        app_run(ea_app, args + ["--summary", summary], ea_out), viterbi)
+    n_rows = sum(1 for _ in open(ea_out)) - 1
+    n_sum = sum(1 for _ in open(summary)) - 1
+    r.update(rows=n_rows, rows_per_s=round(n_rows / r["wall_s"], 1),
+             summary_rows=n_sum)
+    if not (n_rows > 100_000 and n_sum > 450):
+        fail(f"scale eventalign: {n_rows} rows, {n_sum} summary rows (bars: "
+             f"> 100,000 and > 450)")
+    cm_out = os.path.join(d, "methylation.tsv")
+    rec["scale call-methylation"] = r = scale_run(
+        "scale call-methylation",
+        app_run(cm_app, args + ["-q", "cpg"], cm_out), forward)
+    n_sites = sum(1 for ln in open(cm_out)
+                  if ln.strip() and not ln.startswith("chromosome\t"))
+    r.update(sites=n_sites, sites_per_s=round(n_sites / r["wall_s"], 1))
+    if not n_sites > 10_000:
+        fail(f"scale call-methylation: {n_sites} sites (bar: > 10,000)")
+    vcf = os.path.join(d, "polished.vcf")
+    win = SC_VAR_WINDOW
+    rec["scale variants --consensus"] = r = scale_run(
+        "scale variants --consensus",
+        lambda: va_app.main(args + ["-w", win, "--consensus", "-o", vcf,
+                                    "-d", "10", "--device", dev.type]),
+        banded + ("forward_indexed",))
+    keys = set()
+    for line in open(vcf):
+        if not line.startswith("#"):
+            f = line.split("\t")
+            keys.add((int(f[1]) - 1, f[3], f[4]))
+    lo, hi = (int(x) for x in win.split(":")[1].split("-"))
+    in_win = [q for q in sc["subs"] if lo <= q < hi]
+    recovered = sum((q, sc["draft"][q], sc["truth"][q]) in keys
+                    for q in in_win)
+    r.update(bases=hi - lo, bases_per_s=round((hi - lo) / r["wall_s"], 1),
+             planted=len(in_win), recovered=recovered,
+             elsewhere=len(keys) - recovered)
+    if recovered < len(in_win) - 1:
+        fail(f"scale variants recovered {recovered} of {len(in_win)} planted "
+             f"substitutions (bar: at most 1 missed)")
+
+    # the subsets, card against the cpu runs of the second process
+    d = os.path.join(WORK, "scale_subset")
+    runs = scale_subset_runs(lr, sc, d)
+    card_out = []
+    for run in runs:
+        kernels = {"eventalign": viterbi, "call_methylation": forward,
+                   "variants": banded + ("forward_indexed",)}[run[1]]
+        box = {}
+        wall, _ = timed_run(
+            lambda: box.update(text=run_subset(run, dev.type, d)), kernels)
+        card_out.append((box["text"], wall))
+    t0 = time.perf_counter()
+    if cpu_proc.wait() != 0:
+        with open(os.path.join(d, "cpu_run.log")) as fh:
+            fail(f"the subsets' cpu run failed:\n{fh.read()[-4000:]}")
+    waited = time.perf_counter() - t0
+    with open(os.path.join(d, "cpu_seconds.json")) as fh:
+        cpu_s = json.load(fh)
+    subsets = {}
+    for i, ((name, app, _, _, rule), (text, wall)) in enumerate(
+            zip(runs, card_out)):
+        with open(os.path.join(d, f"cpu.{i}.txt")) as fh:
+            want = fh.read()
+        if rule == "identical":
+            if text != want:
+                fail(f"subset {name}: card output differs from the cpu run")
+            rep = {"rows": len(text.splitlines()), "differ": 0}
+        else:
+            rep = assert_agree(text, want, f"subset {name} card vs cpu",
+                               **({"sign_cols": (LLR,)}
+                                  if app == "call_methylation" else {}))
+        subsets[name] = {"rule": rule, "rows": rep["rows"],
+                         "differ": rep["differ"], "card_s": round(wall, 2),
+                         "cpu_s": cpu_s[i]}
+    log(f"long-read and scale subsets, card vs cpu (a second process at "
+        f"nice 10, {CPU_SCALE_THREADS} torch threads, {sum(cpu_s):.1f} s; "
+        f"waited {waited:.1f} s for it): {json.dumps(subsets)}")
+    rec["subsets"] = subsets
+    rec["card"] = card()
+    return rec
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cpu-subset"]:
         return cpu_subset_run(sys.argv[2])
     if sys.argv[1:2] == ["--train-step-rank"]:
         return train_step_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--cpu-scale"]:
+        return cpu_scale_run(sys.argv[2])
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -2724,8 +3177,14 @@ def main() -> int:
     inputs, true_cpg, is_m = build_train_corpus(os.path.join(WORK, "train"))
     train_setup_s = time.perf_counter() - t0
     cpu_proc = start_cpu_subset(inputs)
-    launches, path_ms, ea_corpus = phase_eventalign(dev)
-    *cm_path, meth_corpus = phase_call_methylation(dev)
+    # the long-read and scale corpora, and their subsets' cpu runs,
+    # started now in a third process at low priority (phase 6c)
+    t0 = time.perf_counter()
+    lr_corpus, sc_corpus = scale_corpora()
+    log(f"long-read and scale corpora: {time.perf_counter() - t0:.1f} s")
+    cpu_scale = start_cpu_scale(lr_corpus, sc_corpus)
+    ea_path, ea_corpus = phase_eventalign(dev)
+    cm_path, meth_corpus = phase_call_methylation(dev)
     own = {"forward_fill": cm_path}
     phase_scorereads_phase(dev, ea_corpus)
     own["forward_indexed"] = phase_variants(dev)
@@ -2733,18 +3192,19 @@ def main() -> int:
     # the training paths: methyltrain (banded kernels at ingest, Viterbi
     # every round, Forward for --output-scores), train-poremodel (banded)
     t0 = time.perf_counter()
-    mt_launches, mt_ms = phase_methyltrain(dev, inputs, true_cpg, is_m,
-                                           train_setup_s)
+    mt_path = phase_methyltrain(dev, inputs, true_cpg, is_m, train_setup_s)
     phase_em(dev)
-    tp_launches, tp_ms = phase_training_subset(dev, inputs, cpu_proc,
-                                               ea_corpus)
+    tp_path = phase_training_subset(dev, inputs, cpu_proc, ea_corpus)
+
+    def path_record(path, names):
+        return {name: {"launches": path[name]["made"],
+                       "launches_recorded": path[name]["recorded"],
+                       "path_ms": path[name]["ms"]} for name in names}
+
     log(json.dumps({"training_paths": {
-        "methyltrain": {name: {"launches": mt_launches[name],
-                               "path_ms": mt_ms[name]}
-                        for name in TRAIN_KERNELS},
-        "train-poremodel-from-basecalls": {
-            name: {"launches": tp_launches[name], "path_ms": tp_ms[name]}
-            for name in ("banded_fill", "banded_backtrack")}},
+        "methyltrain": path_record(mt_path, TRAIN_KERNELS),
+        "train-poremodel-from-basecalls": path_record(
+            tp_path, ("banded_fill", "banded_backtrack"))},
         "seconds": round(time.perf_counter() - t0, 1)}))
     # several processes on the one card: sharded serving, then the
     # sharded train step (its kernels in every rank)
@@ -2757,13 +3217,19 @@ def main() -> int:
         "card": card(), "cores": len(os.sched_getaffinity(0)),
         "serving": serving, "train_step": train,
         "seconds": round(time.perf_counter() - t0, 1)}}))
-    for name, (path_launches, path_times) in own.items():
-        launches[name] = path_launches[name]
-        path_ms[name] = path_times[name]
+    # long reads and scale: the banded, Viterbi, Forward and indexed
+    # Forward kernels at a realistic read length and read count
+    t0 = time.perf_counter()
+    scale = phase_longread_scale(dev, lr_corpus, sc_corpus, cpu_scale)
+    scale["seconds"] = round(time.perf_counter() - t0, 1)
+    log(json.dumps({"scale_paths": scale}))
+    path = dict(ea_path)
+    for name, own_path in own.items():
+        path[name] = own_path[name]
     for name in cuda_build.KERNELS:
-        if not path_ms[name] > 0.0:
+        if not path[name]["ms"] > 0.0:
             fail(f"torch.profiler shows no device time for {name} on its "
-                 f"main path ({launches[name]} launches)")
+                 f"main path ({path[name]['made']} launches)")
 
     replaces = {
         "banded_fill": "nanopolish_tpu/ops/pallas_banded_exact.py:210",
@@ -2781,11 +3247,12 @@ def main() -> int:
         kernels.append({
             "name": name, "status": "ported", "route": "cuda",
             "source": f"nanopolish_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name], "launches": path[name]["made"],
+            "launches_recorded": path[name]["recorded"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            "path_ms": path_ms[name]})
+            "path_ms": path[name]["ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

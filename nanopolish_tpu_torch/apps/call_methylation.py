@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -644,8 +645,8 @@ def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="nanopolish_tpu_torch call-methylation",
         description="classify nucleotides as methylated or not")
-    p.add_argument("-r", "--reads", required=True)
-    p.add_argument("-b", "--bam", required=True)
+    p.add_argument("-r", "--reads", default="")
+    p.add_argument("-b", "--bam", default="")
     p.add_argument("-g", "--genome", required=True)
     p.add_argument("-q", "--methylation", default="cpg")
     p.add_argument("-w", "--window", default="")
@@ -661,16 +662,151 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--modbam-output-name", default="")
     p.add_argument("--modbam-style", default="reference",
                    choices=["read", "reference"])
+    p.add_argument("--watch", default="",
+                   help="watch a sequencing run directory for new reads")
+    p.add_argument("--watch-process-total", type=int, default=1)
+    p.add_argument("--watch-process-index", type=int, default=0)
+    p.add_argument("--watch-mapper", default="minimap2",
+                   help="external mapper executable for watch mode")
+    p.add_argument("--watch-mapper-opts", default="-ax map-ont",
+                   help="options passed to the mapper before genome+fastq")
+    p.add_argument("--watch-poll", type=float, default=30.0,
+                   help="seconds between directory scans")
+    p.add_argument("--watch-once", action="store_true",
+                   help="process the current backlog, then exit")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where ingest and the HMM run (default: cuda; "
                         "there is no automatic fallback to the cpu)")
     return p
 
 
+def _discover_watch_work(opt) -> List[str]:
+    """Assigned, unfinished fastq files under the watched run directory.
+    Mirrors the reference's layout assumptions (fastq_pass/ trees,
+    call_methylation.cpp:268-321) and its process sharding by numeric
+    file suffix mod N (call_methylation.cpp:489-508)."""
+    import glob
+    import re
+    import zlib
+
+    files = sorted({f for pat in ("*.fastq", "*.fq")
+                    for f in glob.glob(os.path.join(opt.watch, "**", pat),
+                                       recursive=True)})
+    in_pass = [f for f in files if "fastq_pass" in f]
+    files = in_pass or files
+    sel = []
+    for f in files:
+        m = re.search(r"(\d+)\.f(?:ast)?q$", os.path.basename(f))
+        idx = int(m.group(1)) if m else zlib.crc32(f.encode())
+        if idx % opt.watch_process_total == opt.watch_process_index:
+            sel.append(f)
+    return sel
+
+
+def _process_watch_pair(opt, fastq: str, out_tsv: str, device) -> None:
+    """Index + map + call one fastq chunk on ``device``; writes out_tsv
+    atomically."""
+    import copy
+    import glob
+    import shlex
+    import subprocess
+
+    from ..io.bam import sam_to_bam
+    from . import index as index_app
+
+    sys.stderr.write(f"[watch] processing {fastq}\n")
+    # signal source: sibling fast5_pass/slow5_pass tree, else alongside
+    fq_dir = os.path.dirname(fastq)
+    sig_dir = fq_dir
+    for sub in ("fast5_pass", "slow5_pass", "blow5_pass"):
+        cand = fq_dir.replace("fastq_pass", sub)
+        if cand != fq_dir and os.path.isdir(cand):
+            sig_dir = cand
+            break
+    slow5s = sorted(glob.glob(os.path.join(sig_dir, "*.slow5")) +
+                    glob.glob(os.path.join(sig_dir, "*.blow5")))
+    argv = [fastq]
+    if slow5s:
+        stem = os.path.splitext(os.path.basename(fastq))[0]
+        match = [s for s in slow5s
+                 if os.path.splitext(os.path.basename(s))[0] == stem]
+        argv += ["--slow5", (match or slow5s)[0]]
+    else:
+        argv += ["-d", sig_dir]
+    index_app.main(argv)
+
+    sam = fastq + ".watch.sam"
+    bam = fastq + ".watch.bam"
+    cmd = [opt.watch_mapper] + shlex.split(opt.watch_mapper_opts) + \
+        [opt.genome, fastq]
+    with open(sam, "w") as sfh:
+        subprocess.run(cmd, stdout=sfh, check=True)
+    sam_to_bam(sam, bam)
+
+    opt2 = copy.copy(opt)
+    opt2.watch = ""
+    opt2.reads = fastq
+    opt2.bam = bam
+    if opt.modbam_output_name:
+        opt2.modbam_output_name = fastq + ".mods.bam"
+    tmp = out_tsv + ".tmp"
+    with open(tmp, "w") as fh:
+        _call_single(opt2, fh, device)
+    os.replace(tmp, out_tsv)
+
+
+def run_watch_mode(opt, out, device):
+    """Live calling mode (call_methylation.cpp:213-530): poll the run
+    directory for finished fastq chunks, shard them across processes by
+    numeric suffix mod N, map each with an external mapper (the reference
+    embeds minimap2; this build shells out to one), then run the normal
+    calling path per chunk on ``device``, writing <chunk>.meth.tsv next
+    to it.  Existing .meth.tsv files mark chunks done, so a restarted
+    watcher resumes where it left off."""
+    import shutil
+    import time
+
+    if shutil.which(opt.watch_mapper) is None:
+        raise SystemExit(
+            f"call-methylation --watch requires a mapper executable "
+            f"({opt.watch_mapper!r} not found in PATH). Install minimap2 "
+            f"or pass --watch-mapper.")
+    sys.stderr.write(
+        f"[watch] watching {opt.watch} as process "
+        f"{opt.watch_process_index}/{opt.watch_process_total}\n")
+    processed = set()
+    while True:
+        did = 0
+        for fastq in _discover_watch_work(opt):
+            if fastq in processed:
+                continue
+            out_tsv = fastq + ".meth.tsv"
+            if os.path.exists(out_tsv):
+                processed.add(fastq)
+                continue
+            _process_watch_pair(opt, fastq, out_tsv, device)
+            processed.add(fastq)
+            did += 1
+        if opt.watch_once:
+            return 0
+        if not did:
+            time.sleep(opt.watch_poll)
+
+
 def main(argv: Optional[List[str]] = None, stdout: Optional[TextIO] = None):
     opt = make_parser().parse_args(argv)
     out = stdout if stdout is not None else sys.stdout
     device = resolve_device(opt.device)
+    if opt.watch:
+        return run_watch_mode(opt, out, device)
+    if not opt.reads or not opt.bam:
+        raise SystemExit(
+            "call-methylation: -r/--reads and -b/--bam are required "
+            "(unless --watch is given)")
+    return _call_single(opt, out, device)
+
+
+def _call_single(opt, out, device):
     if opt.models_fofn:
         PoreModelSet.instance().initialize(opt.models_fofn)
     params = CallingParameters(methylation_type=opt.methylation,

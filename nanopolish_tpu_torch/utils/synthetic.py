@@ -174,3 +174,130 @@ def build_deletion_corpus(d: str, seed: int = 61, genome_len: int = 3500,
                       qual=np.full(len(read), 30, np.uint8)))
     w.close()
     return ref_fa, fastq, bam
+
+
+def _write_plan_bam(path: str, genome: str, plan) -> None:
+    """A coordinate-sorted BAM of full-length M records for plan =
+    [(name, pos, is_rev, read_len)] on contig tig1."""
+    from ..io.bam import BamRecord, BamWriter
+    w = BamWriter(path, "@HD\tVN:1.6\tSO:coordinate\n", ["tig1"],
+                  [len(genome)])
+    for name, pos, is_rev, rlen in sorted(plan, key=lambda t: t[1]):
+        w.write(BamRecord(qname=name, flag=16 if is_rev else 0, tid=0,
+                          pos=pos, mapq=60, cigar=[(0, rlen)],
+                          seq=genome[pos:pos + rlen],
+                          qual=np.full(rlen, 30, np.uint8)))
+    w.close()
+
+
+# the long-read mix: N50 30 kb (the 30 kb reads carry over half the
+# bases), longest 100 kb
+LONGREAD_LENGTHS = (100_000, 30_000, 30_000, 30_000, 30_000)
+
+
+def build_longread_corpus(d: str, read_lengths=LONGREAD_LENGTHS,
+                          seed: int = 41, subset=()) -> dict:
+    """Reference FASTA, basecalls, slow5 signal (9 samples a base), readdb
+    index and BAM in directory d for reads lr0, lr1, ... of read_lengths,
+    lr<i> at 5,000 x i on a random genome, every other one reverse.
+    With ``subset`` (read names) a second BAM holds only those reads.
+    Returns {ref_fa, fastq, bam, plan[, subset_bam]} with plan =
+    [(name, pos, is_rev, read_len)]."""
+    from ..apps import index as index_app
+    from ..io.slow5 import Slow5Writer
+    from ..models.pore_model import PoreModelSet
+    from ..utils.alphabet import DNA_ALPHABET
+
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    model = PoreModelSet.instance().get_model(
+        "r9.4_450bps", "nucleotide", "template", 6)
+    genome = random_sequence(rng, max(read_lengths) + 5_000 * len(read_lengths))
+    ref_fa = os.path.join(d, "ref.fa")
+    _write_fasta(ref_fa, "tig1", genome)
+    plan = [(f"lr{i}", 5_000 * i, bool(i % 2), rlen)
+            for i, rlen in enumerate(read_lengths)]
+    fastq, slow5 = os.path.join(d, "reads.fastq"), os.path.join(d, "sig.slow5")
+    with open(fastq, "w") as fq, Slow5Writer(slow5) as sw:
+        for name, pos, is_rev, rlen in plan:
+            seg = genome[pos:pos + rlen]
+            basecall = DNA_ALPHABET.reverse_complement(seg) if is_rev else seg
+            fq.write(f"@{name}\n{basecall}\n+\n{'I' * rlen}\n")
+            pa = synthetic_raw_signal(rng, basecall, model,
+                                      SquiggleScalings.from4(0.0, 1.0, 0.0,
+                                                             1.0),
+                                      samples_per_base=9.0, leader=500,
+                                      trailer=100)
+            sw.write(name, _signal_adc(pa), 8192.0, 0.0, 1400.0, 4000.0)
+    index_app.main([fastq, "--slow5", slow5])
+    out = {"ref_fa": ref_fa, "fastq": fastq, "bam": os.path.join(d, "aln.bam"),
+           "plan": plan}
+    _write_plan_bam(out["bam"], genome, plan)
+    if subset:
+        out["subset_bam"] = os.path.join(d, "subset.bam")
+        _write_plan_bam(out["subset_bam"], genome,
+                        [p for p in plan if p[0] in subset])
+    return out
+
+
+SUBSTITUTE = {"A": "G", "C": "T", "G": "A", "T": "C"}
+
+
+def build_scale_corpus(d: str, n_reads: int = 500, read_len: int = 1200,
+                       genome_len: int = 50_000, var_win=(20_000, 22_000),
+                       seed: int = 4242, subset=()) -> dict:
+    """n_reads reads of read_len bases evenly staggered over a random
+    genome_len truth (every third one reverse, every other one with signal
+    drawn from the cpg model over its CpG-methylated basecall; 9 samples a
+    base); the draft reference carries a substitution every 300 bases of
+    var_win from 120 in.  Files in directory d; with ``subset`` (read
+    names) a second BAM holds only those reads.  Returns {draft_fa,
+    fastq, bam, draft, truth, subs, plan[, subset_bam]} with plan =
+    [(name, pos, is_rev, read_len)]."""
+    from ..apps import index as index_app
+    from ..io.slow5 import Slow5Writer
+    from ..models.pore_model import PoreModelSet
+    from ..utils.alphabet import DNA_ALPHABET, METHYL_CPG_ALPHABET
+
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    pms = PoreModelSet.instance()
+    nuc = pms.get_model("r9.4_450bps", "nucleotide", "template", 6)
+    cpg = pms.get_model("r9.4_450bps", "cpg", "template", 6)
+    truth = random_sequence(rng, genome_len)
+    subs = list(range(var_win[0] + 120, var_win[1] - 120, 300))
+    draft = list(truth)
+    for p in subs:
+        draft[p] = SUBSTITUTE[draft[p]]
+    draft = "".join(draft)
+    draft_fa = os.path.join(d, "draft.fa")
+    _write_fasta(draft_fa, "tig1", draft)
+    step = (genome_len - read_len - 200) // n_reads
+    reads = [(f"s{i:04d}", 100 + step * i, bool(i % 3 == 1), bool(i % 2))
+             for i in range(n_reads)]
+    fastq, slow5 = os.path.join(d, "reads.fastq"), os.path.join(d, "sig.slow5")
+    with open(fastq, "w") as fq, Slow5Writer(slow5) as sw:
+        for name, pos, is_rev, is_meth in reads:
+            seg = truth[pos:pos + read_len]
+            basecall = DNA_ALPHABET.reverse_complement(seg) if is_rev else seg
+            fq.write(f"@{name}\n{basecall}\n+\n{'I' * read_len}\n")
+            sig_seq = (METHYL_CPG_ALPHABET.methylate(basecall)
+                       if is_meth else basecall)
+            pa = synthetic_raw_signal(rng, sig_seq, cpg if is_meth else nuc,
+                                      SquiggleScalings.from4(0.0, 1.0, 0.0,
+                                                             1.0),
+                                      samples_per_base=9.0, leader=400,
+                                      trailer=90)
+            sw.write(name, _signal_adc(pa), 8192.0, 0.0, 1400.0, 4000.0)
+    index_app.main([fastq, "--slow5", slow5])
+    plan = [(name, pos, is_rev, read_len) for name, pos, is_rev, _ in reads]
+    out = {"draft_fa": draft_fa, "fastq": fastq,
+           "bam": os.path.join(d, "aln.bam"), "draft": draft, "truth": truth,
+           "subs": subs, "plan": plan}
+    # the reads are truth, so their BAM records carry the truth's bases
+    _write_plan_bam(out["bam"], truth, plan)
+    if subset:
+        out["subset_bam"] = os.path.join(d, "subset.bam")
+        _write_plan_bam(out["subset_bam"], truth,
+                        [p for p in plan if p[0] in subset])
+    return out

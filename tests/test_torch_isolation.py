@@ -47,15 +47,65 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     "nanopolish_tpu_torch.parallel.distributed",
     "nanopolish_tpu_torch.parallel.launch",
     "nanopolish_tpu_torch.parallel.train_step",
-    "nanopolish_tpu_torch.ops.training"])
+    "nanopolish_tpu_torch.ops.training",
+    "nanopolish_tpu_torch.io.fast5_legacy",
+    "nanopolish_tpu_torch.ops.profile_hmm_r7",
+    "nanopolish_tpu_torch.utils.logsum",
+    "nanopolish_tpu_torch.apps.call_methylation"])
 def test_parallel_modules_are_in_the_no_jax_import_check(name):
-    """The multi-process modules are among those the jax-blocked probe
-    above imports."""
+    """The multi-process modules, the legacy R7 modules and the watch
+    mode's app are among those the jax-blocked probe above imports."""
     import pkgutil
     pkg = nanopolish_tpu_torch
     walked = {m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                     pkg.__name__ + ".")}
     assert name in walked
+
+
+_R7_PROBE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["h5py"] = None           # the card machine lists no h5py
+from nanopolish_tpu_torch.io import fast5_legacy
+from nanopolish_tpu_torch.ops import profile_hmm_r7
+from nanopolish_tpu_torch.utils.logsum import add_logs_np
+try:
+    fast5_legacy.load_legacy_2d("x.fast5")
+except ImportError:
+    print("lazy")
+"""
+
+
+def test_legacy_modules_import_without_h5py():
+    """fast5_legacy imports h5py only inside its loader, so nothing on
+    the card's path needs it."""
+    r = subprocess.run([sys.executable, "-c", _R7_PROBE], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "lazy"
+
+
+def _subcommands():
+    from nanopolish_tpu import __main__ as jax_main
+    return list(jax_main.SUBCOMMANDS)
+
+
+@pytest.mark.parametrize("name", _subcommands())
+def test_each_subcommand_takes_the_jax_apps_flags(name):
+    """Each app's parser takes exactly the JAX app's flags, plus
+    --device where it runs on the card."""
+    import importlib
+    mod = name.replace("-", "_")
+    jax_app = importlib.import_module(f"nanopolish_tpu.apps.{mod}")
+    port_app = importlib.import_module(f"nanopolish_tpu_torch.apps.{mod}")
+
+    def flags(app):
+        return {s for a in app.make_parser()._actions
+                for s in a.option_strings}
+
+    extra = flags(port_app) - flags(jax_app)
+    assert flags(jax_app) <= flags(port_app)
+    assert extra <= {"--device"}
 
 
 def test_launch_spawns_the_port(tmp_path):

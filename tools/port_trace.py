@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where nanopolish_tpu_torch spends its time on the card.
 
-    python3 tools/port_trace.py eventalign [--summary]
+    python3 tools/port_trace.py eventalign [--summary] [--corpus longread]
     python3 tools/port_trace.py call-methylation
 
 Builds the chip_smoke.py main-path corpus (64 synthetic reads of 8 kb
 from a 100 kb genome; for call-methylation every other read carries
-cpg-methylated signal), runs the subcommand with `--device cuda` once to
-warm up (kernel build, allocator), once more with wall-clock timers
+cpg-methylated signal), or with `--corpus longread` the 100 kb read of
+utils/synthetic.build_longread_corpus (eventalign only), runs the
+subcommand with `--device cuda` once to warm up (kernel build,
+allocator), once more with wall-clock timers
 around the pipeline's stages, and a third time under torch.profiler for
 the device's kernel time (the profiler's own host overhead inflates that
 run's wall, so the idle share is taken against the un-profiled wall).
@@ -21,6 +23,13 @@ eventalign stages:
   align       alignment.eventalign.align_reads_to_ref (the wavefront)
     viterbi   alignment.segments.viterbi_segments (per round: padding,
               upload, two kernels, fetch, path expansion)
+      launch  ops.profile_hmm_viterbi.viterbi_paths as the host sees
+              it: the two kernels' launches
+      sync    the wait for the card after each round's launches (a
+              torch.cuda.synchronize before the fetch, which would
+              otherwise wait there): the host blocked on the card
+  rounds      the Viterbi rounds (calls of viterbi_segments)
+  python      align minus sync: the wavefront's host work
   emit        the rest of apps.eventalign.main (TSV rendering, BAM
               reading, and with --summary the per-read summary file,
               which chip_smoke.py's main-path run writes)
@@ -78,6 +87,9 @@ def main() -> int:
     ap.add_argument("subcommand", choices=("eventalign", "call-methylation"))
     ap.add_argument("--summary", action="store_true",
                     help="also write eventalign --summary")
+    ap.add_argument("--corpus", choices=("main", "longread"), default="main",
+                    help="eventalign's corpus: chip_smoke's 64 x 8 kb, or "
+                         "the long-read mix's 100 kb read")
     args = ap.parse_args()
 
     totals = {}
@@ -98,17 +110,43 @@ def main() -> int:
     event_detect.detect_events = timed("detect", event_detect.detect_events)
     read_builder._process_chunk = timed("device", read_builder._process_chunk)
     ingest = timed("ingest", read_loader.load_squiggle_reads)
-    d = os.path.join(ROOT, "build", "port_trace", args.subcommand)
+    d = os.path.join(ROOT, "build", "port_trace", args.subcommand
+                     + ("" if args.corpus == "main" else "_" + args.corpus))
+    n_reads, read_len = chip_smoke.MAIN_READS, chip_smoke.MAIN_READ_LEN
     out_path = os.path.join(d, "out.tsv")
+    rounds = [0]
     if args.subcommand == "eventalign":
         ea_app.load_squiggle_reads = ingest
         ea_app.align_reads_to_ref = timed("align", ea_core.align_reads_to_ref)
-        ea_core.viterbi_segments = timed("viterbi", segments.viterbi_segments)
-        ref_fa, fastq, bam = chip_smoke.build_main_corpus(d)
+        viterbi = timed("viterbi", segments.viterbi_segments)
+
+        def counted(*a, **k):
+            rounds[0] += 1
+            return viterbi(*a, **k)
+
+        ea_core.viterbi_segments = counted
+        paths = timed("launch", segments.viterbi_paths)
+        sync = timed("sync", torch.cuda.synchronize)
+
+        def launched_then_synced(x):
+            out = paths(x)
+            sync()
+            return out
+
+        segments.viterbi_paths = launched_then_synced
+        if args.corpus == "longread":
+            from nanopolish_tpu_torch.utils.synthetic import \
+                build_longread_corpus
+            c = build_longread_corpus(d, subset=("lr0",))
+            ref_fa, fastq, bam = c["ref_fa"], c["fastq"], c["subset_bam"]
+            n_reads, read_len = 1, 100_000
+        else:
+            ref_fa, fastq, bam = chip_smoke.build_main_corpus(d)
         app, extra = ea_app, []
         if args.summary:
             extra = ["--summary", os.path.join(d, "summary.tsv")]
-        names = ("ingest", "detect", "device", "align", "viterbi")
+        names = ("ingest", "detect", "device", "align", "viterbi", "launch",
+                 "sync")
         inner = ("ingest", "align")
     else:
         cm_app.load_squiggle_reads = ingest
@@ -136,10 +174,12 @@ def main() -> int:
 
     run()                                            # warm-up
     totals.clear()
+    rounds[0] = 0
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
     stages = dict(totals)
+    n_rounds = rounds[0]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     t0 = time.perf_counter()
@@ -162,8 +202,8 @@ def main() -> int:
                          text=True).stdout.strip()
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12])
     result = {
-        "card": smi, "subcommand": args.subcommand,
-        "reads": chip_smoke.MAIN_READS, "read_len": chip_smoke.MAIN_READ_LEN,
+        "card": smi, "subcommand": args.subcommand, "corpus": args.corpus,
+        "reads": n_reads, "read_len": read_len,
         "summary": args.summary,
         "rows": rows, "wall_s": wall, "rows_per_s": rows / wall,
         "stages_s": {k: stages.get(k, 0.0) for k in names},
@@ -172,6 +212,10 @@ def main() -> int:
         "kernels_s": top}
     if inner:
         result["emit_s"] = wall - sum(stages.get(k, 0.0) for k in inner)
+        result["rounds"] = n_rounds
+        result["python_s"] = stages.get("align", 0.0) - stages.get("sync", 0.0)
+        result["sync_share_of_align"] = \
+            stages.get("sync", 0.0) / max(stages.get("align", 0.0), 1e-12)
     print(json.dumps(result))
     return 0
 
