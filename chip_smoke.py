@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. the card's name and power limit; build the eight CUDA kernels from
+  1. the card's name and power limit; build the nine CUDA kernels from
      nanopolish_tpu_torch/csrc/ (one nvcc per source, all at once);
   2. banded-alignment kernels (fill, backtrack) against their plain
      PyTorch versions on the card, bit for bit, on 32 reads x 2 kb plus
@@ -25,6 +25,11 @@ Phases (any failure exits non-zero; nothing is caught):
      1,024 kmers (the block row) and in a one-segment and a 32-segment
      launch; then timing, the backtrack beside an estimate of its
      chain-latency floor (logged only);
+  3b. the device chain's kernel (chain_step: prepare and consume) against
+     its plain versions, bit for bit, on every round of the eventalign
+     main path's 64 chains (64 reads x 8 kb, forward and reverse, last
+     sections, jobs that have ended beside active ones): state, Viterbi
+     inputs and kept rows; then timing on a round of 64 windows;
   4. the Forward kernels' log1pf against torch.log1p on every float in
      [0, 1]; the profile-HMM Forward kernel against its plain version, bit
      for bit, on 2,048 call-methylation-shaped segments (17-221 kmers, 30-460
@@ -52,7 +57,8 @@ Phases (any failure exits non-zero; nothing is caught):
      both kernels' chain-latency floors (logged only); then the backtrack
      alone on random backpointer bytes, rows at every alignment;
   5. the goldens on the card through the CLI entry points: the 4-read
-     eventalign pipeline of tests/test_golden_outputs.py (byte for byte),
+     eventalign pipeline of tests/test_golden_outputs.py (byte for byte,
+     through the device chain),
      the 3-read methylation pipeline (TSV and both modbam styles) and the
      12-read consensus pipeline (`variants --consensus`, plain and with
      --fix-homopolymers), the last two under the printed-output rule of
@@ -61,13 +67,17 @@ Phases (any failure exits non-zero; nothing is caught):
   6. the main paths on the card, each with the launch counts reset just
      before it and read just after, and each kernel's device time on its
      path from torch.profiler: `index` + `eventalign` on 64 reads x
-     8 kb from a 100 kb synthetic genome, then `call-methylation` (with a
-     modbam) on 64 reads x 8 kb of which half carry cpg-methylated
-     signal; then `scorereads` on 8 of the eventalign reads and on one
-     read with a dense run of deletions (a 500-event chunk of 1,384
-     kmers: the wide row), and `phase-reads` on a 2-read phased corpus,
-     each held to the port's CPU run under the printed-output rule; then
-     `variants --consensus`
+     8 kb from a 100 kb synthetic genome (through the device chain, which
+     must take 95% of the jobs; then once more with
+     NPT_EA_DEVICE_CHAIN=0, the TSV and summary byte-identical), then
+     `call-methylation` (with a modbam) on 64 reads x 8 kb of which half
+     carry cpg-methylated signal; then `scorereads` on 8 of the eventalign
+     reads (through the device chain, byte-identical to a run with
+     NPT_EA_DEVICE_CHAIN=0), on a 2-read phased corpus (900-base reads)
+     and on one read with a dense run of deletions (a 500-event chunk of
+     1,384 kmers: the wide row), and `phase-reads` on the phased corpus,
+     the last three held to the port's CPU run under the printed-output
+     rule; then `variants --consensus`
      on a 50 kb draft window (250 reads x 2 kb of true signal, depth ~10,
      332 planted substitutions: the corpus of tools/perf_e2e_variants.py
      at NPT_E2E_WINDOW=50000, NPT_E2E_READS=250, NPT_E2E_READLEN=2000,
@@ -84,7 +94,7 @@ Phases (any failure exits non-zero; nothing is caught):
      (15,625 kmers x 1,000 events x 2 components) on the card and on the
      cpu, its time beside its bound; `methyltrain` on 8 of those reads, 2
      rounds, on the card and on the cpu (the cpu run in a second process
-     from the start of this phase; integer summary columns identical,
+     started after the kernel build; integer summary columns identical,
      trained values within the EM tolerance, score lines under the
      printed-output rule); `train-poremodel-from-basecalls` on the card on
      the eventalign corpus's 64 reads and on 64 reads of one 400-base
@@ -114,11 +124,13 @@ Phases (any failure exits non-zero; nothing is caught):
      --consensus -w tig1:20000-22000 -d 10`, on the card (built with
      utils/synthetic.build_longread_corpus and build_scale_corpus), each
      held to its JAX test's bars and to its ceilings (SCALE_CEILINGS: wall,
-     peak host RSS, peak device memory); then a subset of each (one 30 kb
+     peak host RSS, peak device memory), eventalign through the device
+     chain (95% of the jobs; the long-read TSV byte-identical to a run
+     with NPT_EA_DEVICE_CHAIN=0); then a subset of each (one 30 kb
      read, 26 of the scale reads) on the card against a second process's
-     --device cpu runs (started with phase 6, at nice 10): eventalign
-     identical, call-methylation and variants under the printed-output
-     rule; one `scale_paths` JSON line (per run: wall, rate, Viterbi
+     --device cpu runs (started after the kernel build, at nice 10):
+     eventalign identical, call-methylation and variants under the
+     printed-output rule; one `scale_paths` JSON line (per run: wall, rate, Viterbi
      rounds, peak RSS, peak device memory, and per kernel the launches
      made and recorded and path ms);
   7. one JSON line describing each kernel (with `path_ms`, its summed
@@ -162,6 +174,9 @@ FWD_SEGMENTS, FWD_LONG = 2048, 64
 HMM_WIDTHS, WIDTH_SEGMENTS = (32, 64, 128, 256, 512), 64
 WIDE_WIDTHS = {2048: (8, 400, 500), 32768: (4, 30, 40),
                131072: (2, 30, 40)}
+# the share of the main corpora's eventalign jobs the device chain must
+# take
+CHAINED_MIN = 0.95
 # f32 operations of the scan's Forward per (event, kmer) cell, with an
 # expf/log1pf pair counted as two and an fma as two: the emission (5),
 # the five M-term adds, nine logaddexps of six operations each (five for
@@ -189,7 +204,7 @@ CPG_KEY = ("r9.4_450bps", "cpg", "template", 6)
 TRAIN_SEED, TRAIN_PERTURB, TRAIN_ROUNDS = 51, 4.0, 5
 TRAIN_MIN_EVENTS, TRAIN_MIN_M_KMERS = 30, 100
 TRAIN_KERNELS = ("banded_fill", "banded_backtrack", "viterbi_fill",
-                 "viterbi_backtrack", "forward_fill")
+                 "viterbi_backtrack", "forward_fill", "chain_step")
 # card against cpu: TRAIN_SUBSET reads, TRAIN_SUBSET_ROUNDS rounds
 TRAIN_SUBSET, TRAIN_SUBSET_ROUNDS, TRAIN_SUBSET_MIN_EVENTS = 8, 2, 10
 # torch threads of the subset's cpu run (a second process at nice 10)
@@ -213,13 +228,15 @@ EM_R, EM_N = 15_625, 1000
 # one-rank NCCL group, four over gloo; its kernels, launched in every
 # rank; the loss tolerance (tests/test_torch_parallel.py); the 1 x 1
 # step's Forward inputs (the wide row at its kmer width) of its
-# PAR_FWD_READS longest reads, held to the plain version
+# PAR_FWD_READS longest reads, held to the step's scores whole and to the
+# plain version over their first PAR_FWD_PLAIN_ROWS event rows (the plain
+# Forward's row loop took 126-165 s over all 15,289)
 PAR_CM_PROCS, PAR_EA_PROCS = (1, 2, 4), 2
 PAR_MESHES = ((1, 1), (2, 2))
 PAR_KERNELS = ("banded_fill", "banded_backtrack", "forward_fill")
 PAR_LOSS_ATOL, PAR_LOSS_RTOL = 2e-3, 1e-5
 PAR_CHILD_TIMEOUT = 300
-PAR_FWD_READS = 4
+PAR_FWD_READS, PAR_FWD_PLAIN_ROWS = 4, 3000
 FWD_ARGS = ("levels", "n_events", "mu", "sigma", "c", "n_kmers", "trans",
             "clips")
 # the long-read and scale phase: the cpu runs of a subset of each corpus
@@ -722,6 +739,145 @@ def phase_viterbi(model, dev, report):
         bms, by = bound(nbytes, flops)
         report[name].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                             max_abs_err=e)
+
+
+def chain_jobs(dev):
+    """The main corpus's eventalign jobs (strand 0 of each record), their
+    reads loaded on dev, staged for the device chain; and the records."""
+    from nanopolish_tpu_torch.alignment import device_chain as dc
+    from nanopolish_tpu_torch.alignment import eventalign as ea_core
+    from nanopolish_tpu_torch.io.bam import BamReader
+    from nanopolish_tpu_torch.io.fasta import FastaIndex
+    from nanopolish_tpu_torch.io.readdb import ReadDB
+    from nanopolish_tpu_torch.models.read_loader import load_squiggle_reads
+    ref_fa, fastq, bam = main_corpus()
+    db = ReadDB()
+    db.load(fastq)
+    reader = BamReader(bam)
+    recs, refs = list(reader), list(reader.references)
+    reader.close()
+    reads = load_squiggle_reads(sorted({r.qname for r in recs}), db,
+                                num_threads=4, device=dev)
+    fai = FastaIndex(ref_fa)
+    djobs = []
+    for i, rec in enumerate(recs):
+        job = ea_core._make_job(reads[rec.qname], rec, 0, i, fai, refs, -1,
+                                -1)
+        d = dc.stage_job(job) if job is not None else None
+        if d is None:
+            fail(f"chain check: {rec.qname} is not a chain job")
+        djobs.append(d)
+    return djobs, recs
+
+
+def chain_round_bytes(batch, st_before, st_after):
+    """Bytes one round of chain_step must move: per job with a window, its
+    event levels and kmer rows read and written (4 + 4 bytes an event, 24
+    a kmer of mu, sigma and c, the written rows padded to KP), the round's
+    path read (8 bytes a cell and its length), the kept rows written (12
+    bytes each), the two counts written, and for every job its meta and
+    state read and its state written by each launch."""
+    from nanopolish_tpu_torch.ops import chain_step as cs
+    active = st_after[:, cs.S_STRIDE] != 0        # this round's windows
+    nev = batch.n_events.cpu().numpy().astype(np.float64)[active]
+    nk = batch.n_kmers.cpu().numpy().astype(np.float64)[active]
+    cells = batch.path[:, 0].cpu().numpy().astype(np.float64)[active]
+    kept = (st_after[:, cs.S_CURSOR] - st_before[:, cs.S_CURSOR])[active]
+    kp = batch.mu.shape[1]
+    per_job = 2 * (4 * cs.N_META + 2 * 4 * cs.N_STATE)
+    return float(np.sum(8 * nev + 12 * nk + 12 * kp + 8 + 8 * (cells + 1)
+                        + 12 * kept) + batch.B * per_job)
+
+
+def phase_chain(dev, report):
+    """chain_step's two entry points against their plain versions, bit for
+    bit, on every round of the main corpus's 64 chains (forward and
+    reverse reads, last sections, jobs that have ended beside active
+    ones): the state, the Viterbi inputs and the kept rows; then timing
+    on a round where every chain has a window."""
+    import torch
+    from nanopolish_tpu_torch.alignment import device_chain as dc
+    from nanopolish_tpu_torch.ops import chain_step as cs
+
+    djobs, recs = chain_jobs(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    batch = dc.ChainBatch(djobs, dev)
+    bufs = ("levels", "mu", "sigma", "c", "n_events", "n_kmers")
+    seen = {"rounds": 0, "last": 0, "ended": 0}
+    snap = None
+    for _ in range(batch.max_rounds):
+        st0 = batch.state.clone()
+        want = {n: getattr(batch, n).clone() for n in bufs}
+        want_st = st0.clone()
+        batch.prepare()
+        cs.chain_prepare_plain(batch.meta, want_st, *batch.statics,
+                               *(want[n] for n in bufs))
+        for name, got, ref in [("state", batch.state, want_st)] + [
+                (n, getattr(batch, n), want[n]) for n in bufs]:
+            if not bits_equal(got, ref):
+                fail(f"chain_prepare: {name} differs from plain in round "
+                     f"{seen['rounds']}")
+        st = batch.state.cpu().numpy()
+        active = st[:, cs.S_STRIDE] != 0
+        if not active.any():
+            break
+        if snap is None and active.all():
+            snap = st0
+        seen["rounds"] += 1
+        seen["last"] += int((active & (st[:, cs.S_LAST] > 0)).any())
+        seen["ended"] += int((~active).any())
+        batch.viterbi()
+        want_st = batch.state.clone()
+        want_rows = batch.rows.clone()
+        batch.consume()
+        cs.chain_consume_plain(batch.meta, want_st, batch.statics[0],
+                               batch.path, want_rows)
+        if not (bits_equal(batch.state, want_st) and
+                bits_equal(batch.rows, want_rows)):
+            fail(f"chain_consume: state or rows differ from plain in round "
+                 f"{seen['rounds']}")
+    ok = batch.unpack()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20 - base_mb
+    n_rev = sum(r.is_reverse for r in recs)
+    if not all(ok) or not (seen["last"] and seen["ended"] and 0 < n_rev <
+                           len(recs)):
+        fail(f"chain check: {sum(ok)} of {len(ok)} chains ended, rounds "
+             f"{seen} (want last sections, ended jobs, both strands)")
+    # timing: the round from snap, prepare -> Viterbi -> consume; only
+    # chain_step's two launches are timed
+    def one_round():
+        batch.state.copy_(snap)
+        batch.prepare()
+        batch.viterbi()
+        batch.consume()
+
+    one_round()
+    st_before = snap.cpu().numpy()
+    st_after = batch.state.cpu().numpy()
+    nbytes = chain_round_bytes(batch, st_before, st_after)
+    ms = kernel_ms(one_round, "chain_step", reps=10)
+    plain_st = snap.clone()
+    plain_bufs = {n: getattr(batch, n).clone() for n in bufs}
+    prep_ms, _ = once_ms(lambda: cs.chain_prepare_plain(
+        batch.meta, plain_st, *batch.statics,
+        *(plain_bufs[n] for n in bufs)))
+    plain_rows = batch.rows.clone()
+    cons_ms, _ = once_ms(lambda: cs.chain_consume_plain(
+        batch.meta, plain_st, batch.statics[0], batch.path, plain_rows))
+    bms, by = bound(nbytes, 0.0)
+    report["chain_step"].update(ms=ms, plain_ms=prep_ms + cons_ms,
+                                bound_ms=bms, bound_by=by, max_abs_err=0.0)
+    log(f"chain_step {batch.B} chains ({n_rev} reverse): prepare and consume "
+        f"== plain, bit for bit, on all {seen['rounds']} rounds (last "
+        f"sections in {seen['last']}, ended jobs beside active ones in "
+        f"{seen['ended']}); a round of {batch.B} windows: {ms:.4f} ms (plain "
+        f"{prep_ms + cons_ms:.1f} ms; bound {bms:.6f} ms, {by}: "
+        f"{nbytes:.0f} bytes); the batch's device memory at its peak "
+        f"{peak_mb:.1f} MiB (its tensors and the plain versions' copies)")
+    del batch
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -1356,10 +1512,13 @@ def phase_golden(dev):
     from nanopolish_tpu_torch.apps import call_methylation as cm_app
     from nanopolish_tpu_torch.apps import eventalign as ea_app
 
+    from nanopolish_tpu_torch.alignment import device_chain as dc
+
     d = os.path.join(WORK, "golden")
     plan = [("gr0", 40, False), ("gr1", 420, True),
             ("gr2", 180, False), ("gr3", 560, True)]
     ref_fa, fastq, bam = build_pipeline(d, 900, plan, 300, seed=1234)
+    dc.reset_chain_stats()
     out = io.StringIO()
     summary = os.path.join(d, "summary.tsv")
     ea_app.main(["-r", fastq, "-b", bam, "-g", ref_fa, "--print-read-names",
@@ -1370,7 +1529,11 @@ def phase_golden(dev):
     ea_app.main(["-r", fastq, "-b", bam, "-g", ref_fa, "--sam",
                  "--device", dev.type], stdout=out)
     same_as_golden(out.getvalue(), "eventalign.sam")
-    log(f"golden eventalign on {dev.type}: tsv, summary and sam identical "
+    if dc.CHAIN_STATS["chained"] != 2 * len(plan):
+        fail(f"golden eventalign: the device chain took "
+             f"{dc.CHAIN_STATS['chained']} of {2 * len(plan)} jobs")
+    log(f"golden eventalign on {dev.type} through the device chain "
+        f"({json.dumps(dc.CHAIN_STATS)}): tsv, summary and sam identical "
         f"to tests/golden/ byte for byte")
 
     # the methylation golden recipe (tests/test_golden_outputs.py:123-155)
@@ -1554,6 +1717,19 @@ def build_main_corpus(d, methylated=()):
                           seed=99, methylated=methylated, sort_bam=True)
 
 
+_MAIN = {}
+
+
+def main_corpus():
+    """build_main_corpus under WORK/main, built once: (ref_fa, fastq,
+    bam); _MAIN["setup_s"] holds the seconds its build took."""
+    if not _MAIN:
+        t0 = time.perf_counter()
+        _MAIN["files"] = build_main_corpus(os.path.join(WORK, "main"))
+        _MAIN["setup_s"] = time.perf_counter() - t0
+    return _MAIN["files"]
+
+
 def timed_run(fn, kernels):
     """Run fn() with the launch counts set to 0 just before it and read
     just after; fail unless each named kernel was launched.  Returns
@@ -1576,22 +1752,36 @@ def timed_run(fn, kernels):
 def phase_eventalign(dev):
     from nanopolish_tpu_torch.apps import eventalign as ea_app
 
+    from nanopolish_tpu_torch.alignment import device_chain as dc
+
     n_reads, read_len = MAIN_READS, MAIN_READ_LEN
     d = os.path.join(WORK, "main")
-    t0 = time.perf_counter()
-    ref_fa, fastq, bam = build_main_corpus(d)
-    setup_s = time.perf_counter() - t0
+    ref_fa, fastq, bam = main_corpus()
+    setup_s = _MAIN["setup_s"]
     out_path = os.path.join(d, "eventalign.tsv")
+    argv = ["-r", fastq, "-b", bam, "-g", ref_fa, "--device", dev.type]
 
     def run():
+        dc.reset_chain_stats()
         with open(out_path, "w") as fh:
-            ea_app.main(["-r", fastq, "-b", bam, "-g", ref_fa, "--device",
-                         dev.type, "--summary",
-                         os.path.join(d, "summary.tsv")], stdout=fh)
+            ea_app.main(argv + ["--summary", os.path.join(d, "summary.tsv")],
+                        stdout=fh)
 
     wall, launches, busy_s, top, path = profiled_run(
         run, ("banded_fill", "banded_backtrack", "viterbi_fill",
-              "viterbi_backtrack"))
+              "viterbi_backtrack", "chain_step"))
+    chain = chain_stats("main eventalign")
+
+    def host_run():
+        with open(os.path.join(d, "host.tsv"), "w") as fh:
+            ea_app.main(argv + ["--summary", os.path.join(
+                d, "host_summary.tsv")], stdout=fh)
+
+    host_wall = same_without_chain(
+        host_run, [(out_path, os.path.join(d, "host.tsv")),
+                   (os.path.join(d, "summary.tsv"),
+                    os.path.join(d, "host_summary.tsv"))],
+        "main eventalign --summary")
     rows = 0
     bad = 0
     names = set()
@@ -1618,8 +1808,43 @@ def phase_eventalign(dev):
         f"{setup_s:.1f} s; under torch.profiler); card busy {busy_s:.4f} s "
         f"(idle share {1 - busy_s / wall:.4f}), by kernel {json.dumps(top)}; "
         f"launches {json.dumps(launches)}; path ms (launches made, "
-        f"recorded) {json.dumps(path_summary(path))}")
+        f"recorded) {json.dumps(path_summary(path))}; device chain "
+        f"{json.dumps(chain)}; with NPT_EA_DEVICE_CHAIN=0 {host_wall:.2f} s "
+        f"(not profiled), tsv and summary identical")
     return path, (ref_fa, fastq, bam)
+
+
+def chain_stats(what):
+    """The device chain's CHAIN_STATS of the run just made, with its
+    active-count reads per batch; fails unless it took CHAINED_MIN of the
+    jobs."""
+    from nanopolish_tpu_torch.alignment import device_chain as dc
+    st = dict(dc.CHAIN_STATS)
+    jobs = st["chained"] + st["aborted"] + st["ineligible"]
+    st["checks_per_batch"] = round(st["checks"] / max(st["batches"], 1), 2)
+    if not jobs or st["chained"] < CHAINED_MIN * jobs:
+        fail(f"{what}: the device chain took {st['chained']} of {jobs} jobs "
+             f"({json.dumps(st)}); at least {CHAINED_MIN:.0%} wanted")
+    return st
+
+
+def same_without_chain(fn, pairs, what):
+    """Run fn() with NPT_EA_DEVICE_CHAIN=0 (the host wavefront, on the
+    card) and fail unless each (chain output, host output) file pair is
+    byte-identical.  Returns the run's wall seconds."""
+    os.environ["NPT_EA_DEVICE_CHAIN"] = "0"
+    try:
+        wall, _ = timed_run(fn, ("viterbi_fill", "viterbi_backtrack"))
+    finally:
+        del os.environ["NPT_EA_DEVICE_CHAIN"]
+    for got, want in pairs:
+        a, b = open(got).read(), open(want).read()
+        if a != b:
+            al, bl = a.splitlines(), b.splitlines()
+            n = abs(len(al) - len(bl)) + sum(x != y for x, y in zip(al, bl))
+            fail(f"{what}: {os.path.basename(got)} through the device chain "
+                 f"differs from the host wavefront's in {n} lines")
+    return wall
 
 
 def phase_call_methylation(dev):
@@ -1727,21 +1952,66 @@ def build_phased(d):
     return ref_fa, fastq, bam, vcf
 
 
+def scorereads_long_check(dev, ea_corpus):
+    """scorereads on the card at the main path's read length: 8 of the
+    eventalign corpus's 8 kb reads, through the device chain, held byte
+    for byte to the same run with NPT_EA_DEVICE_CHAIN=0 (the host
+    wavefront, on the card, which phase 5 and the cpu runs hold to the
+    goldens and the plain versions)."""
+    from nanopolish_tpu_torch.alignment import device_chain as dc
+    from nanopolish_tpu_torch.apps import scorereads as sc_app
+
+    ref_fa, fastq, bam = ea_corpus
+    d = os.path.join(WORK, "scorereads")
+    os.makedirs(d, exist_ok=True)
+    argv = ["-r", fastq, "-b", bam, "-g", ref_fa, "--max-reads", "8",
+            "--device", dev.type]
+    chain_out, host_out = (os.path.join(d, "chain.txt"),
+                           os.path.join(d, "host.txt"))
+
+    def run(path):
+        with open(path, "w") as fh:
+            sc_app.main(argv, stdout=fh)
+
+    dc.reset_chain_stats()
+    wall, launches = timed_run(
+        lambda: run(chain_out),
+        ("banded_fill", "viterbi_fill", "forward_fill", "chain_step"))
+    chain = chain_stats("scorereads 8 x 8 kb")
+    host_wall = same_without_chain(lambda: run(host_out),
+                                   [(chain_out, host_out)],
+                                   "scorereads 8 x 8 kb")
+    lines = open(chain_out).read().splitlines()
+    reads = {ln.split()[0] for ln in lines if not ln.startswith("SEGMENT")}
+    scores = [float(ln.split()[3]) for ln in lines
+              if not ln.startswith("SEGMENT")]
+    if len(reads) < 6 or not all(math.isfinite(x) for x in scores):
+        fail(f"scorereads 8 x 8 kb: {len(reads)} reads scored, scores "
+             f"{scores}")
+    log(f"scorereads 8 reads x {MAIN_READ_LEN} bases on {dev.type}: "
+        f"{len(lines)} lines in {wall:.2f} s; launches "
+        f"{json.dumps(launches)}; device chain {json.dumps(chain)}; with "
+        f"NPT_EA_DEVICE_CHAIN=0 {host_wall:.2f} s, identical")
+
+
 def phase_scorereads_phase(dev, ea_corpus):
-    """scorereads on 8 eventalign reads and on build_deletion_corpus's read
-    (a chunk of 1,384 kmers: the wide row), and phase-reads on the phased
-    corpus, on the card and on the CPU, held to each other under the
-    printed-output rule."""
+    """scorereads on 8 of the eventalign corpus's 8 kb reads on the card
+    (scorereads_long_check), then scorereads on the phased corpus's two
+    reads and on build_deletion_corpus's read (a chunk of 1,384 kmers:
+    the wide row), and phase-reads on the phased corpus, on the card and
+    on the CPU, held to each other under the printed-output rule."""
     from nanopolish_tpu_torch.apps import phase_reads as pr_app
     from nanopolish_tpu_torch.apps import scorereads as sc_app
     from nanopolish_tpu_torch.utils.synthetic import build_deletion_corpus
 
-    ref_fa, fastq, bam = ea_corpus
+    scorereads_long_check(dev, ea_corpus)
     ref_fa2, fastq2, bam2, vcf = build_phased(os.path.join(WORK, "phase"))
     ref_fa3, fastq3, bam3 = build_deletion_corpus(os.path.join(WORK, "wide"))
-    runs = (("scorereads", sc_app, ["-r", fastq, "-b", bam, "-g", ref_fa,
-                                    "--max-reads", "8"], False,
-             ("banded_fill", "viterbi_fill", "forward_fill")),
+    # the card against the cpu on the phased corpus's 900-base reads: the
+    # cpu side of 8 x 8 kb reads took 131-204 s, of 2 kb windows of them
+    # 75 s (the plain Viterbi's rounds on the cpu)
+    runs = (("scorereads", sc_app, ["-r", fastq2, "-b", bam2, "-g", ref_fa2],
+             False, ("banded_fill", "viterbi_fill", "forward_fill")),
             ("scorereads (a 1,384-kmer chunk)", sc_app,
              ["-r", fastq3, "-b", bam3, "-g", ref_fa3], False,
              ("banded_fill", "viterbi_fill", "forward_fill")),
@@ -1882,7 +2152,7 @@ def kernel_device_us(averages):
     """Device microseconds and recorded launches of each port kernel
     (cuda_build.KERNELS) in a torch.profiler run (its key_averages()),
     from the CUDA function names: csrc/<name>.cu defines <name>_kernel,
-    <name>_warp_kernel<R> or <name>_block_kernel."""
+    <name>_warp_kernel<R>, <name>_block_kernel or <name>_<op>_kernel."""
     import re
     from nanopolish_tpu_torch.utils import cuda_build
     out = {name: (0.0, 0) for name in cuda_build.KERNELS}
@@ -2276,7 +2546,7 @@ def phase_training_subset(dev, inputs, cpu_proc, ea_corpus):
         c_out = fh.read()
     log(f"methyltrain {TRAIN_SUBSET} reads, {TRAIN_SUBSET_ROUNDS} rounds on "
         f"cpu (a second process at nice 10, {CPU_SUBSET_THREADS} torch "
-        f"threads, beside the card's phase 6): {float(c['seconds']):.2f} s, "
+        f"threads, beside the card's phases): {float(c['seconds']):.2f} s, "
         f"waited "
         f"{time.perf_counter() - t0:.2f} s for it; kmers trained "
         f"{json.dumps(c['n'].tolist())}")
@@ -2705,32 +2975,40 @@ def mesh_model(ranks, mp):
 def step_forward_check(d, dev):
     """forward_fill on the 1 x 1 step's own Forward inputs of its
     PAR_FWD_READS longest reads (whole reads, the step's kmer width),
-    bit for bit against forward_fill_plain on the same card tensors and
-    against the step's scores."""
+    bit for bit against the step's scores, and against forward_fill_plain
+    on the same card tensors with the reads cut to their first
+    PAR_FWD_PLAIN_ROWS events."""
     import torch
     from nanopolish_tpu_torch.ops import profile_hmm as ph
     from nanopolish_tpu_torch.ops import profile_hmm_forward as pf
     a = np.load(os.path.join(d, "forward_inputs.npz"))
     args = [torch.as_tensor(a[k], device=dev) for k in FWD_ARGS]
     got = pf.forward_fill(*args)
-    plain_ms, ref = once_ms(lambda: ph.forward_fill_plain(*args))
     kp = args[2].shape[1]
     what = (f"the train step's Forward ({len(got)} whole reads of up to "
             f"{int(a['n_events'].max())} events and {int(a['n_kmers'].max())}"
             f" kmers, kmer width {kp}, {layout_name(kp)})")
-    if not bits_equal(got, ref):
-        fail(f"forward_fill differs from the plain version on {what}: max "
-             f"abs err {max_abs_err(got, ref)} nats")
     if not bits_equal(got.cpu(), torch.as_tensor(a["lp"])):
         fail(f"forward_fill on {what} differs from the step's own scores")
+    cut = list(args)
+    cut[FWD_ARGS.index("n_events")] = args[FWD_ARGS.index(
+        "n_events")].clamp(max=PAR_FWD_PLAIN_ROWS)
+    got_cut = pf.forward_fill(*cut)
+    plain_ms, ref = once_ms(lambda: ph.forward_fill_plain(*cut))
+    if not bits_equal(got_cut, ref):
+        fail(f"forward_fill differs from the plain version on {what} cut to "
+             f"{PAR_FWD_PLAIN_ROWS} events: max abs err "
+             f"{max_abs_err(got_cut, ref)} nats")
     ms = cuda_ms(lambda: pf.forward_fill(*args))
     bms, by = bound(*forward_work(a["n_events"], a["n_kmers"]))
-    log(f"forward on {what}: bit-identical to plain and to the step; kernel "
-        f"{ms:.4f} ms (plain {plain_ms:.1f} ms), bound {bms:.4f} ms ({by}: "
+    log(f"forward on {what}: bit-identical to the step, and to plain over "
+        f"the first {PAR_FWD_PLAIN_ROWS} events (plain {plain_ms:.1f} ms); "
+        f"kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}: "
         f"{int(np.sum(a['n_events']))} event rows x their reads' kmers)")
     return {"reads": len(got), "events": int(a["n_events"].max()),
             "kmer_width": kp, "layout": layout_name(kp), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+            "plain_ms": plain_ms, "plain_rows": PAR_FWD_PLAIN_ROWS,
+            "bound_ms": bms, "bound_by": by}
 
 
 def phase_parallel_train(dev, ea_corpus):
@@ -2905,6 +3183,7 @@ def scale_run(name, fn, kernels):
     peak device memory, rounds (eventalign's Viterbi calls) and each
     kernel's launches and path ms."""
     import torch
+    from nanopolish_tpu_torch.alignment import device_chain as dc
     from nanopolish_tpu_torch.alignment import eventalign as ea_core
     real = ea_core.viterbi_segments
     rounds = [0]
@@ -2919,6 +3198,7 @@ def scale_run(name, fn, kernels):
 
     def run():
         rounds[0] = 0
+        dc.reset_chain_stats()
         return fn()
 
     try:
@@ -2929,7 +3209,9 @@ def scale_run(name, fn, kernels):
     grown = rss["peak"] - rss["start"]
     dev_mb = torch.cuda.max_memory_allocated() / 2**20
     wall_max, rss_max, dev_max = SCALE_CEILINGS[name]
+    chain = dict(dc.CHAIN_STATS)
     rec = {"wall_s": round(wall, 3), "rounds": rounds[0],
+           "chain_rounds": chain["rounds"], "chain": chain,
            "peak_rss_mb": round(rss["peak"], 1),
            "rss_start_mb": round(rss["start"], 1),
            "peak_device_mb": round(dev_mb, 1),
@@ -2941,7 +3223,8 @@ def scale_run(name, fn, kernels):
            "ceilings": {"wall_s": wall_max, "rss_growth_mb": rss_max,
                         "peak_device_mb": dev_max}}
     log(f"{name} on the card ({card()}): {wall:.2f} s under torch.profiler, "
-        f"{rounds[0]} Viterbi rounds, peak RSS {rss['peak']:.1f} MiB (at its "
+        f"{rounds[0]} host wavefront rounds, device chain "
+        f"{json.dumps(chain)}, peak RSS {rss['peak']:.1f} MiB (at its "
         f"start {rss['start']:.1f}), peak device memory {dev_mb:.1f} MiB; "
         f"card busy {busy_s:.4f} s (idle share "
         f"{1 - busy_s / wall:.4f}), by kernel {json.dumps(top)}; path ms "
@@ -2980,7 +3263,7 @@ def phase_longread_scale(dev, lr, sc, cpu_proc):
     from nanopolish_tpu_torch.models.read_loader import load_squiggle_reads
 
     banded = ("banded_fill", "banded_backtrack")
-    viterbi = banded + ("viterbi_fill", "viterbi_backtrack")
+    viterbi = banded + ("viterbi_fill", "viterbi_backtrack", "chain_step")
     forward = banded + ("forward_fill",)
     rec = {}
     lengths = [p[3] for p in lr["plan"]]
@@ -3031,6 +3314,13 @@ def phase_longread_scale(dev, lr, sc, cpu_proc):
         fail(f"long-read eventalign: {len(lines)} lines for {sum(lengths)} "
              f"bases, longest span {span} (bars: more lines than bases, a "
              f"span over 99,000)")
+    r["chain"] = chain_stats("long-read eventalign")
+    host_out = os.path.join(d, "host.tsv")
+    r["host_wall_s"] = round(same_without_chain(
+        app_run(ea_app, args, host_out), [(ea_out, host_out)],
+        "long-read eventalign"), 3)
+    log(f"long-read eventalign with NPT_EA_DEVICE_CHAIN=0: "
+        f"{r['host_wall_s']:.2f} s (not profiled), tsv identical")
     cm_out = os.path.join(d, "methylation.tsv")
     rec["longread call-methylation"] = r = scale_run(
         "longread call-methylation",
@@ -3057,6 +3347,7 @@ def phase_longread_scale(dev, lr, sc, cpu_proc):
     if not (n_rows > 100_000 and n_sum > 450):
         fail(f"scale eventalign: {n_rows} rows, {n_sum} summary rows (bars: "
              f"> 100,000 and > 450)")
+    r["chain"] = chain_stats("scale eventalign")
     cm_out = os.path.join(d, "methylation.tsv")
     rec["scale call-methylation"] = r = scale_run(
         "scale call-methylation",
@@ -3158,21 +3449,9 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         log(f"  {name}: {' | '.join(info)}")
 
-    report = {name: {} for name in cuda_build.KERNELS}
-    model = PoreModelSet.instance().get_model(
-        "r9.4_450bps", "nucleotide", "template", 6)
-    phase_banded(model, dev, report)
-    phase_viterbi(model, dev, report)
-    phase_forward(model, dev, report)
-    phase_forward_indexed(model, dev, report)
-    phase_segmentation(dev, report)
-    phase_golden(dev)
-    # each kernel's launches and device time are those of its own slice's
-    # main path: eventalign (banded, Viterbi), call-methylation (Forward),
-    # variants (indexed Forward), polya (segmentation)
     # the training corpus, and the methyltrain subset's cpu run, started
     # now in a second process at low priority so that it runs beside the
-    # card's main paths
+    # card's phases (it is awaited in phase 6)
     t0 = time.perf_counter()
     inputs, true_cpg, is_m = build_train_corpus(os.path.join(WORK, "train"))
     train_setup_s = time.perf_counter() - t0
@@ -3183,6 +3462,19 @@ def main() -> int:
     lr_corpus, sc_corpus = scale_corpora()
     log(f"long-read and scale corpora: {time.perf_counter() - t0:.1f} s")
     cpu_scale = start_cpu_scale(lr_corpus, sc_corpus)
+    report = {name: {} for name in cuda_build.KERNELS}
+    model = PoreModelSet.instance().get_model(
+        "r9.4_450bps", "nucleotide", "template", 6)
+    phase_banded(model, dev, report)
+    phase_viterbi(model, dev, report)
+    phase_chain(dev, report)
+    phase_forward(model, dev, report)
+    phase_forward_indexed(model, dev, report)
+    phase_segmentation(dev, report)
+    phase_golden(dev)
+    # each kernel's launches and device time are those of its own slice's
+    # main path: eventalign (banded, Viterbi), call-methylation (Forward),
+    # variants (indexed Forward), polya (segmentation)
     ea_path, ea_corpus = phase_eventalign(dev)
     cm_path, meth_corpus = phase_call_methylation(dev)
     own = {"forward_fill": cm_path}
@@ -3240,6 +3532,8 @@ def main() -> int:
         "forward_indexed": "nanopolish_tpu/ops/pallas_profile_hmm.py:987",
         "seg_viterbi_fill": "nanopolish_tpu/ops/pallas_segmentation.py:101",
         "seg_backtrack": "nanopolish_tpu/ops/pallas_segmentation.py:177",
+        # no pallas_call: the JAX chain's loop body around kernels 3-4
+        "chain_step": "nanopolish_tpu/alignment/device_chain.py:226",
     }
     kernels = []
     for name in cuda_build.KERNELS:

@@ -2,7 +2,9 @@
 
 Rebuild of get_aligned_segments (src/alignment/nanopolish_anchor.cpp:20-88).
 Pairs are (ref_pos, read_pos) numpy columns per segment; read_stride
-supports event-space CIGARs (stride ±1).
+supports event-space CIGARs (stride ±1).  Also the anchors eventalign's
+segment chain starts from and advances by (``start_segment``,
+``get_end_pair``).
 """
 
 from __future__ import annotations
@@ -85,3 +87,41 @@ def get_end_pair(pairs: np.ndarray, ref_pos_max: int, pair_idx: int) -> int:
             return i - 1
         i += 1
     return n - 1
+
+
+def start_segment(job) -> bool:
+    """Initialize an eventalign job's chain state
+    (``alignment/eventalign._Job``) for aligned segment seg_i: its first
+    pair and its first and last events; False if the whole job is
+    finished.  Shared by the host wavefront and the device chain's
+    staging."""
+    read = job.read
+    k = job.model.k
+    while job.seg_i < len(job.pair_segments):
+        pairs = job.pair_segments[job.seg_i]
+        if pairs.shape[0] == 0:
+            job.seg_i += 1
+            continue
+        do_base_rc = job.record.is_reverse
+        read_kidx_start = int(pairs[0, 1])
+        read_kidx_end = int(pairs[-1, 1])
+        if do_base_rc:
+            read_kidx_start = read.flip_k_strand(read_kidx_start, k)
+            read_kidx_end = read.flip_k_strand(read_kidx_end, k)
+        if read_kidx_start < 0 or read_kidx_end < 0:
+            job.seg_i += 1
+            continue
+        first_event = read.get_closest_event_to(read_kidx_start, job.strand)
+        last_event = read.get_closest_event_to(read_kidx_end, job.strand)
+        if first_event == -1 or last_event == -1:
+            job.seg_i += 1
+            continue
+        job.pairs = pairs
+        job.curr_start_event = first_event
+        job.last_event = last_event
+        job.forward = first_event < last_event
+        job.curr_start_ref = int(pairs[0, 0])
+        job.curr_pair_idx = 0
+        return True
+    job.done = True
+    return False

@@ -6,11 +6,15 @@ emitting ~50 alignments, chained by the last output event/kmer).  The chain
 is inherently sequential per read, so the port runs a **segment
 wavefront**: every active (read, strand) job contributes its current
 segment to one batched Viterbi launch per round; jobs advance until
-exhausted.  Batch occupancy stays high while any reads remain.
+exhausted.  Batch occupancy stays high while any reads remain.  On the
+card the rounds run as the device chain (``alignment/device_chain``: the
+per-round setup and bookkeeping below as kernels, no fetch per round);
+the host wavefront here takes the jobs the chain declines or gives back.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
@@ -19,8 +23,10 @@ import numpy as np
 from ..io.bam import BamRecord
 from ..models.hmm_input import HMMInputSequence
 from ..models.squiggle import SquiggleRead
-from .anchor import (get_aligned_segments, get_end_pair, trim_pairs_to_kmer,
-                     trim_pairs_to_ref_region)
+from ..utils.device import resolve_device
+from .anchor import (get_aligned_segments, get_end_pair, start_segment,
+                     trim_pairs_to_kmer, trim_pairs_to_ref_region)
+from .device_chain import CHAIN_STATS, run_device_chain, stage_job
 from .segments import HMMSegment, make_segment, viterbi_segments
 
 ALIGN_STRIDE = 100   # ref bases per HMM call (eventalign.cpp:668)
@@ -158,41 +164,6 @@ class _Job:
     _end_pair_idx: int = 0
 
 
-def _start_segment(job: _Job) -> bool:
-    """Initialize chain state for aligned segment seg_i; False if the whole
-    job is finished."""
-    read = job.read
-    k = job.model.k
-    while job.seg_i < len(job.pair_segments):
-        pairs = job.pair_segments[job.seg_i]
-        if pairs.shape[0] == 0:
-            job.seg_i += 1
-            continue
-        do_base_rc = job.record.is_reverse
-        read_kidx_start = int(pairs[0, 1])
-        read_kidx_end = int(pairs[-1, 1])
-        if do_base_rc:
-            read_kidx_start = read.flip_k_strand(read_kidx_start, k)
-            read_kidx_end = read.flip_k_strand(read_kidx_end, k)
-        if read_kidx_start < 0 or read_kidx_end < 0:
-            job.seg_i += 1
-            continue
-        first_event = read.get_closest_event_to(read_kidx_start, job.strand)
-        last_event = read.get_closest_event_to(read_kidx_end, job.strand)
-        if first_event == -1 or last_event == -1:
-            job.seg_i += 1
-            continue
-        job.pairs = pairs
-        job.curr_start_event = first_event
-        job.last_event = last_event
-        job.forward = first_event < last_event
-        job.curr_start_ref = int(pairs[0, 0])
-        job.curr_pair_idx = 0
-        return True
-    job.done = True
-    return False
-
-
 def _prepare(job: _Job) -> Optional[HMMSegment]:
     """Build the next HMM segment for this job, or None when finished.
     Mirrors the loop body of align_read_to_ref (eventalign.cpp:691-760)."""
@@ -203,7 +174,7 @@ def _prepare(job: _Job) -> Optional[HMMSegment]:
         if job.done:
             return None
         if job.pairs is None:
-            if not _start_segment(job):
+            if not start_segment(job):
                 return None
         # loop condition (eventalign.cpp:689-690)
         if not ((job.forward and job.curr_start_event < job.last_event) or
@@ -307,7 +278,10 @@ def align_reads_to_ref(
     `alphabet` selects an alternative pore model family (e.g. "cpg") as
     EventAlignmentParameters.alphabet does (nanopolish_eventalign.h:33).
     The Viterbi rounds run on ``device`` (``cuda`` unless ``cpu`` is
-    asked)."""
+    asked): through the device chain (``alignment/device_chain``) where
+    ``NPT_EA_DEVICE_CHAIN`` says so (``auto``, the default: on the card;
+    ``1``: also on the CPU, with the plain versions; ``0``: never), and
+    the host wavefront for the jobs the chain declines or gives back."""
     jobs: List[Optional[_Job]] = []
     for read, record, strand, read_idx in jobs_in:
         job = _make_job(read, record, strand, read_idx, fai, references,
@@ -316,7 +290,9 @@ def align_reads_to_ref(
         jobs.append(job)
 
     live = [j for j in jobs if j is not None and not j.done]
-
+    if live and _device_chain_on(device):
+        _run_device_chain(live, device)
+        live = [j for j in live if not j.done]
     _run_wavefront(live, device)
 
     out = []
@@ -341,6 +317,30 @@ def align_reads_to_ref(
         else:
             out.append(cols.to_rows() if cols is not None else [])
     return out
+
+
+def _device_chain_on(device) -> bool:
+    mode = os.environ.get("NPT_EA_DEVICE_CHAIN", "auto")
+    if mode not in ("auto", "0", "1"):
+        raise ValueError(f"NPT_EA_DEVICE_CHAIN={mode!r}: use auto, 0 or 1")
+    return mode == "1" or (mode == "auto"
+                           and resolve_device(device).type == "cuda")
+
+
+def _run_device_chain(live: List[_Job], device) -> None:
+    """Stage each job for the device chain and run the chain, one batch
+    per kmer size; the jobs it declines or gives back stay not done."""
+    by_k: dict = {}
+    for j in live:
+        d = stage_job(j)
+        if d is not None:
+            by_k.setdefault(j.model.k, []).append(d)
+        elif not j.done:
+            # a job stage_job completed (nothing left to align) is no
+            # fallback
+            CHAIN_STATS["ineligible"] += 1
+    for group in by_k.values():
+        run_device_chain(group, device)
 
 
 def _run_wavefront(active: List[_Job], device=None) -> None:

@@ -9,7 +9,9 @@ Rebuild of the universal ingest path ``SquiggleRead::load_from_raw``
   host:   QC + SquiggleRead assembly
 
 Reads are length-sorted and padded per chunk.  A chunk's intermediate
-results stay on the device; its results come back in one fetch.
+results stay on the device; its results come back in one fetch
+(``ops/ingest_fused``), before the next chunk is issued: chunks in
+flight gained nothing on the card (tools/ingest_window.py).
 """
 
 from __future__ import annotations
@@ -23,8 +25,7 @@ import numpy as np
 import torch
 
 from ..ops import event_detect
-from ..ops.banded_exact import banded_align_exact
-from ..ops.scaling import estimate_scalings_mom, mstate_events_batch, recalibrate
+from ..ops.ingest_fused import ingest_align_recalibrate_async
 from ..utils.device import resolve_device
 from .pore_model import PoreModel, PoreModelSet
 from .squiggle import (
@@ -189,7 +190,7 @@ def build_reads(
     for lo in range(0, len(work), max_batch):
         chunks.extend(_split_for_hbm(work[lo : lo + max_batch]))
     for c in chunks:
-        _process_chunk(c, results, stats, dev)
+        _finish_chunk(c, _dispatch_chunk(c, dev), results, stats)
     return results
 
 
@@ -237,51 +238,21 @@ def _pack_chunk_host(chunk, T, K):
     return ev_mean, ev_time, n_events, lvl_mean, lvl_stdv, ranks_pad, n_kmers
 
 
-def _process_chunk(chunk, results, stats: ReadStats, dev: torch.device):
-    """MoM -> banded alignment -> 'M' events -> recalibration for one
-    chunk, on ``dev``; one device->host fetch at the end."""
-    B = len(chunk)
-    if B == 0:
-        return
+def _dispatch_chunk(chunk, dev: torch.device):
+    """Issue one chunk's MoM -> banded alignment -> 'M' events ->
+    recalibration on ``dev``; returns the closure that fetches it
+    (``ops/ingest_fused``)."""
     T = _bucket_dims(max(len(w[2]) for w in chunk))
     K = _bucket_dims(max(len(w[4]) for w in chunk))
-    (ev_mean, ev_time, n_events, lvl_mean, lvl_stdv, ranks_pad,
-     n_kmers) = _pack_chunk_host(chunk, T, K)
-    d = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
-    ev_mean_d, ev_time_d, lvl_mean_d, lvl_stdv_d = (
-        d(ev_mean), d(ev_time), d(lvl_mean), d(lvl_stdv))
-    n_events_d, n_kmers_d, ranks_d = d(n_events), d(n_kmers), d(ranks_pad)
+    return ingest_align_recalibrate_async(*_pack_chunk_host(chunk, T, K),
+                                          device=dev)
 
-    # MoM scaling, then the scaled gaussians for the banded aligner
-    # (var=1, drift=0 here)
-    shift, scale = estimate_scalings_mom(ev_mean_d, n_events_d, lvl_mean_d,
-                                         n_kmers_d)
-    mu = scale[:, None] * lvl_mean_d
-    mu = mu + shift[:, None]
-    res = banded_align_exact(ev_mean_d, n_events, mu, lvl_stdv_d,
-                             np.log(lvl_stdv), n_kmers, device=dev)
 
-    # recalibration inputs: 'M' events
-    m_mask = mstate_events_batch(res.b2e_start, res.b2e_stop, ranks_d,
-                                 n_kmers_d)
-    ev_idx = res.b2e_start.to(torch.int64).clamp(0, T - 1)
-    levels = torch.gather(ev_mean_d, 1, ev_idx)
-    # time relative to first event (squiggle_read.h get_time)
-    times = torch.gather(ev_time_d, 1, ev_idx) - ev_time_d[:, :1]
-    recal = recalibrate(levels, times, lvl_mean_d, lvl_stdv_d, m_mask,
-                        scale_var=True, scale_drift=False)
-
-    # one fetch: both maps, the verdicts and the f32 results as raw bits
-    floats = torch.stack([res.events_per_base, recal.shift, recal.scale,
-                          recal.drift, recal.var,
-                          recal.recalibrated.to(torch.float32)], dim=1)
-    wire = torch.cat([res.b2e_start, res.b2e_stop,
-                      res.failed.to(torch.int32)[:, None],
-                      floats.view(torch.int32)], dim=1).cpu().numpy()
-    fl = np.ascontiguousarray(wire[:, 2 * K + 1:]).view(np.float32)
-    _assemble_reads(chunk, wire[:, :K], wire[:, K:2 * K],
-                    wire[:, 2 * K] != 0, fl[:, 0], fl[:, 1], fl[:, 2],
-                    fl[:, 3], fl[:, 4], fl[:, 5] != 0.0, results, stats)
+def _finish_chunk(chunk, resolve, results, stats: ReadStats):
+    r = resolve()
+    _assemble_reads(chunk, r.b2e_start, r.b2e_stop, r.failed,
+                    r.events_per_base, r.shift, r.scale, r.drift, r.var,
+                    r.recal_ok, results, stats)
 
 
 def _assemble_reads(chunk, b2e_start, b2e_stop, failed_align,

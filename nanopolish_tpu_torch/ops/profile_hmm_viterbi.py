@@ -85,13 +85,16 @@ def wide_scratch(kp: int, B: int, dev):
     return torch.empty((B, 3, kp), dtype=torch.float32, device=dev)
 
 
-def viterbi_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips):
+def viterbi_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips,
+                 out=None):
     """Viterbi fill with trace [B, T, KP] uint8 (``viterbi_fill_plain``
     layout); the kmer tables are [B, KP] with KP from ``kmer_width``, laid
-    out on the card as ``row_layout`` says."""
+    out on the card as ``row_layout`` says.  ``out``: a trace tensor to
+    write into (and return) instead of a new one."""
     if levels.device.type == "cpu":
-        return viterbi_fill_plain(levels, n_events, mu, sigma, c, n_kmers,
-                                  trans, clips)
+        trace = viterbi_fill_plain(levels, n_events, mu, sigma, c, n_kmers,
+                                   trans, clips)
+        return trace if out is None else out.copy_(trace)
     cuda_build.require_cuda(levels)
     dev = levels.device
     B, T = levels.shape
@@ -105,7 +108,11 @@ def viterbi_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips):
     cuda_build.check_tensor("n_kmers", n_kmers, i32, (B,), dev)
     cuda_build.check_tensor("trans", trans, f32, (B, 8), dev)
     cuda_build.check_tensor("clips", clips, torch.uint8, (B, 2), dev)
-    trace = torch.empty((B, T, KP), dtype=torch.uint8, device=dev)
+    if out is None:
+        trace = torch.empty((B, T, KP), dtype=torch.uint8, device=dev)
+    else:
+        cuda_build.check_tensor("out", out, torch.uint8, (B, T, KP), dev)
+        trace = out
     scratch = wide_scratch(KP, B, dev)
     cuda_build.launch(
         "viterbi_fill", levels.data_ptr(), T, mu.data_ptr(), sigma.data_ptr(),
@@ -117,11 +124,13 @@ def viterbi_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips):
     return trace
 
 
-def viterbi_backtrack(trace, n_events, n_kmers):
+def viterbi_backtrack(trace, n_events, n_kmers, out=None):
     """Traceback paths [B, 1 + T + KP] int64 (``viterbi_backtrack_plain``
-    layout; entries past each path's length are unspecified)."""
+    layout; entries past each path's length are unspecified).  ``out``: a
+    path tensor to write into (and return) instead of a new one."""
     if trace.device.type == "cpu":
-        return viterbi_backtrack_plain(trace, n_events, n_kmers)
+        path = viterbi_backtrack_plain(trace, n_events, n_kmers)
+        return path if out is None else out.copy_(path)
     cuda_build.require_cuda(trace)
     dev = trace.device
     B, T, KP = trace.shape
@@ -132,7 +141,11 @@ def viterbi_backtrack(trace, n_events, n_kmers):
         raise ValueError("trace: the kernel stages it in 16-byte copies and "
                          "needs a 16-byte aligned start")
     rows, window = backtrack_tile(KP)
-    path = torch.empty((B, 1 + T + KP), dtype=torch.int64, device=dev)
+    if out is None:
+        path = torch.empty((B, 1 + T + KP), dtype=torch.int64, device=dev)
+    else:
+        cuda_build.check_tensor("out", out, torch.int64, (B, 1 + T + KP), dev)
+        path = out
     cuda_build.launch("viterbi_backtrack", trace.data_ptr(), T, KP, window,
                       rows, n_events.data_ptr(), n_kmers.data_ptr(), B,
                       path.data_ptr())

@@ -51,10 +51,14 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     "nanopolish_tpu_torch.io.fast5_legacy",
     "nanopolish_tpu_torch.ops.profile_hmm_r7",
     "nanopolish_tpu_torch.utils.logsum",
-    "nanopolish_tpu_torch.apps.call_methylation"])
+    "nanopolish_tpu_torch.apps.call_methylation",
+    "nanopolish_tpu_torch.alignment.device_chain",
+    "nanopolish_tpu_torch.ops.chain_step",
+    "nanopolish_tpu_torch.ops.ingest_fused"])
 def test_parallel_modules_are_in_the_no_jax_import_check(name):
-    """The multi-process modules, the legacy R7 modules and the watch
-    mode's app are among those the jax-blocked probe above imports."""
+    """The multi-process modules, the legacy R7 modules, the watch
+    mode's app, the device chain's modules and the ingest's are among
+    those the jax-blocked probe above imports."""
     import pkgutil
     pkg = nanopolish_tpu_torch
     walked = {m.name for m in pkgutil.walk_packages(pkg.__path__,
@@ -177,7 +181,10 @@ def _library_calls():
                                                          forward_arrays,
                                                          forward_segments,
                                                          viterbi_segments)
+    from nanopolish_tpu_torch.alignment.device_chain import run_device_chain
     from nanopolish_tpu_torch.models.read_builder import build_reads
+    from nanopolish_tpu_torch.ops.ingest_fused import \
+        ingest_align_recalibrate_async
     from nanopolish_tpu_torch.ops import banded_align as ba
     from nanopolish_tpu_torch.ops import banded_exact as bx
     from nanopolish_tpu_torch.ops import profile_hmm_forward as pf
@@ -213,6 +220,10 @@ def _library_calls():
             ev, nev, mu, sd, nk, np.array([2.0], np.float32),
             np.zeros(1, np.int32), **kw),
         "build_reads": lambda **kw: build_reads([], **kw),
+        "ingest_align_recalibrate_async":
+            lambda **kw: ingest_align_recalibrate_async(
+                ev, ev, nev, mu, sd, np.zeros((1, 4), np.int32), nk, **kw)(),
+        "run_device_chain": lambda **kw: run_device_chain([], **kw),
         "forward_indexed_scores": lambda **kw: pi.forward_indexed_scores(
             ev, nev, np.stack([mu, sd, sd]), np.arange(4, dtype=np.int32)[None],
             nk,

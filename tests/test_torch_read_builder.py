@@ -21,6 +21,10 @@ from nanopolish_tpu_torch.models import read_builder as trb
 
 torch.set_num_threads(2)
 
+STAT_FIELDS = ("total_reads", "unparseable_reads", "qc_fail_reads",
+               "failed_calibration_reads", "failed_alignment_reads",
+               "bad_fast5_file")
+
 
 @pytest.fixture(scope="module")
 def raw_reads():
@@ -83,3 +87,44 @@ def test_build_reads_needs_a_device_or_cpu(raw_reads):
     n, s, r = raw_reads[0]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trb.build_reads([trb.RawReadInput(read_name=n, sequence=s, raw=r)])
+
+
+def _read_fields(r):
+    if r is None:
+        return None
+    s = r.scalings[T_IDX]
+    m = r.base_to_event_map[T_IDX]
+    return (r.read_name, r.has_events_for_strand(T_IDX),
+            float(r.events_per_base[T_IDX]),
+            None if m is None else m.tobytes(),
+            (s.shift, s.scale, s.drift, s.var),
+            None if r.events[T_IDX] is None else r.events[T_IDX].mean.tobytes())
+
+
+def test_ingest_chunks_equal_one_chunk_and_jax(raw_reads):
+    """max_batch=1 makes a chunk of each read, each resolved before the
+    next is issued: the reads and ReadStats are those of one chunk of all
+    the reads, and both equal the JAX build_reads (a read's result does
+    not depend on its chunk)."""
+    inputs = [trb.RawReadInput(read_name=n, sequence=s, raw=r)
+              for n, s, r in raw_reads]
+    got = {}
+    for mode, max_batch in (("chunks", 1), ("one", len(inputs))):
+        stats = trb.ReadStats()
+        reads = trb.build_reads(inputs, stats=stats, max_batch=max_batch,
+                                device="cpu")
+        got[mode] = ([_read_fields(r) for r in reads],
+                     [getattr(stats, f) for f in STAT_FIELDS])
+    assert got["chunks"] == got["one"]
+    js = JaxStats()
+    ref = jax_build([JaxInput(read_name=n, sequence=s, raw=r)
+                     for n, s, r in raw_reads], stats=js)
+    assert got["chunks"][1] == [getattr(js, f) for f in STAT_FIELDS]
+    for a, b in zip(ref, got["chunks"][0]):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        want = _read_fields(a)
+        assert want[:4] == b[:4] and want[5] == b[5]
+        np.testing.assert_allclose(b[4], want[4], rtol=1e-5)
+    assert sum(r is not None and r[1] for r in got["chunks"][0]) >= 2

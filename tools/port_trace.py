@@ -2,6 +2,7 @@
 """Where nanopolish_tpu_torch spends its time on the card.
 
     python3 tools/port_trace.py eventalign [--summary] [--corpus longread]
+                                           [--chain on|off]
     python3 tools/port_trace.py call-methylation
 
 Builds the chip_smoke.py main-path corpus (64 synthetic reads of 8 kb
@@ -13,23 +14,36 @@ allocator), once more with wall-clock timers
 around the pipeline's stages, and a third time under torch.profiler for
 the device's kernel time (the profiler's own host overhead inflates that
 run's wall, so the idle share is taken against the un-profiled wall).
+eventalign runs with the device chain (`--chain on`, the default on the
+card) or the host wavefront alone (`--chain off`: NPT_EA_DEVICE_CHAIN=0).
 
 eventalign stages:
   ingest      models.read_loader.load_squiggle_reads (signal load, event
               detection on the host, the batched device chain)
     detect    ops.event_detect.detect_events (host, per read, threaded)
-    device    models.read_builder._process_chunk (MoM, banded kernels,
-              WLS, one fetch)
-  align       alignment.eventalign.align_reads_to_ref (the wavefront)
-    viterbi   alignment.segments.viterbi_segments (per round: padding,
-              upload, two kernels, fetch, path expansion)
+    device    models.read_builder._dispatch_chunk (a chunk's MoM, banded
+              kernels and WLS issued)
+    fetch     models.read_builder._finish_chunk (the wait for a chunk's
+              results and the reads' assembly)
+  align       alignment.eventalign.align_reads_to_ref (the device chain,
+              then the host wavefront for the jobs it gives back)
+    chain     alignment.device_chain.ChainBatch.run (a batch's rounds:
+              four launches each)
+      check   ChainBatch.n_active (the read of the active count every
+              CHECK_EVERY rounds: the host blocked on the card)
+    viterbi   alignment.segments.viterbi_segments (per wavefront round:
+              padding, upload, two kernels, fetch, path expansion)
       launch  ops.profile_hmm_viterbi.viterbi_paths as the host sees
               it: the two kernels' launches
-      sync    the wait for the card after each round's launches (a
-              torch.cuda.synchronize before the fetch, which would
-              otherwise wait there): the host blocked on the card
-  rounds      the Viterbi rounds (calls of viterbi_segments)
-  python      align minus sync: the wavefront's host work
+    sync      the wait for the card after each wavefront round's launches
+              and before a chain batch's fetch (a torch.cuda.synchronize
+              before the fetch, which would otherwise wait there): the
+              host blocked on the card
+  rounds      the host wavefront's Viterbi rounds (calls of
+              viterbi_segments); chain_rounds, the device chain's
+  python      align minus sync and check: the host work of align
+  host_us_per_chain_round   (chain - check) / chain_rounds: the host's
+              time to issue a chain round
   emit        the rest of apps.eventalign.main (TSV rendering, BAM
               reading, and with --summary the per-read summary file,
               which chip_smoke.py's main-path run writes)
@@ -38,7 +52,8 @@ call-methylation stages (ingest and geometry run on the loader threads,
 resolve on a fetch thread; each is summed over its threads):
   ingest      models.read_loader.load_squiggle_reads, as above
     detect    ops.event_detect.detect_events
-    device    models.read_builder._process_chunk
+    device    models.read_builder._dispatch_chunk, as above
+    fetch     models.read_builder._finish_chunk, as above
   geometry    apps.call_methylation.collect_read_tasks_native (motif
               groups, event bounds, rank rows; native code) or its NumPy
               twin
@@ -76,6 +91,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     import chip_smoke
+    from nanopolish_tpu_torch.alignment import device_chain as dc
     from nanopolish_tpu_torch.alignment import eventalign as ea_core
     from nanopolish_tpu_torch.alignment import segments
     from nanopolish_tpu_torch.apps import call_methylation as cm_app
@@ -90,7 +106,11 @@ def main() -> int:
     ap.add_argument("--corpus", choices=("main", "longread"), default="main",
                     help="eventalign's corpus: chip_smoke's 64 x 8 kb, or "
                          "the long-read mix's 100 kb read")
+    ap.add_argument("--chain", choices=("on", "off"), default="on",
+                    help="eventalign through the device chain (the default "
+                         "on the card) or the host wavefront alone")
     args = ap.parse_args()
+    os.environ["NPT_EA_DEVICE_CHAIN"] = "1" if args.chain == "on" else "0"
 
     totals = {}
     lock = threading.Lock()
@@ -108,10 +128,13 @@ def main() -> int:
         return run
 
     event_detect.detect_events = timed("detect", event_detect.detect_events)
-    read_builder._process_chunk = timed("device", read_builder._process_chunk)
+    read_builder._dispatch_chunk = timed("device",
+                                         read_builder._dispatch_chunk)
+    read_builder._finish_chunk = timed("fetch", read_builder._finish_chunk)
     ingest = timed("ingest", read_loader.load_squiggle_reads)
     d = os.path.join(ROOT, "build", "port_trace", args.subcommand
-                     + ("" if args.corpus == "main" else "_" + args.corpus))
+                     + ("" if args.corpus == "main" else "_" + args.corpus)
+                     + ("" if args.chain == "on" else "_host"))
     n_reads, read_len = chip_smoke.MAIN_READS, chip_smoke.MAIN_READ_LEN
     out_path = os.path.join(d, "out.tsv")
     rounds = [0]
@@ -134,6 +157,15 @@ def main() -> int:
             return out
 
         segments.viterbi_paths = launched_then_synced
+        dc.ChainBatch.run = timed("chain", dc.ChainBatch.run)
+        dc.ChainBatch.n_active = timed("check", dc.ChainBatch.n_active)
+        unpack = dc.ChainBatch.unpack
+
+        def synced_then_unpacked(batch):
+            sync()
+            return unpack(batch)
+
+        dc.ChainBatch.unpack = synced_then_unpacked
         if args.corpus == "longread":
             from nanopolish_tpu_torch.utils.synthetic import \
                 build_longread_corpus
@@ -145,8 +177,8 @@ def main() -> int:
         app, extra = ea_app, []
         if args.summary:
             extra = ["--summary", os.path.join(d, "summary.tsv")]
-        names = ("ingest", "detect", "device", "align", "viterbi", "launch",
-                 "sync")
+        names = ("ingest", "detect", "device", "fetch", "align", "chain",
+                 "check", "viterbi", "launch", "sync")
         inner = ("ingest", "align")
     else:
         cm_app.load_squiggle_reads = ingest
@@ -162,8 +194,8 @@ def main() -> int:
             d, chip_smoke.main_methylated())
         app = cm_app
         extra = ["--modbam-output-name", os.path.join(d, "mods.bam")]
-        names = ("ingest", "detect", "device", "geometry", "score",
-                 "resolve", "write")
+        names = ("ingest", "detect", "device", "fetch", "geometry",
+                 "score", "resolve", "write")
         inner = ()
     argv = ["-r", fastq, "-b", bam, "-g", ref_fa, "--device", "cuda"] + extra
 
@@ -175,11 +207,13 @@ def main() -> int:
     run()                                            # warm-up
     totals.clear()
     rounds[0] = 0
+    dc.reset_chain_stats()
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
     stages = dict(totals)
     n_rounds = rounds[0]
+    chain = dict(dc.CHAIN_STATS)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     t0 = time.perf_counter()
@@ -211,11 +245,17 @@ def main() -> int:
         "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
         "kernels_s": top}
     if inner:
-        result["emit_s"] = wall - sum(stages.get(k, 0.0) for k in inner)
-        result["rounds"] = n_rounds
-        result["python_s"] = stages.get("align", 0.0) - stages.get("sync", 0.0)
-        result["sync_share_of_align"] = \
-            stages.get("sync", 0.0) / max(stages.get("align", 0.0), 1e-12)
+        waits = stages.get("sync", 0.0) + stages.get("check", 0.0)
+        align = stages.get("align", 0.0)
+        result.update(
+            chain=args.chain, chain_stats=chain,
+            emit_s=wall - sum(stages.get(k, 0.0) for k in inner),
+            rounds=n_rounds, chain_rounds=chain["rounds"],
+            python_s=align - waits,
+            sync_share_of_align=waits / max(align, 1e-12),
+            host_us_per_chain_round=(
+                (stages.get("chain", 0.0) - stages.get("check", 0.0))
+                / chain["rounds"] * 1e6 if chain["rounds"] else None))
     print(json.dumps(result))
     return 0
 
