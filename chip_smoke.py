@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. the card's name and power limit; build the nine CUDA kernels from
+  1. the card's name and power limit; build the ten CUDA kernels from
      nanopolish_tpu_torch/csrc/ (one nvcc per source, all at once);
   2. banded-alignment kernels (fill, backtrack) against their plain
      PyTorch versions on the card, bit for bit, on 32 reads x 2 kb plus
@@ -56,6 +56,27 @@ Phases (any failure exits non-zero; nothing is caught):
      2,000-65,536 samples; then timing on that batch, beside estimates of
      both kernels' chain-latency floors (logged only); then the backtrack
      alone on random backpointer bytes, rows at every alignment;
+  4d. the table-route Forward (NPT_LOGSUM=table: the reference's
+     quantized logsum; csrc/forward_table.cu) against its plain version
+     (forward_fill_plain(logsum="table")), bit for bit, on 2,048
+     call-methylation-shaped segments (the main path's windows: 16-64
+     kmers, 16-128 events; all four clip flags, a segment of no event,
+     one of one event and one whose levels are 300 pA off every third
+     event, so that its sums reach the 15.7-nat cut) and at the kmer
+     widths of each row layout (32, 256, 1,024 and 4,096, few events:
+     the plain version's K chain is a serial torch loop); then timing
+     beside its bound and an estimate of its chain-latency floor; and the
+     indexed drain's table route (a flush gathered flat) on the card
+     against the cpu, bit for bit.  Its
+     paths run after phase 6b: call-methylation under NPT_LOGSUM=table on
+     phase 6's 64 x 8 kb corpus (path ms from torch.profiler; the exact
+     Forward kernels must not launch), its first TBL_CPU_READS reads on
+     the card byte for byte against a --device cpu run (a fourth process,
+     started after the kernel build at nice 10, on its own copy of the
+     corpus), and the train step on a 1 x 1 mesh over TBL_TRAIN_READS of
+     phase 6b's reads, its Forward held to the kernel and, cut to
+     TBL_PLAIN_ROWS events and TBL_PLAIN_KMERS kmers, to the plain
+     version; one `table_paths` JSON line;
   5. the goldens on the card through the CLI entry points: the 4-read
      eventalign pipeline of tests/test_golden_outputs.py (byte for byte,
      through the device chain),
@@ -239,6 +260,29 @@ PAR_CHILD_TIMEOUT = 300
 PAR_FWD_READS, PAR_FWD_PLAIN_ROWS = 4, 3000
 FWD_ARGS = ("levels", "n_events", "mu", "sigma", "c", "n_kmers", "trans",
             "clips")
+# phase 4d, the table-route Forward (NPT_LOGSUM=table): its check batch of
+# the main path's window shapes (call-methylation on 64 reads x 8 kb gives
+# 16-64 kmers and 16-128 events a window), and one batch at each row
+# layout's kmer width (S segments of t_lo..t_hi events: the plain version
+# runs one torch operation chain per kmer and event); its paths: the first
+# TBL_CPU_READS reads of call-methylation against the cpu, and the train
+# step over TBL_TRAIN_READS reads, held to the plain version over its
+# first TBL_PLAIN_ROWS events and TBL_PLAIN_KMERS kmers
+TBL_SEGMENTS, TBL_K, TBL_T = 2048, (16, 64), (16, 128)
+TBL_WIDTHS = {32: (64, 10, 80), 256: (8, 20, 60), 1024: (4, 10, 20),
+              4096: (2, 5, 8)}
+TBL_CPU_READS, TBL_TRAIN_READS = 8, 4
+TBL_PLAIN_ROWS, TBL_PLAIN_KMERS = 32, 256
+# f32 operations of the table route per (event, kmer) cell: the emission
+# (5), the five M-term adds, eight table adds of TBL_ADD_OPS (max, min,
+# sub, compare, mul, add; the truncation and the lookup are no f32
+# arithmetic), five for M and one each for B, the K chain's input and the
+# chain, the M add and five B/K-input adds; plus per event row the end
+# terms (three table adds, an add and the flank)
+TBL_ADD_OPS = 6
+TBL_OPS_CELL = 5 + 5 + 8 * TBL_ADD_OPS + 1 + 5
+TBL_OPS_ROW = 3 * TBL_ADD_OPS + 4
+TBL_BYTES = 16000 * 4
 # the long-read and scale phase: the cpu runs of a subset of each corpus
 # (one 30 kb read, its eventalign over a 4 kb window; 26 reads of the
 # scale corpus, its variants over a 700-base window) in a second process
@@ -277,6 +321,10 @@ VIT_BT_STEP_CYCLES = 50
 # a mask)
 BANDED_BT_STEP_CYCLES = 30
 SEG_BT_STEP_CYCLES = 8
+# a wavefront step of the table-route Forward: its M term's five dependent
+# table adds (max, sub, compare, mul, convert, min, a shared-memory load,
+# add, select: ~60 cycles each) and the M add
+TBL_STEP_CYCLES = 310
 
 
 def log(msg: str) -> None:
@@ -882,13 +930,13 @@ def phase_chain(dev, report):
 
 # ---------------------------------------------------------------- phase 4 --
 
-def forward_work(nev, nk):
+def forward_work(nev, nk, ops_cell=FWD_OPS_CELL, ops_row=FWD_OPS_ROW):
     """Bytes and f32 operations the Forward needs for these segments:
     each level, kmer table entry and score moved once."""
     nev = np.asarray(nev, np.float64)
     nk = np.asarray(nk, np.float64)
     nbytes = float(np.sum(nev * 4 + nk * 12 + 32 + 2 + 8 + 4))
-    flops = float(np.sum(nev * nk * FWD_OPS_CELL + nev * FWD_OPS_ROW))
+    flops = float(np.sum(nev * nk * ops_cell + nev * ops_row))
     return nbytes, flops
 
 
@@ -1405,6 +1453,99 @@ def seg_backtrack_random(dev):
 
 
 # ---------------------------------------------------------------- phase 5 --
+
+# --------------------------------------------------------------- phase 4d --
+
+def table_work(nev, nk):
+    """forward_work of the table route: its operations, and the logsum
+    table read once."""
+    nbytes, flops = forward_work(nev, nk, TBL_OPS_CELL, TBL_OPS_ROW)
+    return nbytes + TBL_BYTES, flops
+
+
+def table_floor_ms(nev, nk, clk):
+    """The table kernel's chain-latency floor, an estimate: a segment
+    takes ceil(n_kmers / 32) strips of n_events + 31 wavefront steps
+    (csrc/forward_table.cu), TBL_STEP_CYCLES each; a launch takes its
+    longest segment's steps, or all its steps spread over the card's
+    resident warps (8 segments a block, 3 blocks an SM for the table's
+    64,000 bytes of shared memory), whichever is more."""
+    import torch
+    nk = np.maximum(np.asarray(nk, np.int64), 1)
+    steps = -(-nk // 32) * (np.asarray(nev, np.int64) + 31)
+    warps = torch.cuda.get_device_properties(0).multi_processor_count * 24
+    return max(float(steps.max()), float(steps.sum()) / warps) * \
+        TBL_STEP_CYCLES / (clk * 1e3)
+
+
+def phase_forward_table(model, dev, report):
+    """Phase 4d, the kernel: forward_table against forward_fill_plain(
+    logsum="table") on the card, bit for bit, on a batch of the main
+    path's window shapes and at each row layout's kmer width; then its
+    time beside its bound and its chain floor."""
+    import torch
+    from nanopolish_tpu_torch.ops import profile_hmm as ph
+    from nanopolish_tpu_torch.ops import profile_hmm_forward as pf
+
+    rng = np.random.default_rng(23)
+    nk = rng.integers(TBL_K[0], TBL_K[1] + 1, TBL_SEGMENTS).astype(np.int32)
+    nev = rng.integers(TBL_T[0], TBL_T[1] + 1, TBL_SEGMENTS).astype(np.int32)
+    nev[0], nev[1] = 0, 1
+    batch = hmm_batch(model, nk, nev, rng)
+    batch[0][2, :nev[2]:3] += 300.0       # sums past the 15.7-nat cut
+    cases = {"call-methylation-shaped": batch}
+    for kp, (S, t_lo, t_hi) in TBL_WIDTHS.items():
+        nk = rng.integers(kp // 2 + 1, kp, S).astype(np.int32)
+        nk[0] = kp - 1
+        nev = rng.integers(t_lo, t_hi + 1, S).astype(np.int32)
+        nev[1] = 1
+        cases[f"width-{kp}"] = hmm_batch(model, nk, nev, rng)
+    clk = sm_clock_mhz()
+    timed, errs = None, []
+    for name, (lv, nev_c, mu, sd, nk_c, epb, flags) in cases.items():
+        x = pf.prepare_forward_inputs(lv, nev_c, mu, sd, nk_c, epb, flags,
+                                      device=dev)
+        args = [x[k] for k in FWD_ARGS]
+        kp = x["mu"].shape[1]
+        got = pf.forward_table(*args)
+        plain_ms, ref = once_ms(
+            lambda: ph.forward_fill_plain(*args, logsum="table"))
+        err = max_abs_err(got, ref)
+        if not bits_equal(got, ref):
+            same = float((got.view(torch.int32) == ref.view(torch.int32))
+                         .float().mean())
+            fail(f"forward_table differs from the plain table route on the "
+                 f"{name} batch: {same:.2%} bit-identical, max_abs_err {err}")
+        ms = cuda_ms(lambda: pf.forward_table(*args))
+        bms, by = bound(*table_work(nev_c, nk_c))
+        floor = table_floor_ms(nev_c, nk_c, clk)
+        log(f"forward_table {name}: {len(nk_c)} segments, kmer width {kp}, "
+            f"bit-identical to plain; kernel {ms:.4f} ms (plain "
+            f"{plain_ms:.1f} ms), bound {bms:.4f} ms ({by}), chain latency "
+            f"floor {floor:.4f} ms (an estimate: {TBL_STEP_CYCLES} cycles a "
+            f"wavefront step at {clk:.0f} MHz)")
+        if name == "call-methylation-shaped":
+            log(f"forward_table: the segment {300.0} pA off every third "
+                f"event scores {float(got[2]):.3f}, the others "
+                f"{float(got[3:].min()):.3f} .. {float(got[3:].max()):.3f}")
+        errs.append(err)
+        if timed is None:                 # the main path's shape
+            timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    report["forward_table"].update(max_abs_err=max(errs), **timed)
+    # the indexed drain's table route (ScoreBatcher, variants' screening):
+    # a flush gathered into the flat layout on the card, against the same
+    # flush on the cpu
+    from nanopolish_tpu_torch.ops import profile_hmm_indexed as pi
+    arrays = indexed_batch(model, rng, 256, 1, 70, 10, 80, 8)
+    got = pi.forward_indexed_scores(*arrays, 3, device=dev, logsum="table")
+    want = pi.forward_indexed_scores(*arrays, 3, device="cpu",
+                                     logsum="table")
+    if not np.array_equal(got.view(np.int32), want.view(np.int32)):
+        fail("forward_indexed_scores under logsum=\"table\" differs between "
+             "the card and the cpu")
+    log(f"forward_indexed_scores under logsum=\"table\": a flush of "
+        f"{len(got)} segments of widths 1-70, card == cpu bit for bit")
+
 
 def _write_fa(path, name, seq):
     with open(path, "w") as fh:
@@ -2880,8 +3021,8 @@ def train_step_rank(d: str, mp: int, device: str) -> int:
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     forward, seen = ts.forward_scores, {}
 
-    def recorded(x):
-        seen.update(x, lp=forward(x))
+    def recorded(x, *logsum):
+        seen.update(x, lp=forward(x, *logsum))
         return seen["lp"]
 
     ts.forward_scores = recorded
@@ -2908,10 +3049,10 @@ def train_step_rank(d: str, mp: int, device: str) -> int:
     return 0
 
 
-def run_train_mesh(d, dp, mp, dev):
+def run_train_mesh(d, dp, mp, dev, kernels=PAR_KERNELS):
     """The train step on a dp x mp mesh of processes (this script with
-    --train-step-rank); the ranks' results, each kernel of the step
-    launched in every rank."""
+    --train-step-rank); the ranks' results, each of ``kernels`` launched
+    in every rank."""
     from nanopolish_tpu_torch.parallel.launch import free_port
     n = dp * mp
     coord = f"127.0.0.1:{free_port()}"
@@ -2945,7 +3086,7 @@ def run_train_mesh(d, dp, mp, dev):
              for i in range(n)]
     for i, r in enumerate(ranks):
         launches = json.loads(str(r["launches"]))
-        for name in PAR_KERNELS:
+        for name in kernels:
             if launches[name] <= 0:
                 fail(f"train step {dp}x{mp}: rank {i} launched no {name}")
     return ranks
@@ -3057,6 +3198,174 @@ def phase_parallel_train(dev, ea_corpus):
         f"trained, n_scored {n1}, loss {loss1} (1x1) {loss2} (2x2); "
         f"meshes differ by {d_mean} pA, {d_stdv} relative, {n_diff} means")
     return out
+
+
+# ----------------------------------------- phase 4d: the table-mode paths --
+
+def start_cpu_table():
+    """The table-mode call-methylation's --device cpu run on its first
+    TBL_CPU_READS reads (--cpu-table DIR)."""
+    return start_cpu_process("--cpu-table", os.path.join(WORK, "table_cpu"),
+                             "argv.json", ["--max-reads", str(TBL_CPU_READS)])
+
+
+def cpu_table_run(d) -> int:
+    """--cpu-table DIR: call-methylation under NPT_LOGSUM=table on the cpu,
+    on its own copy of phase 6's corpus (build_main_corpus is seeded), its
+    output saved as DIR/cpu.tsv for the main process."""
+    import torch
+    sys.path.insert(0, ROOT)
+    os.nice(10)
+    torch.set_num_threads(CPU_SCALE_THREADS)
+    from nanopolish_tpu_torch.apps import call_methylation as cm_app
+    with open(os.path.join(d, "argv.json")) as fh:
+        extra = json.load(fh)
+    t0 = time.perf_counter()
+    ref_fa, fastq, bam = build_main_corpus(os.path.join(d, "corpus"),
+                                           main_methylated())
+    os.environ["NPT_LOGSUM"] = "table"
+    with open(os.path.join(d, "cpu.tsv"), "w") as fh:
+        cm_app.main(["-r", fastq, "-b", bam, "-g", ref_fa, "--device",
+                     "cpu"] + extra, stdout=fh)
+    with open(os.path.join(d, "cpu_seconds.json"), "w") as fh:
+        json.dump(round(time.perf_counter() - t0, 2), fh)
+    return 0
+
+
+def table_train_step(dev):
+    """The train step under NPT_LOGSUM=table on a 1 x 1 mesh over the
+    first TBL_TRAIN_READS reads of phase 6b's batch: forward_table and no
+    exact Forward launched, the step's scores held to forward_table on its
+    own Forward inputs, and to the plain table route on them cut to
+    TBL_PLAIN_ROWS events and TBL_PLAIN_KMERS kmers."""
+    import torch
+    from nanopolish_tpu_torch.ops import profile_hmm as ph
+    from nanopolish_tpu_torch.ops import profile_hmm_forward as pf
+    from nanopolish_tpu_torch.parallel import TrainBatch
+    src = np.load(os.path.join(WORK, "train_step", "batch.npz"))
+    d = os.path.join(WORK, "train_step_table")
+    os.makedirs(d, exist_ok=True)
+    np.savez(os.path.join(d, "batch.npz"),
+             **{k: src[k] for k in ("level_mean", "level_stdv", "n_ranks")},
+             **{f: src[f][:TBL_TRAIN_READS] for f in TrainBatch._fields})
+    t0 = time.perf_counter()
+    (rank,) = run_train_mesh(d, 1, 1, dev, ("banded_fill", "banded_backtrack",
+                                            "forward_table"))
+    run_s = time.perf_counter() - t0
+    launches = json.loads(str(rank["launches"]))
+    if launches["forward_fill"]:
+        fail("the train step under NPT_LOGSUM=table launched forward_fill")
+    a = np.load(os.path.join(d, "forward_inputs.npz"))
+    args = [torch.as_tensor(a[k], device=dev) for k in FWD_ARGS]
+    ms, got = once_ms(lambda: pf.forward_table(*args))
+    if not bits_equal(got.cpu(), torch.as_tensor(a["lp"])):
+        fail("forward_table on the table-mode train step's Forward inputs "
+             "differs from the step's own scores")
+    cut = list(args)
+    for name, top in (("n_events", TBL_PLAIN_ROWS),
+                      ("n_kmers", TBL_PLAIN_KMERS)):
+        cut[FWD_ARGS.index(name)] = args[FWD_ARGS.index(name)].clamp(max=top)
+    got_cut = pf.forward_table(*cut)
+    plain_ms, ref = once_ms(lambda: ph.forward_fill_plain(*cut,
+                                                          logsum="table"))
+    if not bits_equal(got_cut, ref):
+        fail(f"forward_table differs from the plain table route on the "
+             f"train step's reads cut to {TBL_PLAIN_ROWS} events and "
+             f"{TBL_PLAIN_KMERS} kmers: max abs err {max_abs_err(got_cut, ref)}")
+    kp = args[2].shape[1]
+    bms, by = bound(*table_work(a["n_events"], a["n_kmers"]))
+    out = {"reads": len(got), "events": int(a["n_events"].max()),
+           "kmers": int(a["n_kmers"].max()), "kmer_width": kp,
+           "n_scored": int(rank["n_scored"]), "loss": float(rank["loss"]),
+           "step_s": [float(w) for w in rank["walls"]], "run_s": run_s,
+           "forward_table_launches": launches["forward_table"],
+           "ms": ms, "bound_ms": bms, "bound_by": by,
+           "plain_ms": plain_ms, "plain_cut": [TBL_PLAIN_ROWS,
+                                               TBL_PLAIN_KMERS]}
+    if not (out["n_scored"] > 0 and math.isfinite(out["loss"])):
+        fail(f"the table-mode train step scored {out['n_scored']} reads, "
+             f"loss {out['loss']}")
+    log(f"train step under NPT_LOGSUM=table, 1 x 1 over {len(got)} reads "
+        f"(up to {out['events']} events and {out['kmers']} kmers, kmer width "
+        f"{kp}): n_scored {out['n_scored']}, loss {out['loss']}; its Forward "
+        f"== forward_table ({ms:.1f} ms, bound {bms:.4f} ms {by}) and, cut "
+        f"to {TBL_PLAIN_ROWS} events x {TBL_PLAIN_KMERS} kmers, == plain "
+        f"({plain_ms:.1f} ms)")
+    return out
+
+
+def phase_table_paths(dev, meth_corpus, cpu_proc):
+    """Phase 4d, the paths: call-methylation under NPT_LOGSUM=table on
+    phase 6's corpus (profiled; forward_table launched, the exact Forward
+    kernels not), its first TBL_CPU_READS reads on the card byte for byte
+    against the --cpu-table run, then the table-mode train step.  Returns
+    the `table_paths` record, with the call-methylation run's path ms."""
+    from nanopolish_tpu_torch.apps import call_methylation as cm_app
+    ref_fa, fastq, bam = meth_corpus
+    d = os.path.join(WORK, "table")
+    os.makedirs(d, exist_ok=True)
+    full, sub = os.path.join(d, "methylation.tsv"), os.path.join(d, "sub.tsv")
+
+    def run(path, extra=()):
+        with open(path, "w") as fh:
+            cm_app.main(["-r", fastq, "-b", bam, "-g", ref_fa, "--device",
+                         dev.type] + list(extra), stdout=fh)
+
+    t0 = time.perf_counter()
+    os.environ["NPT_LOGSUM"] = "table"
+    try:
+        wall, launches, busy_s, top, path = profiled_run(
+            lambda: run(full), ("banded_fill", "banded_backtrack",
+                                "forward_table"))
+        if launches["forward_fill"] or launches["forward_indexed"]:
+            fail(f"call-methylation under NPT_LOGSUM=table launched an exact "
+                 f"Forward kernel: {json.dumps(launches)}")
+        sub_wall, _ = timed_run(
+            lambda: run(sub, ["--max-reads", str(TBL_CPU_READS)]),
+            ("forward_table",))
+        step = table_train_step(dev)
+    finally:
+        del os.environ["NPT_LOGSUM"]
+    got = open(full).read()
+    exact = open(os.path.join(WORK, "main_meth", "methylation.tsv")).read()
+    rows, exact_rows = got.splitlines(), exact.splitlines()
+    if len(rows) != len(exact_rows) or not all(
+            math.isfinite(float(ln.split("\t")[LLR])) for ln in rows[1:]):
+        fail(f"call-methylation under NPT_LOGSUM=table: {len(rows)} lines, "
+             f"{len(exact_rows)} with exact sums, or a score not finite")
+    differ = sum(a != b for a, b in zip(rows, exact_rows))
+    flips = sum((float(a.split("\t")[LLR]) > 0) !=
+                (float(b.split("\t")[LLR]) > 0)
+                for a, b in zip(rows[1:], exact_rows[1:]))
+    t1 = time.perf_counter()
+    if cpu_proc.wait() != 0:
+        with open(os.path.join(WORK, "table_cpu", "cpu_run.log")) as fh:
+            fail(f"the table-mode cpu run failed:\n{fh.read()[-4000:]}")
+    waited = time.perf_counter() - t1
+    cpu_text = open(os.path.join(WORK, "table_cpu", "cpu.tsv")).read()
+    if open(sub).read() != cpu_text:
+        fail(f"call-methylation under NPT_LOGSUM=table on its first "
+             f"{TBL_CPU_READS} reads differs between the card and the cpu")
+    with open(os.path.join(WORK, "table_cpu", "cpu_seconds.json")) as fh:
+        cpu_s = json.load(fh)
+    out = {"card": card(), "call-methylation": {
+               "reads": MAIN_READS, "wall_s": wall, "sites": len(rows) - 1,
+               "rows_differ_from_exact": differ, "calls_flipped": flips,
+               "card_busy_s": busy_s, "launches": launches,
+               "path": path_summary(path)},
+           "cpu_subset": {"reads": TBL_CPU_READS, "card_s": sub_wall,
+                          "cpu_s": cpu_s, "waited_s": waited,
+                          "lines": len(cpu_text.splitlines())},
+           "train_step": step, "seconds": time.perf_counter() - t0}
+    log(f"call-methylation under NPT_LOGSUM=table, {MAIN_READS} reads x "
+        f"{MAIN_READ_LEN} bases on {dev.type}: {len(rows) - 1} sites in "
+        f"{wall:.2f} s (under torch.profiler), {differ} rows differ from the "
+        f"exact run, {flips} calls flipped; card busy {busy_s:.4f} s, by "
+        f"kernel {json.dumps(top)}; path ms (launches made, recorded) "
+        f"{json.dumps(path_summary(path))}; its first {TBL_CPU_READS} reads "
+        f"byte-identical to the cpu run ({cpu_s} s there, waited "
+        f"{waited:.1f} s)")
+    return out, path
 
 
 # ------------------------------------------- phase 6c: long reads, scale --
@@ -3429,6 +3738,8 @@ def main() -> int:
         return train_step_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4])
     if sys.argv[1:2] == ["--cpu-scale"]:
         return cpu_scale_run(sys.argv[2])
+    if sys.argv[1:2] == ["--cpu-table"]:
+        return cpu_table_run(sys.argv[2])
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -3462,6 +3773,8 @@ def main() -> int:
     lr_corpus, sc_corpus = scale_corpora()
     log(f"long-read and scale corpora: {time.perf_counter() - t0:.1f} s")
     cpu_scale = start_cpu_scale(lr_corpus, sc_corpus)
+    # table-mode call-methylation's cpu side, a fourth process (phase 4d)
+    cpu_table = start_cpu_table()
     report = {name: {} for name in cuda_build.KERNELS}
     model = PoreModelSet.instance().get_model(
         "r9.4_450bps", "nucleotide", "template", 6)
@@ -3471,6 +3784,7 @@ def main() -> int:
     phase_forward(model, dev, report)
     phase_forward_indexed(model, dev, report)
     phase_segmentation(dev, report)
+    phase_forward_table(model, dev, report)
     phase_golden(dev)
     # each kernel's launches and device time are those of its own slice's
     # main path: eventalign (banded, Viterbi), call-methylation (Forward),
@@ -3509,6 +3823,11 @@ def main() -> int:
         "card": card(), "cores": len(os.sched_getaffinity(0)),
         "serving": serving, "train_step": train,
         "seconds": round(time.perf_counter() - t0, 1)}}))
+    # the table-route Forward's paths (phase 4d): call-methylation and the
+    # train step under NPT_LOGSUM=table
+    table, own["forward_table"] = phase_table_paths(dev, meth_corpus,
+                                                    cpu_table)
+    log(json.dumps({"table_paths": table}))
     # long reads and scale: the banded, Viterbi, Forward and indexed
     # Forward kernels at a realistic read length and read count
     t0 = time.perf_counter()
@@ -3534,6 +3853,8 @@ def main() -> int:
         "seg_backtrack": "nanopolish_tpu/ops/pallas_segmentation.py:177",
         # no pallas_call: the JAX chain's loop body around kernels 3-4
         "chain_step": "nanopolish_tpu/alignment/device_chain.py:226",
+        # no pallas_call: the JAX scan's table route (NPT_LOGSUM=table)
+        "forward_table": "nanopolish_tpu/ops/profile_hmm.py:198",
     }
     kernels = []
     for name in cuda_build.KERNELS:

@@ -30,6 +30,7 @@ from ..ops.profile_hmm_forward import forward_scores, prepare_forward_inputs
 from ..ops.profile_hmm_indexed import forward_indexed_scores
 from ..ops.profile_hmm_viterbi import prepare_viterbi_inputs, viterbi_paths
 from ..utils.device import resolve_device
+from ..utils.logsum import logsum_mode
 
 import threading
 
@@ -246,8 +247,10 @@ def forward_arrays_async(levels_mat: np.ndarray, n_events: np.ndarray,
     returns them as [n] f32.  Rows are bucketed by power-of-two event
     length and kmer width, at most FORWARD_BATCH per launch and within
     LAUNCH_BYTES; a score does not depend on its bucket's padding.
-    ``probs`` as in ``viterbi_segments``."""
+    ``probs`` as in ``viterbi_segments``.  Sums as ``NPT_LOGSUM`` says,
+    read at each call (``utils.logsum.logsum_mode``)."""
     dev = resolve_device(device)
+    logsum = logsum_mode()
     n = len(n_events)
     out = np.zeros(n, np.float32)
     if n == 0:
@@ -264,14 +267,16 @@ def forward_arrays_async(levels_mat: np.ndarray, n_events: np.ndarray,
     for (tp, kp), idxs in buckets.items():
         T = min(levels_mat.shape[1], tp)
         K = min(mu_mat.shape[1], kp)
-        step = _launch_size(FORWARD_BATCH, 4 * tp + 24 * kp)
+        # the table kernel's strip boundary: 16 bytes per event row
+        step = _launch_size(FORWARD_BATCH, 4 * tp + 24 * kp +
+                            (16 * tp if logsum == "table" else 0))
         for lo in range(0, len(idxs), step):
             ii = np.asarray(idxs[lo:lo + step])
             x = prepare_forward_inputs(
                 levels_mat[ii, :T], n_events[ii], mu_mat[ii, :K],
                 sigma_mat[ii, :K], n_kmers[ii], epb[ii], flags[ii],
                 indel_bias, trans[ii], device=dev)
-            pending.append(forward_scores(x))
+            pending.append(forward_scores(x, logsum))
             order.append(ii)
     cat = torch.cat(pending)
     order = np.concatenate(order)
@@ -433,7 +438,9 @@ class ScoreBatcher:
         """Score every pending segment through the indexed drain
         (``ops/profile_hmm_indexed.forward_indexed_scores``): the unique
         event slices, per-read tables, kmer-rank rows and transition rows
-        go to the device once, plus four ids per segment."""
+        go to the device once, plus four ids per segment.  Under
+        ``NPT_LOGSUM=table`` the drain gathers them into the flat layout
+        for the table-route Forward."""
         n = len(self._pend)
         ids = np.empty((n, 4), np.int32)
         ev_rows: List[Tuple] = []      # (sr, strand, e1, e2)
@@ -506,7 +513,8 @@ class ScoreBatcher:
         return forward_indexed_scores(levels_u, n_ev_u, tabs, rank_mat,
                                       n_km_u, trans_u, ids,
                                       HAF_ALLOW_PRE_CLIP | HAF_ALLOW_POST_CLIP,
-                                      device=self._device)
+                                      device=self._device,
+                                      logsum=logsum_mode())
 
     def get(self, unit_idx: int) -> float:
         return float(self._results[unit_idx])

@@ -48,6 +48,7 @@ from ..ops.profile_hmm import (HAF_ALLOW_POST_CLIP, HAF_ALLOW_PRE_CLIP,
 from ..ops.profile_hmm_indexed import forward_indexed_scores
 from ..utils.alphabet import DNA_ALPHABET, get_alphabet_by_name
 from ..utils.device import resolve_device
+from ..utils.logsum import logsum_mode
 
 ALIGNMENT_FLAGS = HAF_ALLOW_PRE_CLIP | HAF_ALLOW_POST_CLIP
 
@@ -310,7 +311,7 @@ def score_variants_batched_arrays(variant_jobs, indel_bias: float = 1.0,
     def score_ids(ids):
         return forward_indexed_scores(levels_u, n_ev_u, tabs, rank_mat,
                                       n_km_u, trans_u, ids, ALIGNMENT_FLAGS,
-                                      device=dev)
+                                      device=dev, logsum=logsum_mode())
 
     # ---- geometric chunk loop (the object path's schedule and order) ----
     max_events = max(len(job_evlist[ji]) for ji in alive)

@@ -32,7 +32,11 @@ outputs:
     operation for operation: the six M terms folded left to right with
     ``utils.logsum.add_logs_exact``, the K chain on the same pairwise
     tree as the Viterbi (``kstate_chain_logsum``), and the end terms
-    folded into the score only on the rows the clip flags allow.
+    folded into the score only on the rows the clip flags allow.  With
+    ``logsum="table"`` (``NPT_LOGSUM=table``) it is the scan's table route:
+    every add is the reference's quantized ``add_logs_table`` and the K
+    chain runs kmer after kmer from -inf (``kstate_chain_table``), the
+    plain version of ``csrc/forward_table.cu``.
   * ``forward_indexed_plain``: the same Forward from indexed inputs (each
     segment four ids into shared event rows, per-read tables, kmer-rank
     rows and transition rows), the plain version of
@@ -52,7 +56,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..utils.logsum import add_logs_exact
+from ..utils.logsum import add_logs_exact, add_logs_table
 from .emissions import LOG_INV_SQRT_2PI, fma32, log_normal_fused
 
 # movement types (nanopolish_profile_hmm_r9.h:61-71)
@@ -103,10 +107,11 @@ def make_transitions(events_per_base, indel_bias: float = 1.0,
     """Per-segment log transition probabilities (r9.inl:17-76), computed
     on the host in f64 and rounded to f32; p_bad_self defaults to p_bad.
     Returns [B, 8] float32 with the columns of TRANS_COLS (the three
-    bad-event exits share lp_b3).  The JAX package computes the table in
-    f32 steps with XLA's log, a few ulp from this one in lp_mm_self,
-    lp_mm_next, lp_b3 and lp_km; a Viterbi tie within that difference
-    can take another path (ROADMAP.md §3)."""
+    bad-event exits share lp_b3).  It is the JAX package's Pallas-route
+    table (``_np_transitions``) bit for bit.  The JAX scan route computes
+    its table in f32 steps with XLA's log, a few ulp from this one in
+    lp_mm_self, lp_mm_next, lp_b3 and lp_km; a Viterbi tie within that
+    difference can take another path (ROADMAP.md §3)."""
     if p_bad_self is None:
         p_bad_self = p_bad
     epb = np.maximum(1.25, np.asarray(events_per_base, np.float64).reshape(-1)
@@ -172,6 +177,19 @@ def kstate_chain_max(c: torch.Tensor, lp_kk: torch.Tensor) -> torch.Tensor:
 def kstate_chain_logsum(c: torch.Tensor, lp_kk: torch.Tensor) -> torch.Tensor:
     """The Forward K chain: K[k] = logaddexp(c[k], K[k-1] + lp_kk)."""
     return _kstate_chain(c, lp_kk, add_logs_exact)
+
+
+def kstate_chain_table(c: torch.Tensor, lp_kk: torch.Tensor) -> torch.Tensor:
+    """The Forward K chain of the table route: K[k] = add_logs_table(c[k],
+    K[k-1] + lp_kk) from K[-1] = -inf, one kmer after another (the
+    quantized add is not associative, so the reference's order is kept:
+    the JAX package's _kstate_scan with a table ``add``)."""
+    cols = c.t().contiguous()
+    out = torch.empty_like(cols)
+    prev = torch.full_like(lp_kk, NEG_INF)
+    for k in range(cols.shape[0]):
+        prev = out[k] = add_logs_table(cols[k], prev + lp_kk)
+    return out.t()
 
 
 def viterbi_fill_plain(levels, n_events, mu, sigma, c, n_kmers, trans,
@@ -246,12 +264,14 @@ def viterbi_fill_plain(levels, n_events, mu, sigma, c, n_kmers, trans,
 
 
 def forward_fill_plain(levels, n_events, mu, sigma, c, n_kmers, trans,
-                       clips) -> torch.Tensor:
+                       clips, logsum: str = "exact") -> torch.Tensor:
     """Forward fill (r9.inl:265-433 with logsum), vectorized over segments.
 
     Takes the inputs of ``viterbi_fill_plain``; returns the log-likelihood
     lp_end [B] f32 (-inf for a segment without events).  Rows past a
     segment's n_events and kmers past its n_kmers never reach its score.
+    ``logsum="table"`` sums with the reference's quantized table, the K
+    chain kmer after kmer; any other value is the exact route.
     """
     B, T = levels.shape
     K = mu.shape[1]
@@ -265,7 +285,11 @@ def forward_fill_plain(levels, n_events, mu, sigma, c, n_kmers, trans,
     nev = n_events.to(torch.int64)
     nev_f = n_events.to(f32)
     last = (n_kmers.to(torch.int64) - 1).clamp(0, K - 1)[:, None]
-    add = add_logs_exact
+    table = logsum == "table"
+    add = add_logs_table if table else add_logs_exact
+    # the table chain stops at the widest segment's last kmer: the columns
+    # past it never reach a score
+    k_used = int(last.max()) + 1 if B else 0
 
     M = torch.full((B, K), NEG_INF, dtype=f32, device=dev)
     Bs = torch.full_like(M, NEG_INF)
@@ -294,7 +318,12 @@ def forward_fill_plain(levels, n_events, mu, sigma, c, n_kmers, trans,
 
         cM = col["lp_mk"] + _shift_prev(M_new)   # FROM_PREV_M (same row)
         cB = col["lp_b3"] + _shift_prev(B_new)   # FROM_PREV_B
-        K_new = kstate_chain_logsum(add(cM, cB), lp_kk)
+        if table:
+            K_new = torch.full_like(M, NEG_INF)
+            K_new[:, :k_used] = kstate_chain_table(add(cM, cB)[:, :k_used],
+                                                   lp_kk)
+        else:
+            K_new = kstate_chain_logsum(add(cM, cB), lp_kk)
 
         # end contributions (r9.inl:385-396); lp_ms = 0
         s3 = add(add(M_new.gather(1, last)[:, 0], B_new.gather(1, last)[:, 0]),

@@ -23,7 +23,11 @@ tensors it launches the kernel (building it at first use) or raises.
 ``forward_indexed_scores`` is the host side of a flush: one upload of the
 indexed inputs, one launch per kmer width, one fetch.  The TPU drain's
 lane packing becomes the kernel's 8-lane groups (``indexed_layout``); its
-relay wire is not ported.
+relay wire is not ported.  With ``logsum="table"`` a flush's launches
+gather their windows into the flat layout (``gather_indexed``) and score
+them with the table-route Forward (``profile_hmm_forward.forward_fill``,
+``csrc/forward_table.cu`` on the card), as the JAX package's flat path
+does off the TPU.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ from ..utils import cuda_build
 from ..utils.device import resolve_device
 from .profile_hmm import (_CLIP_BASE, _CLIP_STEP, _LOG1M_CLIP,
                           HAF_ALLOW_POST_CLIP, HAF_ALLOW_PRE_CLIP, PAD_C,
-                          forward_indexed_plain)
+                          forward_indexed_plain, gather_indexed)
+from .profile_hmm_forward import forward_fill
 from .profile_hmm_viterbi import WIDE_THREADS, wide_scratch
 
 # segments per launch: bounds the plain version's gathered tables on the
@@ -206,8 +211,24 @@ def run_flush(tensors, ids, clips, launches):
             for kp, lo, hi, widths in launches]
 
 
+def run_flush_table(tensors, ids, clips, launches, t_max):
+    """The launches of ``plan_flush`` through the table-route Forward:
+    each launch's windows gathered into the flat layout (the event rows
+    cut to its longest, t_max[i] levels, the rank rows to its width) and
+    scored by ``forward_fill(..., logsum="table")``; returns each launch's
+    scores, in order, without waiting."""
+    levels_u, n_ev_u, tabs, rank_mat, n_km_u, trans_u = tensors
+    out = []
+    for (kp, lo, hi, _), tm in zip(launches, t_max):
+        flat = gather_indexed(levels_u[:, :max(tm, 1)], n_ev_u, tabs,
+                              rank_mat[:, :kp], n_km_u, trans_u, ids[lo:hi])
+        out.append(forward_fill(*flat, clips[lo:hi], logsum="table"))
+    return out
+
+
 def forward_indexed_scores(levels_u, n_ev_u, tabs, rank_mat, n_km_u,
-                           trans_u, ids, flags, device=None) -> np.ndarray:
+                           trans_u, ids, flags, device=None,
+                           logsum: str = "exact") -> np.ndarray:
     """Forward-score n segments given as numpy indexed inputs (module
     docstring; ``flags`` [n] or one HAF_* value) on ``device`` (``cuda``
     unless ``cpu`` is asked).  Returns [n] f32.
@@ -215,7 +236,7 @@ def forward_indexed_scores(levels_u, n_ev_u, tabs, rank_mat, n_km_u,
     Each input goes to the device once; the segments go in the launches
     of ``plan_flush``, every launch issued before the one fetch of the
     concatenated scores.  A score does not depend on its launch or its
-    width."""
+    width.  ``logsum="table"`` scores through ``run_flush_table``."""
     dev = resolve_device(device)
     ids = np.asarray(ids, np.int32).reshape(-1, 4)
     n = len(ids)
@@ -241,7 +262,12 @@ def forward_indexed_scores(levels_u, n_ev_u, tabs, rank_mat, n_km_u,
     f32, i32 = torch.float32, torch.int32
     tens = (up(levels_u, f32), up(n_ev_u, i32), up(tabs, f32),
             up(rank_mat, i32), up(n_km_u, i32), up(trans_u, f32))
-    pending = run_flush(tens, up(ids[order], i32),
-                          up(clips[order], torch.uint8), launches)
+    ids_t, clips_t = up(ids[order], i32), up(clips[order], torch.uint8)
+    if logsum == "table":
+        nev = n_ev_u[ids[order, 0]]
+        t_max = [int(nev[lo:hi].max()) for _, lo, hi, _ in launches]
+        pending = run_flush_table(tens, ids_t, clips_t, launches, t_max)
+    else:
+        pending = run_flush(tens, ids_t, clips_t, launches)
     out[order] = torch.cat(pending).cpu().numpy()
     return out

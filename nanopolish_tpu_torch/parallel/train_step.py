@@ -19,8 +19,9 @@ The step follows ``nanopolish_tpu.parallel.train_step._train_step_body``
 line for line: MoM scaling -> adaptive banded event alignment (the
 ``banded_fill`` and ``banded_backtrack`` kernels) -> WLS recalibration ->
 per-kmer sufficient statistics -> all-reduce -> Gaussian M-step ->
-whole-read profile-HMM Forward (the ``forward_fill`` kernel) under the
-updated model as the monitored objective (methyltrain's per-round model
+whole-read profile-HMM Forward (the ``forward_fill`` kernel, or
+``forward_table`` under ``NPT_LOGSUM=table``) under the updated model as
+the monitored objective (methyltrain's per-round model
 score, methyltrain.cpp:385-402).  Its log terms are computed on the host
 in f32, as the port's ingest does.
 """
@@ -37,6 +38,7 @@ from ..ops.profile_hmm_forward import forward_scores, prepare_forward_inputs
 from ..ops.scaling import estimate_scalings_mom, mstate_events_batch, recalibrate
 from ..ops.training import KmerMoments, gaussian_update, kmer_moments, psum_moments
 from ..utils.device import resolve_device
+from ..utils.logsum import logsum_mode
 from .distributed import all_gather, all_reduce
 from .mesh import Mesh, model_rows
 
@@ -129,7 +131,7 @@ def _train_step_body(level_mean, level_stdv, batch: TrainBatch, mesh: Mesh,
     x = prepare_forward_inputs(_host(levels2), _host(n_events), _host(mu2),
                                _host(sg2), _host(n_kmers),
                                _host(res.events_per_base), 0, device=dev)
-    lp = torch.where(read_ok, forward_scores(x),
+    lp = torch.where(read_ok, forward_scores(x, logsum_mode()),
                      torch.zeros((), dtype=f32, device=dev))
     sums = torch.stack([read_ok.sum().to(torch.float64),
                         lp.to(torch.float64).sum()])

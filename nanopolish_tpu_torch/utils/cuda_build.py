@@ -31,7 +31,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "nanopolish_tpu_torch")
 KERNELS = ("banded_fill", "banded_backtrack", "viterbi_fill",
            "viterbi_backtrack", "forward_fill", "forward_indexed",
-           "seg_viterbi_fill", "seg_backtrack", "chain_step")
+           "seg_viterbi_fill", "seg_backtrack", "chain_step",
+           "forward_table")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -55,6 +56,8 @@ _ARGTYPES = {
                         _F, _F, _F, _I, _I, _I, _P, _P, _I, _I],
     "seg_viterbi_fill": [_P, _I, _I, _P, _P, _P, _P, _P],
     "seg_backtrack": [_P, _I, _I, _P, _P, _P],
+    "forward_table": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _F, _F, _F,
+                      _P, _I, _P, _P],
     "chain_step": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P,
                    _P, _P, _P, _P, _P, _I, _P, _I],
 }

@@ -62,6 +62,17 @@ def _field_ok(g: str, w: str, col: int, sam: bool) -> bool:
                                       for a, b in zip(gt, wt))
 
 
+def _max_diff(g: str, w: str) -> float:
+    """Largest |difference| between the printed decimal numbers of two
+    fields that split into as many tokens (0.0 where none differ)."""
+    out = 0.0
+    for a, b in zip(g.split(" "), w.split(" ")):
+        da, db = _decimal(a), _decimal(b)
+        if da is not None and db is not None:
+            out = max(out, float(abs(da - db)))
+    return out
+
+
 def _positive(tok: str) -> bool:
     return float(tok) > 0
 
@@ -70,11 +81,13 @@ def compare(got: str, want: str, sign_cols: Sequence[int] = (),
             sam: bool = False) -> Dict[str, object]:
     """Hold ``got`` to ``want`` under the printed-output rule.  Returns
     {"rows": want's line count, "differ": lines not byte-identical,
-    "flips": sign changes in sign_cols, "breaches": [messages]}."""
+    "flips": sign changes in sign_cols, "max_diff": the largest difference
+    of two printed numbers, "breaches": [messages]}."""
     gl, wl = got.splitlines(), want.splitlines()
     breaches: List[str] = []
     differ = abs(len(gl) - len(wl))
     flips = 0
+    max_diff = 0.0
     if len(gl) != len(wl):
         breaches.append(f"{len(gl)} lines, expected {len(wl)}")
     for i, (g, w) in enumerate(zip(gl, wl)):
@@ -87,6 +100,7 @@ def compare(got: str, want: str, sign_cols: Sequence[int] = (),
             continue
         bad = [c for c, (a, b) in enumerate(zip(gf, wf))
                if not _field_ok(a, b, c, sam)]
+        max_diff = max([max_diff] + [_max_diff(a, b) for a, b in zip(gf, wf)])
         for c in sign_cols:
             if c < len(wf) and _decimal(wf[c]) is not None and \
                     _decimal(gf[c]) is not None and \
@@ -97,15 +111,47 @@ def compare(got: str, want: str, sign_cols: Sequence[int] = (),
             breaches.append(f"line {i + 1}: fields {sorted(set(bad))}\n"
                             f"  {g}\n  {w}")
     return {"rows": len(wl), "differ": differ, "flips": flips,
-            "breaches": breaches}
+            "max_diff": max_diff, "breaches": breaches}
 
 
 def assert_agree(got: str, want: str, name: str, **kw) -> Dict[str, object]:
     """compare(), print the counts, and raise on any breach or flip."""
     r = compare(got, want, **kw)
     print(f"{name}: {r['differ']} of {r['rows']} rows differ from the "
-          f"reference, {r['flips']} calls flipped, "
+          f"reference (printed numbers by at most {r['max_diff']:.6g}), "
+          f"{r['flips']} calls flipped, "
           f"{len(r['breaches'])} breaches of the printed-output rule")
     if r["breaches"]:
         raise AssertionError(f"{name}: " + "\n".join(r["breaches"][:10]))
     return r
+
+
+def table_mode_agree(got: str, want_port: str, want_jax: str, name: str,
+                     **kw) -> Dict[str, object]:
+    """Hold a port app's output under NPT_LOGSUM=table to the JAX app's:
+    identical to its run given the port's transition table (the table
+    route is bit for bit the JAX scan's there), and to its run with its
+    own table (a few ulp apart, so a lookup may land one 0.001-nat bin
+    away) under the printed-output rule, no call flipped."""
+    assert got == want_port, (
+        f"{name}: differs from the JAX app given the port's transition "
+        f"table:\n" + "\n".join(compare(got, want_port, **kw)["breaches"]
+                                 [:5]))
+    r = assert_agree(got, want_jax, f"{name}, the JAX package's own "
+                     f"transition table", **kw)
+    assert r["flips"] == 0
+    return r
+
+
+def jax_table_runs(run, monkeypatch):
+    """The JAX app's output under NPT_LOGSUM=table (``run()`` returns it)
+    given the port's transition table, and with its own."""
+    import pytest
+
+    from tests.test_torch_scorereads_phase import _port_transitions_in_jax
+    monkeypatch.setenv("NPT_LOGSUM", "table")
+    own = run()
+    with pytest.MonkeyPatch.context() as mp:
+        _port_transitions_in_jax(mp)
+        port = run()
+    return port, own

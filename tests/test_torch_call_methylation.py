@@ -30,7 +30,8 @@ from nanopolish_tpu_torch.utils.alphabet import (DNA_ALPHABET,
                                                  METHYL_CPG_ALPHABET)
 from nanopolish_tpu_torch.utils.synthetic import (random_sequence,
                                                   synthetic_raw_signal)
-from tests.printed_output import assert_agree, compare
+from tests.printed_output import (assert_agree, compare, jax_table_runs,
+                                  table_mode_agree)
 
 torch.set_num_threads(2)
 
@@ -181,6 +182,25 @@ def test_matches_jax_app(meth_pipeline, opts):
     rep = assert_agree(got, want.getvalue(), f"call-methylation {opts}",
                        sign_cols=(LLR,))
     assert rep["flips"] == 0 and rep["rows"] > 1
+
+
+def test_table_mode_matches_jax_app(meth_pipeline, monkeypatch):
+    """NPT_LOGSUM=table (the reference's quantized logsum) on both sides."""
+    from nanopolish_tpu.apps import call_methylation as jax_app
+
+    def jax_run():
+        want = io.StringIO()
+        jax_app.main(_args(meth_pipeline), stdout=want)
+        return want.getvalue()
+
+    want_port, want_jax = jax_table_runs(jax_run, monkeypatch)
+    got = _run(meth_pipeline)
+    rep = table_mode_agree(got, want_port, want_jax,
+                           "call-methylation NPT_LOGSUM=table",
+                           sign_cols=(LLR,))
+    assert rep["rows"] > 1
+    monkeypatch.delenv("NPT_LOGSUM")
+    assert got != _run(meth_pipeline)       # the table moves the scores
 
 
 def test_methylated_reads_score_positive(meth_pipeline):

@@ -367,6 +367,84 @@ def test_train_step_matches_jax(port_steps, dp, mp):
         (loss, w_loss)
 
 
+def _port_transitions_in_jitted_jax(monkeypatch):
+    """tests/test_torch_scorereads_phase.py's _port_transitions_in_jax for
+    a jitted caller: the port's table (f64 logs rounded once) computed on
+    the host through jax.pure_callback."""
+    import jax.numpy as jnp
+    from nanopolish_tpu.ops import profile_hmm as jph
+    from nanopolish_tpu_torch.ops import profile_hmm as ph
+    cols = (0, 1, 2, 3, 4, 5, 5, 5, 6, 7)     # BlockTransitions field order
+
+    def port_table(events_per_base, indel_bias=1.0):
+        epb = jnp.asarray(events_per_base, jnp.float32)
+        t = jax.pure_callback(
+            lambda e: ph.make_transitions(np.asarray(e), indel_bias),
+            jax.ShapeDtypeStruct((epb.shape[0], 8), jnp.float32), epb)
+        return jph.BlockTransitions(*[t[:, i] for i in cols])
+
+    monkeypatch.setattr(jph, "make_transitions", port_table)
+
+
+@pytest.mark.parametrize("transitions", ["port", "jax"])
+def test_train_step_table_mode_matches_jax(transitions, monkeypatch):
+    """NPT_LOGSUM=table on a 1 x 1 mesh, the port's step in this process
+    against the JAX step, given the port's transition table and with the
+    JAX package's own.  The step's Forward is the table route: its scores
+    of its own inputs equal the JAX scan's table route bit for bit (given
+    the port's table) and differ from the exact route's; the step's
+    outputs are held to the train step's bars above (n_scored equal, the
+    model within the EM tolerance, the loss within its tolerance: the two
+    M-steps sum in f64 and f32, so the Forward's inputs differ there)."""
+    from nanopolish_tpu.ops.profile_hmm import profile_hmm_forward
+    from nanopolish_tpu_torch.parallel import shard_model, shard_reads
+    from tests.test_torch_forward import _jax_trans
+    level_mean, level_stdv, arrays = train_batch()
+    monkeypatch.setenv("NPT_LOGSUM", "table")
+    if transitions == "port":
+        _port_transitions_in_jitted_jax(monkeypatch)
+    jm = jmesh.make_mesh(jax.devices()[:1], model_parallel=1)
+    want = jstep.make_train_step(jm, N_RANKS)(
+        level_mean, level_stdv, jstep.TrainBatch(*arrays))
+
+    seen = {}
+    forward = pstep.forward_scores
+
+    def recorded(x, *logsum):
+        seen.update(x, logsum=logsum, lp=forward(x, *logsum))
+        return seen["lp"]
+
+    monkeypatch.setattr(pstep, "forward_scores", recorded)
+    mesh = pmesh.make_mesh(1)
+    got = pstep.make_train_step(mesh, N_RANKS, device="cpu")(
+        *shard_model(mesh, level_mean, level_stdv),
+        pstep.TrainBatch(*shard_reads(mesh, *arrays)))
+    assert seen["logsum"] == ("table",)
+    assert int(got.n_scored) == int(want.n_scored) == READS
+    d_mean = np.abs(got.level_mean.numpy() - np.asarray(want.level_mean))
+    d_stdv = np.abs(got.level_stdv.numpy() - np.asarray(want.level_stdv)) \
+        / np.asarray(want.level_stdv)
+    assert d_mean.max() <= MEAN_ATOL and d_stdv.max() <= STDV_RTOL
+    loss, w_loss = float(got.loss), float(want.loss)
+    print(f"[train step 1x1, NPT_LOGSUM=table, {transitions} transitions] "
+          f"loss {loss} against {w_loss} ({abs(loss - w_loss):.3g} nats)")
+    assert abs(loss - w_loss) <= max(LOSS_ATOL, LOSS_RTOL * abs(w_loss))
+
+    x = {k: v.numpy() for k, v in seen.items() if torch.is_tensor(v)}
+    lp = x["lp"][:READS]
+    ref = np.asarray(profile_hmm_forward(
+        x["levels"], x["n_events"], x["mu"], x["sigma"], np.log(x["sigma"]),
+        x["n_kmers"], np.zeros(len(lp)), flags=0,
+        trans=_jax_trans(x["trans"])))[:READS]
+    if transitions == "port":
+        np.testing.assert_array_equal(lp.view(np.int32), ref.view(np.int32))
+    monkeypatch.delenv("NPT_LOGSUM")
+    exact = forward({k: seen[k] for k in ("levels", "n_events", "mu",
+                                          "sigma", "c", "n_kmers", "trans",
+                                          "clips")}).numpy()[:READS]
+    assert np.all(exact != lp)
+
+
 # ---------------------------------------------------------- process runtime --
 
 _PSUM_CHILD = r"""

@@ -27,7 +27,8 @@ from nanopolish_tpu_torch.models.squiggle import SquiggleScalings
 from nanopolish_tpu_torch.utils.synthetic import (build_deletion_corpus,
                                                   random_sequence,
                                                   synthetic_raw_signal)
-from tests.printed_output import assert_agree
+from tests.printed_output import (assert_agree, jax_table_runs,
+                                  table_mode_agree)
 
 torch.set_num_threads(2)
 
@@ -123,15 +124,18 @@ def test_scorereads_matches_jax_app(phased_pipeline, opts, capsys):
 
 
 def _port_transitions_in_jax(monkeypatch):
-    """Give the JAX package's profile HMM the port's transition table.
+    """Give the JAX package's scan route the port's transition table.
 
-    The port rounds each log transition once from f64
-    (ops/profile_hmm.make_transitions); the JAX package computes it in
-    f32 steps (1 - 1/epb, then 1 - p_stay - p_skip - p_bad) and XLA's
-    log, which lands a few ulp away in lp_mm_self, lp_mm_next, lp_bk and
-    lp_km (test_transition_table_differs_from_jax_by_a_few_ulp).  A
-    Viterbi whose best path ties to within that can take the other
-    path."""
+    The port's table (ops/profile_hmm.make_transitions) is the JAX
+    package's own Pallas-route table, _np_transitions, bit for bit (each
+    log transition rounded once from f64;
+    test_transition_table_is_jax_pallas_table).  The JAX scan route
+    computes its table in f32 steps (1 - 1/epb, then 1 - p_stay - p_skip
+    - p_bad) and XLA's log, which lands a few ulp away in lp_mm_self,
+    lp_mm_next, lp_bk and lp_km
+    (test_transition_table_differs_from_jax_by_a_few_ulp): the JAX
+    package's two routes disagree there.  A Viterbi whose best path ties
+    to within that can take the other path."""
     import jax.numpy as jnp
     from nanopolish_tpu.ops import profile_hmm as jph
     from nanopolish_tpu_torch.ops import profile_hmm as ph
@@ -150,6 +154,44 @@ def _port_transitions_in_jax(monkeypatch):
         return jph.BlockTransitions(*[jnp.asarray(t[:, i]) for i in cols])
 
     monkeypatch.setattr(jph, "make_transitions", port_table)
+
+
+@pytest.mark.parametrize("indel_bias", [1.0, 0.9])
+def test_transition_table_is_jax_pallas_table(indel_bias):
+    """The port's make_transitions is the JAX Pallas route's
+    _np_transitions (nanopolish_tpu/ops/pallas_profile_hmm.py) bit for bit
+    over a grid of events per base, below the 1.25 floor to 4."""
+    from nanopolish_tpu.ops.pallas_profile_hmm import _np_transitions
+    from nanopolish_tpu_torch.ops import profile_hmm as ph
+    epb = np.linspace(0.5, 4.0, 20001).astype(np.float32)
+    got = ph.make_transitions(epb, indel_bias)
+    want = _np_transitions(epb, indel_bias)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("indel_bias", [1.0, 0.9])
+def test_transition_gap_is_the_scan_f32_steps_and_xla_log(indel_bias):
+    """Where the JAX scan's table leaves the port's: redoing its f32 steps
+    (max(1.25, epb * bias), 1 - 1/epb, then 1 - p_stay - p_skip - p_bad)
+    under a correctly rounded log gives its lp_km exactly and its
+    lp_mm_self, lp_mm_next and lp_bk to within 1 ulp; that last ulp is
+    XLA's CPU f32 log, which is not correctly rounded."""
+    from nanopolish_tpu.ops import profile_hmm as jph
+    f = np.float32
+    epb = np.linspace(0.5, 4.0, 20001).astype(f)
+    j = jph.make_transitions(epb, indel_bias)
+    e = np.maximum(f(1.25), epb * f(indel_bias))
+    p_stay = f(1.0) - f(1.0) / e
+    p_next = (f(1.0) - p_stay - f(0.0025)) - f(0.001)
+    steps = {"lp_mm_self": p_stay, "lp_mm_next": p_next,
+             "lp_bk": np.full_like(epb, (f(1.0) - f(0.001)) / f(3.0)),
+             "lp_km": np.full_like(epb, f(1.0) - f(0.3))}
+    for name, p in steps.items():
+        emu = np.log(p.astype(np.float64)).astype(f)
+        ulps = np.abs(emu.view(np.int32).astype(np.int64) -
+                      np.asarray(getattr(j, name)).view(np.int32)
+                      .astype(np.int64))
+        assert ulps.max() <= (0 if name == "lp_km" else 1), name
 
 
 def test_transition_table_differs_from_jax_by_a_few_ulp():
@@ -241,6 +283,28 @@ def test_phase_reads_matches_jax_app(phased_pipeline):
         calls[f[0]] = (f[9][i], ord(f[10][i]) - 33)
     assert calls["hap_alt"][0] == p["alt"] and calls["hap_ref"][0] == p["ref"]
     assert calls["hap_alt"][1] > 3 and calls["hap_ref"][1] > 3
+
+
+@pytest.mark.parametrize("app", ["scorereads", "phase-reads"])
+def test_table_mode_matches_jax_app(phased_pipeline, app, monkeypatch):
+    """NPT_LOGSUM=table (the reference's quantized logsum) on both sides."""
+    from nanopolish_tpu.apps import phase_reads as jax_pr
+    from nanopolish_tpu.apps import scorereads as jax_sc
+    p = phased_pipeline
+    args = _args(p) + ([p["vcf"]] if app == "phase-reads" else [])
+    jax_app, port_app = {"scorereads": (jax_sc, sc),
+                         "phase-reads": (jax_pr, pr)}[app]
+
+    def jax_run():
+        want = io.StringIO()
+        jax_app.main(args, stdout=want)
+        return want.getvalue()
+
+    want_port, want_jax = jax_table_runs(jax_run, monkeypatch)
+    got = io.StringIO()
+    port_app.main(args + ["--device", "cpu"], stdout=got)
+    table_mode_agree(got.getvalue(), want_port, want_jax,
+                     f"{app} NPT_LOGSUM=table", sam=app == "phase-reads")
 
 
 @pytest.fixture

@@ -174,6 +174,27 @@ def test_consensus_matches_jax_app(consensus_pipeline):
     assert_agree(got.getvalue(), want.getvalue(), "variants --consensus")
 
 
+def test_consensus_table_mode_matches_jax_app(consensus_pipeline,
+                                             monkeypatch):
+    """NPT_LOGSUM=table (the reference's quantized logsum) on both sides:
+    the screening's flushes through the indexed drain's table route."""
+    from nanopolish_tpu.apps import variants as jax_va
+    from tests.printed_output import jax_table_runs, table_mode_agree
+    p = consensus_pipeline
+    args = _args(p, f"tig1:0-{DRAFT_LEN - 1}") + ["--consensus", "-d", "10"]
+
+    def jax_run():
+        want = io.StringIO()
+        jax_va.main(args, stdout=want)
+        return want.getvalue()
+
+    want_port, want_jax = jax_table_runs(jax_run, monkeypatch)
+    got = io.StringIO()
+    va.main(args + ["--device", "cpu"], stdout=got)
+    table_mode_agree(got.getvalue(), want_port, want_jax,
+                     "variants --consensus NPT_LOGSUM=table")
+
+
 def test_vcf2fasta_window_checks(consensus_pipeline, tmp_path):
     bad = tmp_path / "bad.vcf"
     bad.write_text("##fileformat=VCFv4.2\n"
