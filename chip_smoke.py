@@ -195,6 +195,19 @@ FWD_SEGMENTS, FWD_LONG = 2048, 64
 HMM_WIDTHS, WIDTH_SEGMENTS = (32, 64, 128, 256, 512), 64
 WIDE_WIDTHS = {2048: (8, 400, 500), 32768: (4, 30, 40),
                131072: (2, 30, 40)}
+# the wide row's other geometries (ops/profile_hmm_viterbi.wide_layout),
+# name: (kp, S, t_lo, t_hi): the train step's kmer width with one and
+# with four segments (a cluster of CTAs a segment), and 68 segments (one
+# CTA a segment) at the widest row one CTA holds in shared memory and at
+# the narrowest it keeps in global scratch
+WIDE_CASES = {"step-1": (8192, 1, 150, 200), "step-4": (8192, 4, 150, 200),
+              "edge-shared": (16384, 68, 20, 30),
+              "edge-scratch": (32768, 68, 20, 30)}
+# the Viterbi tie batch: TIE_SEGMENTS segments at kmer width TIE_KP whose
+# kmer means and levels lie on TIE_LEVELS integer pA with sigma 1 and
+# 1 event a base (1.25 after the clamp), so that their K chains hold
+# exact finite ties c[k] == K[k-1] + lp_kk (hundreds on this seed)
+TIE_KP, TIE_SEGMENTS, TIE_LEVELS, TIE_EVENTS = 2048, 4, 4, 120
 # the share of the main corpora's eventalign jobs the device chain must
 # take
 CHAINED_MIN = 0.95
@@ -325,6 +338,60 @@ SEG_BT_STEP_CYCLES = 8
 # table adds (max, sub, compare, mul, convert, min, a shared-memory load,
 # add, select: ~60 cycles each) and the M add
 TBL_STEP_CYCLES = 310
+# a level of the wide row's K chain (csrc/profile_hmm_wide.cuh): a shuffle
+# and a combine, the Forward's a logaddexp (~35 dependent instructions),
+# the Viterbi's an add and a max; a row has 2 log2 KP - 1 tree levels and
+# three more (the chain's input and the M's last two terms)
+WIDE_FWD_LEVEL_CYCLES, WIDE_VIT_LEVEL_CYCLES = 150, 40
+
+
+def wide_floor_ms(nev, kp, level_cycles, clk):
+    """The wide row's chain-latency floor (an estimate): the longest
+    segment's rows, each 2 log2 kp + 2 dependent levels of level_cycles
+    cycles at clk MHz."""
+    levels = 2 * (int(kp).bit_length() - 1) + 2
+    return float(np.max(nev)) * levels * level_cycles / (clk * 1e3)
+
+
+# every wide-row batch's record (phases 3, 4 and 6b), printed as one
+# wide_rows JSON line
+WIDE_RECORDS = {}
+
+
+def wide_record(name, kernel, ms, nev, nk, kp, trace, dev, plain_ms):
+    """Log and keep a wide-row batch's time beside its bound (by
+    operations or bytes), the bound's one-SM and cluster shares, the
+    chain-floor estimate and the plain version's time."""
+    cells = float(np.sum(np.asarray(nev, np.float64) * np.asarray(nk)))
+    if trace:
+        bms, by = bound(cells + float(np.sum(nev)) * 4 +
+                        float(np.sum(nk)) * 12, cells * 27)
+    else:
+        bms, by = bound(*forward_work(nev, nk))
+    one_sm, per_cluster = wide_shares(bms, len(nev), kp, trace, dev)
+    floor = wide_floor_ms(nev, kp, WIDE_VIT_LEVEL_CYCLES if trace
+                          else WIDE_FWD_LEVEL_CYCLES, sm_clock_mhz())
+    rec = {"kernel": kernel, "segments": len(nev), "kmer_width": kp,
+           "layout": layout_name(kp, len(nev), trace), "ms": ms,
+           "bound_ms": bms, "bound_by": by, "one_sm_share_ms": one_sm,
+           "cluster_share_ms": per_cluster, "chain_floor_ms": floor,
+           "plain_ms": plain_ms}
+    WIDE_RECORDS[f"{kernel} {name}"] = rec
+    log(f"wide row, {kernel} {name}: {ms:.4f} ms; bound {bms:.4f} ms "
+        f"({by}), its one-SM share {one_sm:.4f} ms and cluster share "
+        f"{per_cluster:.4f} ms; chain floor ~{floor:.3f} ms (estimate); "
+        f"plain {plain_ms:.1f} ms")
+    return rec
+
+
+def wide_shares(bms, B, kp, trace, dev):
+    """The one-SM share of a bound of bms ms for B segments at kmer width
+    kp (each segment on one of the card's SMs: bms x SMs / B) and the
+    cluster's (each on wide_layout's cluster of CTAs, one an SM)."""
+    from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
+    sms = pv.card_sms(dev)
+    cluster = pv.wide_layout(kp, B, trace, sms).cluster
+    return bms * sms / B, bms * sms / (B * cluster)
 
 
 def log(msg: str) -> None:
@@ -652,29 +719,77 @@ def width_batch(model, kp, S, seed):
 
 
 def wide_batch(model, kp, seed):
-    """WIDE_WIDTHS[kp] = (S, t_lo, t_hi): S segments of kp/2+1 .. kp-1
-    kmers (segment 0 of kp - 1, segment 1 with one event) and t_lo..t_hi
-    events, all four clip-flag combinations."""
-    S, t_lo, t_hi = WIDE_WIDTHS[kp]
+    """WIDE_WIDTHS[kp] = (S, t_lo, t_hi): wide_case's S segments at kmer
+    width kp."""
+    return wide_case(model, kp, *WIDE_WIDTHS[kp], seed)
+
+
+def layout_name(kp, B=1, trace=False):
+    """The fills' row layout of B segments at kmer width kp (on the wide
+    row: kmers a thread x threads x CTAs a segment, and where its rows
+    live)."""
+    import torch
+    from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
+    mode, kpl = pv.row_layout(kp)
+    if mode == "wide":
+        lay = pv.wide_layout(kp, B, trace, pv.card_sms(torch.device("cuda")))
+        return (f"wide, {lay.per_thread} kmers/thread x {lay.threads} "
+                f"threads x {lay.cluster} CTAs, rows in {lay.rows}")
+    return f"{mode}, {kpl} kmers/lane" if kpl else mode
+
+
+def wide_case(model, kp, S, t_lo, t_hi, seed):
+    """S segments of kp/2+1 .. kp-1 kmers (segment 0 of kp - 1; segment 1,
+    if any, with one event) and t_lo..t_hi events, clip flags 0-3."""
     rng = np.random.default_rng(seed)
     nk = rng.integers(kp // 2 + 1, kp, S).astype(np.int32)
     nk[0] = kp - 1
     nev = rng.integers(t_lo, t_hi + 1, S).astype(np.int32)
-    nev[1] = 1
+    if S > 1:
+        nev[1] = 1
     return hmm_batch(model, nk, nev, rng)
 
 
-def layout_name(kp):
-    from nanopolish_tpu_torch.ops.profile_hmm_viterbi import row_layout
-    mode, kpl = row_layout(kp)
-    unit = "thread" if mode == "wide" else "lane"
-    return f"{mode}, {kpl} kmers/{unit}" if kpl else mode
+def tie_batch(seed=7):
+    """TIE_SEGMENTS segments at TIE_KP whose K chains hold exact ties:
+    kmer means and levels on TIE_LEVELS integer pA, sigma 1, epb 1."""
+    rng = np.random.default_rng(seed)
+    S, kp, T = TIE_SEGMENTS, TIE_KP, TIE_EVENTS
+    nk = np.array([kp - 1, 1500, 1800, 1100], np.int32)[:S]
+    nev = np.array([T, T - 7, T - 20, T - 30], np.int32)[:S]
+    mu = (60 + rng.integers(0, TIE_LEVELS, (S, kp))).astype(np.float32)
+    sd = np.ones((S, kp), np.float32)
+    lv = (60 + rng.integers(0, TIE_LEVELS, (S, T))).astype(np.float32)
+    return (lv, nev, mu, sd, nk, np.ones(S, np.float32),
+            np.arange(S, dtype=np.int32) % 4)
 
 
-def viterbi_check(x, name):
+def chain_ties(fn):
+    """fn() with ops/profile_hmm.kstate_chain_max counting the exact
+    finite ties c[k] == K[k-1] + lp_kk of the plain Viterbi's K chains;
+    returns (fn's result, the count)."""
+    import torch
+    from nanopolish_tpu_torch.ops import profile_hmm as ph
+    real, ties = ph.kstate_chain_max, [0]
+
+    def counted(c, lp_kk):
+        K = real(c, lp_kk)
+        ties[0] += int(((c[:, 1:] == K[:, :-1] + lp_kk[:, None]) &
+                        torch.isfinite(c[:, 1:])).sum())
+        return K
+
+    ph.kstate_chain_max = counted
+    try:
+        return fn(), ties[0]
+    finally:
+        ph.kstate_chain_max = real
+
+
+def viterbi_check(x, name, plain=None):
     """Kernel vs plain fill and backtrack on one prepared batch; fail on
     any trace cell of a live event row (every kmer column) or traceback
-    that differs.  Returns the fill's arguments, both traces, the live
+    that differs.  plain: (ms, trace) of the plain fill on these inputs,
+    if run already.  Returns the fill's arguments, both traces, the live
     mask, both tracebacks and the plain versions' ms."""
     import torch
     from nanopolish_tpu_torch.ops import profile_hmm as ph
@@ -682,7 +797,8 @@ def viterbi_check(x, name):
     fargs = (x["levels"], x["n_events"], x["mu"], x["sigma"], x["c"],
              x["n_kmers"], x["trans"], x["clips"])
     tk = pv.viterbi_fill(*fargs)
-    fill_plain_ms, tp = once_ms(lambda: ph.viterbi_fill_plain(*fargs))
+    fill_plain_ms, tp = plain or once_ms(
+        lambda: ph.viterbi_fill_plain(*fargs))
     rows = torch.arange(tk.shape[1], device=tk.device)[None, :, None]
     live = (rows < x["n_events"][:, None, None].long()).expand(tk.shape)
     n_diff_cells = int(((tk != tp) & live).sum())
@@ -767,18 +883,29 @@ def phase_viterbi(model, dev, report):
     log(f"viterbi width 1024 ({layout_name(1024)}): 8 segments, 0 of "
         f"{int(livew.sum())} trace cells and 0 tracebacks differ from plain")
     del wargs, tkw, tpw, livew
-    for kp in WIDE_WIDTHS:
-        xw = pv.prepare_viterbi_inputs(*wide_batch(model, kp, seed=kp),
-                                       device=dev)
-        wargs, tkw, tpw, livew, *_ = viterbi_check(xw, f"width-{kp}")
+    wide = {f"width-{kp}": wide_batch(model, kp, seed=kp)
+            for kp in WIDE_WIDTHS}
+    wide.update({name: wide_case(model, *shape, seed=shape[0] + shape[1])
+                 for name, shape in WIDE_CASES.items()})
+    wide["ties"] = tie_batch()
+    for name, arrays in wide.items():
+        xw = pv.prepare_viterbi_inputs(*arrays, device=dev)
+        kp, S = xw["mu"].shape[1], xw["mu"].shape[0]
+        plain, ties = chain_ties(lambda: once_ms(lambda: ph.viterbi_fill_plain(
+            xw["levels"], xw["n_events"], xw["mu"], xw["sigma"], xw["c"],
+            xw["n_kmers"], xw["trans"], xw["clips"])))
+        if name == "ties" and ties == 0:
+            fail("the tie batch's K chains hold no exact tie")
+        wargs, tkw, tpw, livew, *_ = viterbi_check(xw, name, plain=plain)
         err = max(err, max_abs_err(tkw[livew].float(), tpw[livew].float()))
         ms = cuda_ms(lambda: pv.viterbi_fill(*wargs), reps=1)
-        scratch = pv.wide_scratch(kp, 1, dev) is not None
-        log(f"viterbi width {kp} ({layout_name(kp)}, rows in "
-            f"{'global scratch' if scratch else 'shared memory'}): "
-            f"{xw['mu'].shape[0]} segments, 0 of {int(livew.sum())} trace "
-            f"cells and 0 tracebacks differ from plain; fill {ms:.4f} ms")
-        del wargs, tkw, tpw, livew
+        wide_record(name, "viterbi_fill", ms, arrays[1], arrays[4], kp, True,
+                    dev, plain[0])
+        log(f"viterbi {name} (kmer width {kp}, "
+            f"{layout_name(kp, S, trace=True)}): {S} segments, 0 of "
+            f"{int(livew.sum())} trace cells and 0 tracebacks differ from "
+            f"plain, {ties} exact K-chain ties; fill {ms:.4f} ms")
+        del wargs, tkw, tpw, livew, plain
     for name, ms, pms, nbytes, flops, e in (
             ("viterbi_fill", fill_ms, fill_plain_ms, fill_bytes, cells * 27,
              err),
@@ -993,6 +1120,8 @@ def phase_forward(model, dev, report):
                                            seed=kp + 1)
     for kp in WIDE_WIDTHS:
         cases[f"width-{kp}"] = wide_batch(model, kp, seed=kp + 1)
+    for name, shape in WIDE_CASES.items():
+        cases[name] = wide_case(model, *shape, seed=shape[0] + shape[1] + 1)
     timed, scores, errs = None, {}, []
     for name, (lv, nev_c, mu, sd, nk_c, epb, flags) in cases.items():
         x = pf.prepare_forward_inputs(lv, nev_c, mu, sd, nk_c, epb, flags,
@@ -1012,8 +1141,12 @@ def phase_forward(model, dev, report):
         nbytes, flops = forward_work(nev_c, nk_c)
         bms, by = bound(nbytes, flops)
         log(f"forward {name}: {len(nk_c)} segments, kmer width {kp} "
-            f"({layout_name(kp)}), bit-identical to plain; kernel {ms:.4f} ms "
+            f"({layout_name(kp, len(nk_c))}), bit-identical to plain; kernel "
+            f"{ms:.4f} ms "
             f"(plain {plain_ms:.1f} ms), bound {bms:.4f} ms ({by})")
+        if kp > 1024:
+            wide_record(name, "forward_fill", ms, nev_c, nk_c, kp, False, dev,
+                        plain_ms)
         scores[name] = got
         errs.append(err)
         if timed is None:                 # the main path's shape
@@ -1200,12 +1333,17 @@ def phase_forward_indexed(model, dev, report):
         # alone (torch.profiler)
         flush_ms = cuda_ms(run)
         ms = kernel_ms(run, "forward_indexed")
+        if name == "wide":
+            wide_record(name, "forward_indexed", ms,
+                        arrays[1][ids_np[:, 0]], arrays[4][ids_np[:, 2]], kf,
+                        False, dev, plain_ms)
         nbytes, flops = indexed_work(*arrays)
         bms, by = bound(nbytes, flops)
         modes = ", ".join(
             (f"<=32: KP {'/'.join(str(w) for w in sorted(set(wd.tolist())))}"
              if wd is not None else
-             f"{kp}: {'/'.join(map(str, pi.indexed_layout(kp)))}") +
+             f"{kp}: " + "/".join(str(v) for v in pi.indexed_layout(kp)
+                                  if v is not None)) +
             f" x{hi - lo}" for kp, lo, hi, wd in launches)
         log(f"forward_indexed {name}: {n} segments in {len(launches)} "
             f"launches ({modes}), {len(arrays[1])} event rows, "
@@ -2198,7 +2336,6 @@ def phase_variants(dev, window=VAR_WINDOW, n_reads=VAR_READS,
     timers around the pipeline's stages, the card's busy time from
     torch.profiler (CUDA activity only).  Returns the launch counts and
     device ms per kernel."""
-    from nanopolish_tpu_torch.alignment.alignment_db import AlignmentDB
     from nanopolish_tpu_torch.apps import variants as va_app
     from nanopolish_tpu_torch.apps import vcf2fasta as v2f_app
 
@@ -2208,38 +2345,15 @@ def phase_variants(dev, window=VAR_WINDOW, n_reads=VAR_READS,
         d, window, n_reads, read_len)
     setup_s = time.perf_counter() - t0
     vcf = os.path.join(d, "polished.vcf")
-    stages = {}
+    with variants_stage_timers() as stages:
+        def run():
+            stages.clear()
+            va_app.main(["-r", fastq, "-b", bam, "-g", draft_fa, "-w",
+                         f"tig1:0-{window - 1}", "--consensus", "-o", vcf,
+                         "-d", "10", "--device", dev.type])
 
-    def timed(name, fn):
-        def run(*a, **k):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                stages[name] = stages.get(name, 0.0) + time.perf_counter() - t
-        return run
-
-    patched = [(AlignmentDB, "load_region"),
-               (va_app, "generate_candidate_single_base_edits"),
-               (va_app, "screen_variants_by_score"),
-               (va_app, "call_haplotype_from_candidates"),
-               (va_app, "expand_variants")]
-    saved = [getattr(o, a) for o, a in patched]
-    for (o, a), fn in zip(patched, saved):
-        setattr(o, a, timed(a, fn))
-
-    def run():
-        stages.clear()
-        va_app.main(["-r", fastq, "-b", bam, "-g", draft_fa, "-w",
-                     f"tig1:0-{window - 1}", "--consensus", "-o", vcf, "-d",
-                     "10", "--device", dev.type])
-
-    try:
         wall, launches, busy_s, top, path = profiled_run(
             run, ("banded_fill", "banded_backtrack", "forward_indexed"))
-    finally:
-        for (o, a), fn in zip(patched, saved):
-            setattr(o, a, fn)
 
     keys = set()
     for line in open(vcf):
@@ -2597,6 +2711,11 @@ def subset_argv(inputs):
                      str(TRAIN_SUBSET)]
 
 
+# the cpu processes start_cpu_process started: host_quiet pauses those
+# still running around each ceilinged run
+BACKGROUND = []
+
+
 def start_cpu_process(flag, d, name, payload):
     """Write payload to d/name as JSON and start this script with `flag d`
     in a second process (its output in d/cpu_run.log), so that its cpu
@@ -2611,7 +2730,98 @@ def start_cpu_process(flag, d, name, payload):
                                  flag, d], stdout=logf,
                                 stderr=subprocess.STDOUT, cwd=ROOT)
     atexit.register(lambda: proc.poll() is None and proc.kill())
+    BACKGROUND.append(proc)
     return proc
+
+
+def proc_cpu(pid):
+    """(state letter, cpu seconds so far) of process pid from
+    /proc/<pid>/stat, or ("gone", 0.0)."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            f = fh.read().rsplit(")", 1)[1].split()
+    except OSError:
+        return "gone", 0.0
+    return f[0], (int(f[11]) + int(f[12])) / os.sysconf("SC_CLK_TCK")
+
+
+@contextlib.contextmanager
+def host_quiet():
+    """Around one ceilinged run: a garbage collection, then every object
+    the earlier phases left frozen (gc.freeze: the collector's full passes
+    during the run skip them; unfrozen after), the cpu processes of
+    BACKGROUND that still run paused (SIGSTOP, SIGCONT after), and the
+    collections during the block counted.  Yields its record: the
+    one-minute load average at the start, the objects frozen, each paused
+    process (pid, its state at the end, the cpu seconds it took during the
+    block), and the garbage collections during the block by generation
+    (0, 1, 2) and their seconds.  A full pass over the heap of the
+    earlier phases took 0.41 s of a 0.98 s scale variants run and 0.89 s
+    of a 1.49 s long-read eventalign before the freeze (PERF.md §7)."""
+    import gc
+    import signal
+    gc.collect()
+    gc.freeze()
+    rec = {"loadavg_1m": round(os.getloadavg()[0], 2),
+           "frozen": gc.get_freeze_count(), "paused": [],
+           "gc_collections": [0, 0, 0], "gc_s": 0.0}
+    live = [p for p in BACKGROUND if p.poll() is None]
+    cpu0 = {p.pid: proc_cpu(p.pid)[1] for p in live}
+    for p in live:
+        p.send_signal(signal.SIGSTOP)
+    start = []
+
+    def collected(phase, info):
+        if phase == "start":
+            start.append(time.perf_counter())
+        elif start:
+            rec["gc_collections"][info["generation"]] += 1
+            rec["gc_s"] += time.perf_counter() - start.pop()
+
+    gc.callbacks.append(collected)
+    try:
+        yield rec
+    finally:
+        gc.callbacks.remove(collected)
+        gc.unfreeze()
+        for p in live:
+            state, cpu = proc_cpu(p.pid)
+            rec["paused"].append({"pid": p.pid, "state": state,
+                                  "cpu_s": round(cpu - cpu0[p.pid], 2)})
+            p.send_signal(signal.SIGCONT)
+        rec["gc_s"] = round(rec["gc_s"], 4)
+
+
+@contextlib.contextmanager
+def variants_stage_timers():
+    """Seconds by stage of variants' pipeline (summed over calls) while
+    the block runs: the stage functions wrapped in timers."""
+    from nanopolish_tpu_torch.alignment.alignment_db import AlignmentDB
+    from nanopolish_tpu_torch.apps import variants as va_app
+    stages = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                stages[name] = stages.get(name, 0.0) + time.perf_counter() - t
+        return run
+
+    patched = [(AlignmentDB, "load_region"),
+               (va_app, "generate_candidate_single_base_edits"),
+               (va_app, "screen_variants_by_score"),
+               (va_app, "call_haplotype_from_candidates"),
+               (va_app, "expand_variants")]
+    saved = [getattr(o, a) for o, a in patched]
+    for (o, a), fn in zip(patched, saved):
+        setattr(o, a, timed(a, fn))
+    try:
+        yield stages
+    finally:
+        for (o, a), fn in zip(patched, saved):
+            setattr(o, a, fn)
 
 
 def start_cpu_subset(inputs):
@@ -3128,7 +3338,7 @@ def step_forward_check(d, dev):
     kp = args[2].shape[1]
     what = (f"the train step's Forward ({len(got)} whole reads of up to "
             f"{int(a['n_events'].max())} events and {int(a['n_kmers'].max())}"
-            f" kmers, kmer width {kp}, {layout_name(kp)})")
+            f" kmers, kmer width {kp}, {layout_name(kp, len(got))})")
     if not bits_equal(got.cpu(), torch.as_tensor(a["lp"])):
         fail(f"forward_fill on {what} differs from the step's own scores")
     cut = list(args)
@@ -3142,14 +3352,21 @@ def step_forward_check(d, dev):
              f"{max_abs_err(got_cut, ref)} nats")
     ms = cuda_ms(lambda: pf.forward_fill(*args))
     bms, by = bound(*forward_work(a["n_events"], a["n_kmers"]))
+    # (its plain time over the first PAR_FWD_PLAIN_ROWS events only)
+    wide = wide_record("train step", "forward_fill", ms, a["n_events"],
+                       a["n_kmers"], kp, False, dev, plain_ms)
     log(f"forward on {what}: bit-identical to the step, and to plain over "
         f"the first {PAR_FWD_PLAIN_ROWS} events (plain {plain_ms:.1f} ms); "
         f"kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}: "
         f"{int(np.sum(a['n_events']))} event rows x their reads' kmers)")
     return {"reads": len(got), "events": int(a["n_events"].max()),
-            "kmer_width": kp, "layout": layout_name(kp), "ms": ms,
+            "kmer_width": kp, "layout": layout_name(kp, len(got)),
+            "ms": ms,
             "plain_ms": plain_ms, "plain_rows": PAR_FWD_PLAIN_ROWS,
-            "bound_ms": bms, "bound_by": by}
+            "bound_ms": bms, "bound_by": by,
+            "one_sm_share_ms": wide["one_sm_share_ms"],
+            "cluster_share_ms": wide["cluster_share_ms"],
+            "chain_floor_ms": wide["chain_floor_ms"]}
 
 
 def phase_parallel_train(dev, ea_corpus):
@@ -3486,11 +3703,13 @@ def cpu_scale_run(d) -> int:
     return 0
 
 
-def scale_run(name, fn, kernels):
+def scale_run(name, fn, kernels, stages=None):
     """One profiled long-read or scale run, its peaks held to the
     ceilings of SCALE_CEILINGS: wall, rate inputs, peak host RSS and
     peak device memory, rounds (eventalign's Viterbi calls) and each
-    kernel's launches and path ms."""
+    kernel's launches and path ms.  The run goes under host_quiet (this
+    script's cpu processes paused, garbage collected first), whose record
+    it logs beside the run's, with stages (seconds by stage) if given."""
     import torch
     from nanopolish_tpu_torch.alignment import device_chain as dc
     from nanopolish_tpu_torch.alignment import eventalign as ea_core
@@ -3511,7 +3730,7 @@ def scale_run(name, fn, kernels):
         return fn()
 
     try:
-        with sampled_rss() as rss:
+        with host_quiet() as host, sampled_rss() as rss:
             wall, launches, busy_s, top, path = profiled_run(run, kernels)
     finally:
         ea_core.viterbi_segments = real
@@ -3530,14 +3749,19 @@ def scale_run(name, fn, kernels):
                            "path_ms": round(p["ms"], 4)}
                        for k, p in path.items() if p["made"]},
            "ceilings": {"wall_s": wall_max, "rss_growth_mb": rss_max,
-                        "peak_device_mb": dev_max}}
+                        "peak_device_mb": dev_max}, "host": host}
+    if stages is not None:
+        rec["stages"] = {k: round(v, 3) for k, v in stages.items()}
     log(f"{name} on the card ({card()}): {wall:.2f} s under torch.profiler, "
         f"{rounds[0]} host wavefront rounds, device chain "
         f"{json.dumps(chain)}, peak RSS {rss['peak']:.1f} MiB (at its "
         f"start {rss['start']:.1f}), peak device memory {dev_mb:.1f} MiB; "
         f"card busy {busy_s:.4f} s (idle share "
         f"{1 - busy_s / wall:.4f}), by kernel {json.dumps(top)}; path ms "
-        f"(launches made, recorded) {json.dumps(path_summary(path))}")
+        f"(launches made, recorded) {json.dumps(path_summary(path))}; host "
+        f"{json.dumps(host)}"
+        + (f"; stages {json.dumps(rec['stages'])}" if stages is not None
+           else ""))
     if wall > wall_max or grown > rss_max or dev_mb > dev_max:
         fail(f"{name}: {wall:.2f} s, RSS grown by {grown:.1f} MiB, "
              f"{dev_mb:.1f} MiB on the card, over its ceilings ({wall_max} s, "
@@ -3668,11 +3892,15 @@ def phase_longread_scale(dev, lr, sc, cpu_proc):
         fail(f"scale call-methylation: {n_sites} sites (bar: > 10,000)")
     vcf = os.path.join(d, "polished.vcf")
     win = SC_VAR_WINDOW
-    rec["scale variants --consensus"] = r = scale_run(
-        "scale variants --consensus",
-        lambda: va_app.main(args + ["-w", win, "--consensus", "-o", vcf,
-                                    "-d", "10", "--device", dev.type]),
-        banded + ("forward_indexed",))
+    with variants_stage_timers() as stages:
+        def variants_run():
+            stages.clear()
+            va_app.main(args + ["-w", win, "--consensus", "-o", vcf, "-d",
+                                "10", "--device", dev.type])
+
+        rec["scale variants --consensus"] = r = scale_run(
+            "scale variants --consensus", variants_run,
+            banded + ("forward_indexed",), stages)
     keys = set()
     for line in open(vcf):
         if not line.startswith("#"):
@@ -3743,6 +3971,7 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
+    T0 = time.perf_counter()
     sys.path.insert(0, ROOT)
     from nanopolish_tpu_torch.models.pore_model import PoreModelSet
     from nanopolish_tpu_torch.utils import cuda_build
@@ -3823,6 +4052,7 @@ def main() -> int:
         "card": card(), "cores": len(os.sched_getaffinity(0)),
         "serving": serving, "train_step": train,
         "seconds": round(time.perf_counter() - t0, 1)}}))
+    log(json.dumps({"wide_rows": WIDE_RECORDS, "card": card()}))
     # the table-route Forward's paths (phase 4d): call-methylation and the
     # train step under NPT_LOGSUM=table
     table, own["forward_table"] = phase_table_paths(dev, meth_corpus,
@@ -3868,6 +4098,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "path_ms": path[name]["ms"]})
+    log(f"chip_smoke: {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,10 @@
 //    score;
 //  - KP 512..1024: one block per segment with one thread per kmer, the row
 //    loop npt_forward_block (forward_common.cuh), which
-//    csrc/forward_indexed.cu's block mode runs too.
+//    csrc/forward_indexed.cu's block mode runs too;
+//  - KP 2048 and wider (a whole read in the train step, a scorereads chunk
+//    across deletions): the wide row of profile_hmm_wide.cuh, a cluster of
+//    up to 16 CTAs a segment when the batch leaves SMs idle.
 // Built with -fmad=false: a*b+c is fused only where the scan fuses it (the
 // emission, the soft-clip flanks).  Every mode gives the same bits.
 
@@ -104,28 +107,29 @@ __global__ void forward_fill_block_kernel(
     if (k == last) out[b] = lp_end;
 }
 
-__global__ void __launch_bounds__(NPT_WIDE_THREADS) forward_fill_wide_kernel(
+template <bool kScratch, int U>
+__global__ void __launch_bounds__(NPT_WIDE_MAX_THREADS)
+forward_fill_wide_kernel(
         const float* __restrict__ lev, int T,
         const float* __restrict__ mu, const float* __restrict__ sig,
-        const float* __restrict__ cc, int J, const int* __restrict__ nev_a,
-        const int* __restrict__ nk_a, const float* __restrict__ trans,
-        const uint8_t* __restrict__ clips, float flank0, float clip_base,
-        float clip_step, int B, float* __restrict__ out,
-        float* __restrict__ scratch) {
+        const float* __restrict__ cc, int J, int C,
+        const int* __restrict__ nev_a, const int* __restrict__ nk_a,
+        const float* __restrict__ trans, const uint8_t* __restrict__ clips,
+        float flank0, float clip_base, float clip_step,
+        float* __restrict__ out, float* __restrict__ scratch) {
     extern __shared__ float smem[];
-    const int b = blockIdx.x;
-    const int KP = J * NPT_WIDE_THREADS;
+    const int b = blockIdx.x / C;
+    const int KP = J * ((int)blockDim.x - 32) * C;
     const int last = npt_clampi(nk_a[b] - 1, 0, KP - 1);
     const NptFwdParams p = npt_fwd_params(trans + (size_t)b * 8,
                                           clips + (size_t)b * 2, flank0,
                                           clip_base, clip_step);
     const size_t kb = (size_t)b * KP;
     const NptFlatGauss g{mu + kb, sig + kb, cc + kb};
-    float* rows = scratch ? scratch + (size_t)b * 3 * KP
-                          : smem + NPT_WIDE_THREADS;
-    const float lp_end = npt_wide_fill<NptLogSum>(
-        lev + (size_t)b * T, nev_a[b], g, J, last, p, rows, smem, nullptr);
-    if (last / J == (int)threadIdx.x) out[b] = lp_end;
+    const float lp_end = npt_wide_fill<U, NptLogSum>(
+        lev + (size_t)b * T, nev_a[b], g, J, C, last, p, smem,
+        npt_wide_rows<kScratch>(smem, scratch, J, false), nullptr);
+    if (npt_wide_owns(last, J, C)) out[b] = lp_end;
 }
 
 // out[i] = npt_log1p_unit of the float whose bits are first + i
@@ -149,29 +153,35 @@ extern "C" int npt_log1p_unit_table(unsigned first, int n, float* out,
 }
 
 // kpl: kmers per lane of the warp kernel (KP = 32 kpl, kpl 1, 2, 4 or 8),
-// 0 for the block kernel, or kmers per thread of the wide kernel (KP =
-// 1024 kpl, kpl 2, 4, 8, ...) (ops/profile_hmm_viterbi.py row_layout).
-// scratch: the wide kernel's row buffers, [B, 3, KP] f32, or NULL to keep
+// 0 for the block kernel, or past 1,024 kmers the wide row's kmers per
+// thread, nt threads a CTA (nt - 32 kmer threads and the tree warp) and a
+// cluster of C CTAs a segment (KP = kpl (nt - 32) C;
+// ops/profile_hmm_viterbi.py row_layout, wide_layout).  scratch:
+// the wide row's row buffers (npt_wide_row_bytes a CTA), or NULL to keep
 // them in shared memory.
 extern "C" int npt_launch_forward_fill(
         const float* lev, int T, const float* mu, const float* sig,
-        const float* cc, int KP, int kpl, const int* nev, const int* nk,
-        const float* trans, const uint8_t* clips, float flank0,
-        float clip_base, float clip_step, int B, float* out, float* scratch,
-        void* stream) {
+        const float* cc, int KP, int kpl, int nt, int C, const int* nev,
+        const int* nk, const float* trans, const uint8_t* clips,
+        float flank0, float clip_base, float clip_step, int B, float* out,
+        float* scratch, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    if (kpl >= 2 && KP == NPT_WIDE_THREADS * kpl) {
-        const size_t smem = npt_wide_smem(KP, scratch == nullptr);
-        if (smem > NPT_SMEM_BLOCK_MAX) return (int)cudaErrorInvalidValue;
-        cudaError_t e = cudaFuncSetAttribute(
-            forward_fill_wide_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-        if (B > 0)
-            forward_fill_wide_kernel<<<B, NPT_WIDE_THREADS, smem, st>>>(
-                lev, T, mu, sig, cc, kpl, nev, nk, trans, clips, flank0,
-                clip_base, clip_step, B, out, scratch);
-        return (int)cudaGetLastError();
+    if (KP > 1024) {
+        if (!npt_wide_geometry(KP, kpl, nt, C))
+            return (int)cudaErrorInvalidValue;
+        const size_t smem =
+            npt_wide_smem(kpl * (nt - 32), false, scratch == nullptr);
+        // U kmers of a thread at once in each loop of the row
+        const auto kernel =
+            kpl >= 4 ? (scratch ? forward_fill_wide_kernel<true, 4>
+                                : forward_fill_wide_kernel<false, 4>)
+            : kpl == 2 ? (scratch ? forward_fill_wide_kernel<true, 2>
+                                  : forward_fill_wide_kernel<false, 2>)
+                       : (scratch ? forward_fill_wide_kernel<true, 1>
+                                  : forward_fill_wide_kernel<false, 1>);
+        return npt_wide_launch(kernel, B, nt, C, smem, st, lev, T, mu, sig,
+                               cc, kpl, C, nev, nk, trans, clips, flank0,
+                               clip_base, clip_step, out, scratch);
     }
     if (kpl == 0) {
         if (KP > 1024) return (int)cudaErrorInvalidValue;

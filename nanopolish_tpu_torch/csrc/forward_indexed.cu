@@ -42,7 +42,8 @@
 //  - KP 256-1024: one block of KP threads per segment, the row loop
 //    npt_forward_block (forward_common.cuh): at 256 it beat the warp row
 //    on an H100 (2.25 against 2.87 ms on 394 calling windows);
-//  - KP 2048 and wider: the wide row of profile_hmm_wide.cuh.
+//  - KP 2048 and wider: the wide row of profile_hmm_wide.cuh (a cluster
+//    of up to 16 CTAs a segment when the flush has few).
 // ops/profile_hmm_indexed.py indexed_layout picks the mode per width.
 // The TPU kernel's lane-packed rows (pos/rev lane maps, segmented
 // roll-scans) become the 8-lane groups.  Built with -fmad=false, so every
@@ -229,7 +230,8 @@ __global__ void forward_indexed_block_kernel(
     if (k == last) out[s] = lp_end;
 }
 
-__global__ void __launch_bounds__(NPT_WIDE_THREADS)
+template <bool kScratch, int U>
+__global__ void __launch_bounds__(NPT_WIDE_MAX_THREADS)
 forward_indexed_wide_kernel(
         const float* __restrict__ lev_u, int Tc, const int* __restrict__ nev_u,
         const float* __restrict__ tabs, int R, int S,
@@ -237,10 +239,10 @@ forward_indexed_wide_kernel(
         const int* __restrict__ nkm_u, const float* __restrict__ trans_u,
         const int* __restrict__ ids, const uint8_t* __restrict__ clips,
         float flank0, float clip_base, float clip_step, float pad_c, int J,
-        int n, float* __restrict__ out, float* __restrict__ scratch) {
+        int C, float* __restrict__ out, float* __restrict__ scratch) {
     extern __shared__ float smem[];
-    const int s = blockIdx.x;
-    const int KP = J * NPT_WIDE_THREADS;
+    const int s = blockIdx.x / C;
+    const int KP = J * ((int)blockDim.x - 32) * C;
     const NptIndexedIds g = npt_indexed_ids(s, lev_u, Tc, nev_u, nkm_u, ids);
     const NptIndexedGauss gauss = npt_indexed_gauss(g, tabs, R, S, rank_mat,
                                                     Kc, pad_c);
@@ -248,12 +250,10 @@ forward_indexed_wide_kernel(
         trans_u + (size_t)ids[(size_t)s * 4 + 3] * 8, clips + (size_t)s * 2,
         flank0, clip_base, clip_step);
     const int last = npt_clampi(g.nk - 1, 0, KP - 1);
-    float* rows = scratch ? scratch + (size_t)s * 3 * KP
-                          : smem + NPT_WIDE_THREADS;
-    const float lp_end = npt_wide_fill<NptLogSum>(g.levb, g.nev, gauss, J,
-                                                  last, p, rows, smem,
-                                                  nullptr);
-    if (last / J == (int)threadIdx.x) out[s] = lp_end;
+    const float lp_end = npt_wide_fill<U, NptLogSum>(
+        g.levb, g.nev, gauss, J, C, last, p, smem,
+        npt_wide_rows<kScratch>(smem, scratch, J, false), nullptr);
+    if (npt_wide_owns(last, J, C)) out[s] = lp_end;
 }
 
 template <int R>
@@ -269,16 +269,18 @@ int launch_warp(cudaStream_t st, NPT_INDEXED_PARAMS, int n) {
 // The mode, from (KP, kpl) (ops/profile_hmm_indexed.py indexed_layout):
 // KP 32, kpl 1: windows of up to 32 kmers, each at its own width 8, 16 or
 // 32 as the run ends e8 <= e16 <= n say; KP = 32 kpl with kpl 2 or 4: the
-// warp row; kpl 0: the block row (KP 32-1024 threads); KP = 1024 kpl with
-// kpl >= 2: the wide row, whose row buffers are scratch ([n, 3, KP] f32)
-// or, when scratch is NULL, shared memory.
+// warp row; kpl 0: the block row (KP 32-1024 threads); KP past 1,024: the
+// wide row at kpl kmers per thread, nt threads a CTA (nt - 32 kmer
+// threads and the tree warp) and a cluster of C CTAs a segment (KP =
+// kpl (nt - 32) C), whose row buffers are scratch
+// (npt_wide_row_bytes a CTA) or, when scratch is NULL, shared memory.
 extern "C" int npt_launch_forward_indexed(
         const float* lev_u, int Tc, const int* nev_u, const float* tabs,
         int Rr, int S, const int* rank_mat, int Kc, const int* nkm_u,
         const float* trans_u, const int* ids, const uint8_t* clips,
         float flank0, float clip_base, float clip_step, float pad_c, int KP,
-        int kpl, int n, float* out, float* scratch, int e8, int e16,
-        void* stream) {
+        int kpl, int nt, int C, int n, float* out, float* scratch, int e8,
+        int e16, void* stream) {
     if (n <= 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
     const int R = Rr;
@@ -308,17 +310,23 @@ extern "C" int npt_launch_forward_indexed(
             clips, flank0, clip_base, clip_step, pad_c, KP, n, out);
         return (int)cudaGetLastError();
     }
-    if (kpl >= 2 && KP == NPT_WIDE_THREADS * kpl) {
-        const size_t smem = npt_wide_smem(KP, scratch == nullptr);
-        if (smem > NPT_SMEM_BLOCK_MAX) return (int)cudaErrorInvalidValue;
-        cudaError_t e = cudaFuncSetAttribute(
-            forward_indexed_wide_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-        forward_indexed_wide_kernel<<<n, NPT_WIDE_THREADS, smem, st>>>(
-            lev_u, Tc, nev_u, tabs, R, S, rank_mat, Kc, nkm_u, trans_u, ids,
-            clips, flank0, clip_base, clip_step, pad_c, kpl, n, out, scratch);
-        return (int)cudaGetLastError();
+    if (KP > 1024) {
+        if (!npt_wide_geometry(KP, kpl, nt, C))
+            return (int)cudaErrorInvalidValue;
+        const size_t smem =
+            npt_wide_smem(kpl * (nt - 32), false, scratch == nullptr);
+        // U kmers of a thread at once in each loop of the row
+        const auto kernel =
+            kpl >= 4 ? (scratch ? forward_indexed_wide_kernel<true, 4>
+                                : forward_indexed_wide_kernel<false, 4>)
+            : kpl == 2 ? (scratch ? forward_indexed_wide_kernel<true, 2>
+                                  : forward_indexed_wide_kernel<false, 2>)
+                       : (scratch ? forward_indexed_wide_kernel<true, 1>
+                                  : forward_indexed_wide_kernel<false, 1>);
+        return npt_wide_launch(kernel, n, nt, C, smem, st, lev_u, Tc, nev_u,
+                               tabs, R, S, rank_mat, Kc, nkm_u, trans_u, ids,
+                               clips, flank0, clip_base, clip_step, pad_c,
+                               kpl, C, out, scratch);
     }
     return (int)cudaErrorInvalidValue;
 }

@@ -23,9 +23,9 @@
 //    previous row's M/B/K scores in shared memory, the same tree through
 //    shared memory with a barrier per level;
 //  - KP 2048 and wider (a segment of more than 1,024 kmers): the wide row
-//    of profile_hmm_wide.cuh, one block of 1,024 threads per segment with
-//    KP / 1024 kmers per thread, its row buffer in shared memory or, past
-//    227 KB, in global scratch.
+//    of profile_hmm_wide.cuh, a cluster of up to 16 CTAs a segment when the
+//    batch leaves SMs idle, its row buffer laid out [kmer of the thread]
+//    [thread] in shared memory or, past 227 KB, in global scratch.
 // Both evaluate K[k] = max(c[k], K[k-1] + lp_kk) on the pairwise tree of
 // jax.lax.associative_scan (pairs (0,1),(2,3),... per level; up-sweep then
 // down-sweep), so each K value is rounded exactly as in the JAX scan and
@@ -213,53 +213,62 @@ __global__ void viterbi_fill_block_kernel(
     }
 }
 
-__global__ void __launch_bounds__(NPT_WIDE_THREADS) viterbi_fill_wide_kernel(
+template <bool kScratch, int U>
+__global__ void __launch_bounds__(NPT_WIDE_MAX_THREADS)
+viterbi_fill_wide_kernel(
         const float* __restrict__ lev, int T,
         const float* __restrict__ mu, const float* __restrict__ sig,
-        const float* __restrict__ cc, int J, const int* __restrict__ nev_a,
-        const float* __restrict__ trans, const uint8_t* __restrict__ clips,
-        float flank0, float clip_base, float clip_step, int B,
-        uint8_t* __restrict__ trace, float* __restrict__ scratch) {
+        const float* __restrict__ cc, int J, int C,
+        const int* __restrict__ nev_a, const float* __restrict__ trans,
+        const uint8_t* __restrict__ clips, float flank0, float clip_base,
+        float clip_step, uint8_t* __restrict__ trace,
+        float* __restrict__ scratch) {
     extern __shared__ float smem[];
-    const int b = blockIdx.x;
-    const int KP = J * NPT_WIDE_THREADS;
+    const int b = blockIdx.x / C;
+    const int KP = J * ((int)blockDim.x - 32) * C;
     const NptFwdParams p = npt_fwd_params(trans + (size_t)b * 8,
                                           clips + (size_t)b * 2, flank0,
                                           clip_base, clip_step);
     const size_t kb = (size_t)b * KP;
     const NptFlatGauss g{mu + kb, sig + kb, cc + kb};
-    float* rows = scratch ? scratch + (size_t)b * 3 * KP
-                          : smem + NPT_WIDE_THREADS;
-    npt_wide_fill<NptMaxPlus>(lev + (size_t)b * T, nev_a[b], g, J, 0, p,
-                              rows, smem, trace + (size_t)b * T * KP);
+    npt_wide_fill<U, NptMaxPlus>(lev + (size_t)b * T, nev_a[b], g, J, C, 0, p,
+                              smem, npt_wide_rows<kScratch>(smem, scratch, J,
+                                                            true),
+                              trace + (size_t)b * T * KP);
 }
 
 }  // namespace
 
 // kpl: kmers per lane of the warp kernel (KP = 32 kpl, kpl 1, 2, 4 or 8),
-// 0 for the block kernel, or kmers per thread of the wide kernel (KP =
-// 1024 kpl, kpl 2, 4, 8, ...) (ops/profile_hmm_viterbi.py row_layout).
-// scratch: the wide kernel's row buffers, [B, 3, KP] f32, or NULL to keep
+// 0 for the block kernel, or past 1,024 kmers the wide row's kmers per
+// thread, nt threads a CTA (nt - 32 kmer threads and the tree warp) and a
+// cluster of C CTAs a segment (KP = kpl (nt - 32) C;
+// ops/profile_hmm_viterbi.py row_layout, wide_layout).  scratch:
+// the wide row's row buffers (npt_wide_row_bytes a CTA), or NULL to keep
 // them in shared memory.
 extern "C" int npt_launch_viterbi_fill(
         const float* lev, int T, const float* mu, const float* sig,
-        const float* cc, int KP, int kpl, const int* nev, const int* nk,
-        const float* trans, const uint8_t* clips, float flank0,
-        float clip_base, float clip_step, int B, uint8_t* trace,
-        float* scratch, void* stream) {
+        const float* cc, int KP, int kpl, int nt, int C, const int* nev,
+        const int* nk, const float* trans, const uint8_t* clips,
+        float flank0, float clip_base, float clip_step, int B,
+        uint8_t* trace, float* scratch, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    if (kpl >= 2 && KP == NPT_WIDE_THREADS * kpl) {
-        const size_t smem = npt_wide_smem(KP, scratch == nullptr);
-        if (smem > NPT_SMEM_BLOCK_MAX) return (int)cudaErrorInvalidValue;
-        cudaError_t e = cudaFuncSetAttribute(
-            viterbi_fill_wide_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-        if (B > 0)
-            viterbi_fill_wide_kernel<<<B, NPT_WIDE_THREADS, smem, st>>>(
-                lev, T, mu, sig, cc, kpl, nev, trans, clips, flank0,
-                clip_base, clip_step, B, trace, scratch);
-        return (int)cudaGetLastError();
+    if (KP > 1024) {
+        if (!npt_wide_geometry(KP, kpl, nt, C))
+            return (int)cudaErrorInvalidValue;
+        const size_t smem =
+            npt_wide_smem(kpl * (nt - 32), true, scratch == nullptr);
+        // U kmers of a thread at once in each loop of the row
+        const auto kernel =
+            kpl >= 4 ? (scratch ? viterbi_fill_wide_kernel<true, 4>
+                                : viterbi_fill_wide_kernel<false, 4>)
+            : kpl == 2 ? (scratch ? viterbi_fill_wide_kernel<true, 2>
+                                  : viterbi_fill_wide_kernel<false, 2>)
+                       : (scratch ? viterbi_fill_wide_kernel<true, 1>
+                                  : viterbi_fill_wide_kernel<false, 1>);
+        return npt_wide_launch(kernel, B, nt, C, smem, st, lev, T, mu, sig,
+                               cc, kpl, C, nev, trans, clips, flank0,
+                               clip_base, clip_step, trace, scratch);
     }
     if (kpl == 0) {
         if (KP > 1024) return (int)cudaErrorInvalidValue;

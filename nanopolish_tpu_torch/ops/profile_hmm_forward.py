@@ -23,8 +23,7 @@ import torch
 from ..utils import cuda_build
 from ..utils.logsum import logsum_mode, logsum_table
 from .profile_hmm import _CLIP_BASE, _CLIP_STEP, _LOG1M_CLIP, forward_fill_plain
-from .profile_hmm_viterbi import (prepare_viterbi_inputs, row_layout,
-                                  wide_scratch)
+from .profile_hmm_viterbi import fill_geometry, prepare_viterbi_inputs
 
 
 def _check_fill_inputs(levels, n_events, mu, sigma, c, n_kmers, trans,
@@ -47,7 +46,7 @@ def forward_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips,
                  logsum: str = "exact"):
     """Forward log-likelihood [B] f32 per segment; the kmer tables are
     [B, KP] with KP from ``kmer_width`` (``forward_fill_plain`` contract),
-    laid out on the card as ``row_layout`` says.  ``logsum="table"`` takes
+    laid out on the card as ``fill_geometry`` says.  ``logsum="table"`` takes
     the table route (``forward_table`` on the card); any other value the
     exact one."""
     if levels.device.type == "cpu":
@@ -60,13 +59,13 @@ def forward_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips,
     dev = levels.device
     B, T = levels.shape
     KP = mu.shape[1]
-    _, kpl = row_layout(KP)
     _check_fill_inputs(levels, n_events, mu, sigma, c, n_kmers, trans, clips)
+    kpl, threads, cluster, scratch = fill_geometry(KP, B, False, dev)
     scores = torch.empty(B, dtype=torch.float32, device=dev)
-    scratch = wide_scratch(KP, B, dev)
     cuda_build.launch(
         "forward_fill", levels.data_ptr(), T, mu.data_ptr(), sigma.data_ptr(),
-        c.data_ptr(), KP, kpl, n_events.data_ptr(), n_kmers.data_ptr(),
+        c.data_ptr(), KP, kpl, threads, cluster, n_events.data_ptr(),
+        n_kmers.data_ptr(),
         trans.data_ptr(), clips.data_ptr(), float(np.float32(_LOG1M_CLIP)),
         float(np.float32(_CLIP_BASE)), float(np.float32(_CLIP_STEP)), B,
         scores.data_ptr(), None if scratch is None else scratch.data_ptr())

@@ -41,7 +41,8 @@ from .profile_hmm import (_CLIP_BASE, _CLIP_STEP, _LOG1M_CLIP,
                           HAF_ALLOW_POST_CLIP, HAF_ALLOW_PRE_CLIP, PAD_C,
                           forward_indexed_plain, gather_indexed)
 from .profile_hmm_forward import forward_fill
-from .profile_hmm_viterbi import WIDE_THREADS, wide_scratch
+from .profile_hmm_viterbi import (ROW_BLOCK_MAX, card_sms, wide_layout,
+                                  wide_scratch)
 
 # segments per launch: bounds the plain version's gathered tables on the
 # CPU (the kernel takes any count), and past 1,024 kmers the wide row's
@@ -72,7 +73,8 @@ def indexed_layout(kp: int):
     >= 8: ``("narrow", 1)`` up to 32 (8 lanes a window, each at its own
     width; ``plan_flush`` puts all of a flush's in one launch),
     ``("warp", kp // 32)`` at INDEXED_WARP_WIDTHS, ``("block", 0)`` up to
-    1,024, else ``("wide", kp // 1024)`` (csrc/profile_hmm_wide.cuh)."""
+    1,024, else ``("wide", None)``: the wide row (csrc/profile_hmm_wide.cuh),
+    its geometry from the launch's segment count too (``wide_layout``)."""
     if kp < MIN_WIDTH or kp & (kp - 1):
         raise ValueError(f"kmer width {kp} must be a power of two >= "
                          f"{MIN_WIDTH}")
@@ -80,9 +82,9 @@ def indexed_layout(kp: int):
         return ("narrow", 1)
     if kp in INDEXED_WARP_WIDTHS:
         return ("warp", kp // 32)
-    if kp <= WIDE_THREADS:
+    if kp <= ROW_BLOCK_MAX:
         return ("block", 0)
-    return ("wide", kp // WIDE_THREADS)
+    return ("wide", None)
 
 
 def narrow_runs(widths) -> tuple:
@@ -133,13 +135,18 @@ def forward_indexed(levels_u, n_ev_u, tabs, rank_mat, n_km_u, trans_u, ids,
     cuda_build.check_tensor("ids", ids, i32, (n, 4), dev)
     cuda_build.check_tensor("clips", clips, torch.uint8, (n, 2), dev)
     scores = torch.empty(n, dtype=f32, device=dev)
-    scratch = wide_scratch(KP, n, dev) if mode == "wide" else None
+    threads = cluster = 0
+    scratch = None
+    if mode == "wide":
+        lay = wide_layout(KP, n, False, card_sms(dev))
+        kpl, threads, cluster = lay.per_thread, lay.threads, lay.cluster
+        scratch = wide_scratch(lay, n, dev)
     cuda_build.launch(
         "forward_indexed", levels_u.data_ptr(), Tc, n_ev_u.data_ptr(),
         tabs.data_ptr(), R, S, rank_mat.data_ptr(), Kc, n_km_u.data_ptr(),
         trans_u.data_ptr(), ids.data_ptr(), clips.data_ptr(),
         float(np.float32(_LOG1M_CLIP)), float(np.float32(_CLIP_BASE)),
-        float(np.float32(_CLIP_STEP)), PAD_C, KP, kpl, n,
+        float(np.float32(_CLIP_STEP)), PAD_C, KP, kpl, threads, cluster, n,
         scores.data_ptr(), None if scratch is None else scratch.data_ptr(),
         e8, e16)
     cuda_build.count_launch("forward_indexed")
@@ -195,7 +202,7 @@ def plan_flush(nev, nk):
         if lo >= hi:
             continue
         width = int(kps[lo])
-        step = MAX_LAUNCH if width <= WIDE_THREADS else \
+        step = MAX_LAUNCH if width <= ROW_BLOCK_MAX else \
             max(1, WIDE_LAUNCH_BYTES // (12 * width))
         launches += [(width, a, min(a + step, hi), None)
                      for a in range(lo, hi, step)]

@@ -13,7 +13,7 @@ launches the kernel (building it at first use) or raises.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,31 +40,83 @@ def kmer_width(n_kmers_max: int) -> int:
 ROW_WARP_MAX = 256
 # widest row the block kernels hold: one thread per kmer
 ROW_BLOCK_MAX = 1024
-# the wide row's threads per segment (csrc/profile_hmm_wide.cuh)
-WIDE_THREADS = 1024
-# shared memory of one block on sm_90 (227 KB) and the wide row's part of
-# it besides its row buffer (the tree: one float per thread)
+# the wide row (csrc/profile_hmm_wide.cuh): at most WIDE_MAX_THREADS
+# kmer threads a CTA (beside its tree warp) and WIDE_MAX_CLUSTER CTAs a
+# segment (16: a non-portable cluster size, which an H100 places; faster
+# on the train step's reads than 8: PERF.md §6, tools/probe_hmm_rows.py
+# --wide-cluster), at least WIDE_MIN_CTA_KMERS kmers a CTA; the fixed
+# shared memory of a CTA ahead of its row buffer (NPT_WIDE_FIXED_BYTES)
+WIDE_MAX_THREADS = 512
+WIDE_MAX_CLUSTER = 16
+WIDE_MIN_CTA_KMERS = 256
+WIDE_FIXED_BYTES = 1024
+# shared memory of one block on sm_90 (227 KB)
 SMEM_BLOCK_MAX = 232448
-WIDE_TREE_BYTES = 4 * WIDE_THREADS
+# SMs of an H100 SXM (the wide row's default; the wrappers read the card's)
+H100_SMS = 132
 # the backtrack's staged trace tile (csrc/viterbi_backtrack.cu TILE_BYTES)
 # and its widest kmer window
 BT_TILE_BYTES = 8192
 BT_WINDOW_MAX = 256
 
 
-def row_layout(kp: int) -> Tuple[str, int]:
+def row_layout(kp: int) -> Tuple[str, Optional[int]]:
     """How the profile-HMM fills (csrc/viterbi_fill.cu, forward_fill.cu)
     lay out a row of ``kp`` kmers, a ``kmer_width``: ``("warp", kp // 32)``
     up to 256 kmers (one warp per segment, that many kmers per lane),
     ``("block", 0)`` up to 1,024 (one block of kp threads per segment),
-    else ``("wide", kp // 1024)`` (one block of 1,024 threads per segment,
-    that many kmers per thread; csrc/profile_hmm_wide.cuh).  The second
-    value is the kernels' ``kpl`` argument."""
+    else ``("wide", None)``: the wide row (csrc/profile_hmm_wide.cuh), whose
+    geometry depends on the batch too (``wide_layout``).  The second value
+    is the kernels' ``kpl`` argument."""
     if kp != kmer_width(kp):
         raise ValueError(f"kmer width {kp} must be a power of two >= 32")
     if kp <= ROW_WARP_MAX:
         return ("warp", kp // 32)
-    return ("block", 0) if kp <= ROW_BLOCK_MAX else ("wide", kp // WIDE_THREADS)
+    return ("block", 0) if kp <= ROW_BLOCK_MAX else ("wide", None)
+
+
+class WideLayout(NamedTuple):
+    """One launch's geometry on the wide row: ``threads`` a CTA (its kmer
+    threads and the tree warp's 32), ``per_thread`` kmers a kmer thread
+    (the kernels' ``kpl``), ``cluster`` CTAs a segment, its rows in
+    ``"shared"`` memory or global ``"scratch"``, ``smem`` bytes of dynamic
+    shared memory a CTA and ``scratch`` bytes of global scratch a segment
+    (0 in shared memory)."""
+    threads: int
+    per_thread: int
+    cluster: int
+    rows: str
+    smem: int
+    scratch: int
+
+
+def wide_layout(kp: int, B: int, trace: bool,
+                n_sms: int = H100_SMS) -> WideLayout:
+    """The wide row's geometry for B segments of kmer width kp (> 1,024)
+    on a card of n_sms SMs: the largest cluster (a power of two up to
+    WIDE_MAX_CLUSTER) that keeps all B x cluster CTAs on the card at once
+    and at least WIDE_MIN_CTA_KMERS kmers a CTA, so that a small batch
+    spreads each segment over several SMs and a large one keeps one CTA a
+    segment; then up to WIDE_MAX_THREADS kmer threads a CTA, and its tree
+    warp.  A CTA's rows
+    (12 bytes a kmer, 13 with the Viterbi's trace bits) stay in shared
+    memory when they fit beside its fixed part, else go to global
+    scratch."""
+    if kp != kmer_width(kp) or kp <= ROW_BLOCK_MAX:
+        raise ValueError(f"kmer width {kp} is not a wide-row width")
+    cluster = 1
+    while (2 * cluster <= WIDE_MAX_CLUSTER and B * 2 * cluster <= n_sms
+           and kp // (2 * cluster) >= WIDE_MIN_CTA_KMERS):
+        cluster *= 2
+    n = kp // cluster
+    kmer_threads = min(WIDE_MAX_THREADS, n)
+    geometry = (kmer_threads + 32, n // kmer_threads, cluster)
+    row_bytes = n * (13 if trace else 12)
+    if WIDE_FIXED_BYTES + row_bytes <= SMEM_BLOCK_MAX:
+        return WideLayout(*geometry, "shared", WIDE_FIXED_BYTES + row_bytes,
+                          0)
+    return WideLayout(*geometry, "scratch", WIDE_FIXED_BYTES,
+                      cluster * row_bytes)
 
 
 def backtrack_tile(kp: int) -> Tuple[int, int]:
@@ -75,14 +127,30 @@ def backtrack_tile(kp: int) -> Tuple[int, int]:
     return BT_TILE_BYTES // window, window
 
 
-def wide_scratch(kp: int, B: int, dev):
-    """The wide row's global row buffers [B, 3, kp] f32 when its 12 kp
-    bytes and the tree do not fit in a block's shared memory, else None
-    (the kernel keeps them in shared memory)."""
-    if row_layout(kp)[0] != "wide" or \
-            12 * kp + WIDE_TREE_BYTES <= SMEM_BLOCK_MAX:
+def fill_geometry(kp: int, B: int, trace: bool, dev):
+    """(kpl, threads, cluster, scratch) of a fill launch of B segments at
+    kmer width kp on dev: the warp and block rows' kpl (threads and cluster
+    0, no scratch), or the wide row's ``wide_layout`` on dev's SMs with its
+    scratch tensor (None in shared memory)."""
+    mode, kpl = row_layout(kp)
+    if mode != "wide":
+        return kpl, 0, 0, None
+    lay = wide_layout(kp, B, trace, card_sms(dev))
+    return (lay.per_thread, lay.threads, lay.cluster,
+            wide_scratch(lay, B, dev))
+
+
+def card_sms(dev) -> int:
+    """SMs of the card dev (a CUDA device)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def wide_scratch(lay: WideLayout, B: int, dev):
+    """The wide row's global row buffers of B segments (``lay.scratch``
+    bytes each, as uint8) when its rows are in scratch, else None."""
+    if lay.rows != "scratch":
         return None
-    return torch.empty((B, 3, kp), dtype=torch.float32, device=dev)
+    return torch.empty(B * lay.scratch, dtype=torch.uint8, device=dev)
 
 
 def viterbi_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips,
@@ -99,7 +167,6 @@ def viterbi_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips,
     dev = levels.device
     B, T = levels.shape
     KP = mu.shape[1]
-    _, kpl = row_layout(KP)
     f32, i32 = torch.float32, torch.int32
     cuda_build.check_tensor("levels", levels, f32, (B, T), dev)
     for nm, t in (("mu", mu), ("sigma", sigma), ("c", c)):
@@ -113,10 +180,11 @@ def viterbi_fill(levels, n_events, mu, sigma, c, n_kmers, trans, clips,
     else:
         cuda_build.check_tensor("out", out, torch.uint8, (B, T, KP), dev)
         trace = out
-    scratch = wide_scratch(KP, B, dev)
+    kpl, threads, cluster, scratch = fill_geometry(KP, B, True, dev)
     cuda_build.launch(
         "viterbi_fill", levels.data_ptr(), T, mu.data_ptr(), sigma.data_ptr(),
-        c.data_ptr(), KP, kpl, n_events.data_ptr(), n_kmers.data_ptr(),
+        c.data_ptr(), KP, kpl, threads, cluster, n_events.data_ptr(),
+        n_kmers.data_ptr(),
         trans.data_ptr(), clips.data_ptr(), float(np.float32(_LOG1M_CLIP)),
         float(np.float32(_CLIP_BASE)), float(np.float32(_CLIP_STEP)), B,
         trace.data_ptr(), None if scratch is None else scratch.data_ptr())

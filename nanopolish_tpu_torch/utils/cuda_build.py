@@ -47,13 +47,13 @@ _ARGTYPES = {
                     _P, _P, _P, _P, _P],
     "banded_backtrack": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I,
                          _P, _P, _P, _P],
-    "viterbi_fill": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _F, _F, _F,
-                     _I, _P, _P],
+    "viterbi_fill": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _F,
+                     _F, _F, _I, _P, _P],
     "viterbi_backtrack": [_P, _I, _I, _I, _I, _P, _P, _I, _P],
-    "forward_fill": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _F, _F, _F,
-                     _I, _P, _P],
+    "forward_fill": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _F,
+                     _F, _F, _I, _P, _P],
     "forward_indexed": [_P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _F,
-                        _F, _F, _F, _I, _I, _I, _P, _P, _I, _I],
+                        _F, _F, _F, _I, _I, _I, _I, _I, _P, _P, _I, _I],
     "seg_viterbi_fill": [_P, _I, _I, _P, _P, _P, _P, _P],
     "seg_backtrack": [_P, _I, _I, _P, _P, _P],
     "forward_table": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _F, _F, _F,

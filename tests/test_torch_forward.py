@@ -25,7 +25,8 @@ from nanopolish_tpu_torch.alignment.segments import (HMMSegment,
 from nanopolish_tpu_torch.ops import profile_hmm as ph
 from nanopolish_tpu_torch.ops import profile_hmm_forward as pf
 from nanopolish_tpu_torch.utils.logsum import add_logs_exact
-from tests.kchain_lanes import chain_inputs, lane_schedule_chain
+from tests.kchain_lanes import (chain_inputs, lane_schedule_chain,
+                                wide_schedule_chain)
 from tests.printed_output import assert_agree
 
 torch.set_num_threads(2)
@@ -130,6 +131,60 @@ def test_lane_schedule_matches_kstate_chain_logsum(R):
     ref = ph.kstate_chain_logsum(torch.from_numpy(c),
                                  torch.from_numpy(lp_kk)).numpy()
     np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
+@pytest.mark.parametrize("J,nt,C", [(1, 32, 1), (1, 64, 2), (2, 64, 4),
+                                    (4, 32, 8), (1, 256, 8), (8, 64, 1),
+                                    (16, 32, 2), (1, 1024, 8)])
+def test_wide_schedule_matches_kstate_chain_logsum(J, nt, C):
+    """The wide row's tiers (csrc/profile_hmm_wide.cuh; J kmers a thread,
+    nt threads a CTA, C CTAs a segment; tests/kchain_lanes.py
+    wide_schedule_chain) give kstate_chain_logsum's values bit for bit,
+    -inf runs included, the train step's geometry (1 x 1,024 x 8) too."""
+    rng = np.random.default_rng(300 + J * 1000 + nt + C)
+    c, lp_kk = chain_inputs(rng, 4, J * nt * C)
+
+    def op(x, y):
+        return add_logs_exact(torch.from_numpy(np.ascontiguousarray(x)),
+                              torch.from_numpy(np.ascontiguousarray(y))
+                              ).numpy()
+
+    got = wide_schedule_chain(c, lp_kk, J, nt, C, op)
+    ref = ph.kstate_chain_logsum(torch.from_numpy(c),
+                                 torch.from_numpy(lp_kk)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
+@pytest.mark.parametrize("kp,B", [(2048, 8), (8192, 4), (8192, 64),
+                                  (32768, 68)])
+def test_forward_fill_launch_geometry(monkeypatch, kp, B):
+    """forward_fill hands the kernel wide_layout's kpl, threads a CTA and
+    CTAs a segment (the Forward's rows: 12 bytes a kmer), and a scratch
+    buffer exactly when its rows are in scratch."""
+    from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
+    from nanopolish_tpu_torch.utils import cuda_build
+    calls = []
+    monkeypatch.setattr(cuda_build, "require_cuda", lambda t: None)
+    monkeypatch.setattr(cuda_build, "launch",
+                        lambda name, *a: calls.append((name, a)))
+    monkeypatch.setattr(cuda_build, "count_launch", lambda name: None)
+    monkeypatch.setattr(pv, "card_sms", lambda dev: 132)
+    meta = torch.device("meta")
+    f32, i32 = torch.float32, torch.int32
+    args = [torch.empty((B, 7), dtype=f32, device=meta),
+            torch.empty(B, dtype=i32, device=meta)]
+    args += [torch.empty((B, kp), dtype=f32, device=meta) for _ in range(3)]
+    args += [torch.empty(B, dtype=i32, device=meta),
+             torch.empty((B, 8), dtype=f32, device=meta),
+             torch.empty((B, 2), dtype=torch.uint8, device=meta)]
+    pf.forward_fill(*args)
+    (name, a), = calls
+    lay = pv.wide_layout(kp, B, False)
+    assert name == "forward_fill" and a[5] == kp
+    assert a[6:9] == (lay.per_thread, lay.threads, lay.cluster)
+    kpl, threads, cluster, scratch = pv.fill_geometry(kp, B, False, meta)
+    assert (kpl, threads, cluster) == a[6:9]
+    assert (scratch is None) == (lay.rows == "shared")
 
 
 @pytest.mark.parametrize("W", [8, 16])
@@ -258,13 +313,18 @@ def test_no_events_scores_neg_inf():
 
 
 @pytest.mark.parametrize("K,T,flags", [(1100, 500, 3), (1100, 500, 0),
-                                         (20000, 40, 3)])
+                                         (20000, 40, 3), (3000, 120, 1),
+                                         (7995, 60, 0), (12000, 40, 2)])
 def test_wide_segment_matches_jax_scan(K, T, flags):
     """A segment wider than 1,024 kmers (a 500-event scorereads chunk
     across deletions: 1,100 kmers; the wide row at 2,048) and one whose
-    rows need the wide row's global scratch on the card (20,000 kmers:
-    width 32,768, 384 KB of rows) score as the JAX scan scores them, under
-    the printed-output rule of scorereads' per-event score."""
+    rows need the wide row's global scratch on the card when the batch
+    keeps one CTA a segment (20,000 kmers: width 32,768, 384 KB of rows)
+    score as the JAX scan scores them, under the printed-output rule of
+    scorereads' per-event score; so do segments at the widths where
+    wide_layout's geometry changes (4,096; 16,384, the widest row one CTA
+    holds in shared memory) and a whole read of the train step's kmer
+    width with its flags (7,995 kmers at 8,192, no clips)."""
     from nanopolish_tpu.alignment import segments as jseg
     lv, Ts, mu, sd, Ks, epb = _batch(1, K, T, seed=K + flags, full=True)
     want = jseg.forward_segments([jseg.HMMSegment(
@@ -298,6 +358,27 @@ def cuda_device():
         pytest.skip("needs an NVIDIA GPU: the CUDA Forward kernel has no CPU "
                     "mode (its plain version is tested above)")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kp,B,T", [(2048, 8, 60), (8192, 1, 40),
+                                    (8192, 4, 40), (8192, 64, 12),
+                                    (16384, 68, 8), (32768, 68, 8)])
+def test_wide_geometries_match_plain_on_gpu(cuda_device, kp, B, T):
+    """The wide row at each kind of wide_layout geometry (clusters of 8, 2
+    and 1 CTA a segment, rows in shared memory and in scratch), scores bit
+    for bit."""
+    lv, Ts, mu, sd, Ks, epb = _batch(B, kp, T, seed=kp + B)
+    Ks[0] = kp - 1
+    flags = np.arange(B, dtype=np.int32) % 4
+    x = pf.prepare_forward_inputs(lv, Ts, mu, sd, Ks, epb, flags,
+                                  device=cuda_device)
+    assert x["mu"].shape[1] == kp
+    got = pf.forward_scores(x)
+    ref = ph.forward_fill_plain(x["levels"], x["n_events"], x["mu"],
+                                x["sigma"], x["c"], x["n_kmers"], x["trans"],
+                                x["clips"])
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
 @pytest.mark.cuda

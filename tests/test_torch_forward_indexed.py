@@ -243,10 +243,50 @@ def test_wide_windows_match_jax_scan():
     (8, ("narrow", 1)), (16, ("narrow", 1)), (32, ("narrow", 1)),
     (64, ("warp", 2)), (128, ("warp", 4)), (256, ("block", 0)),
     (512, ("block", 0)), (1024, ("block", 0)),
-    (2048, ("wide", 2)), (65536, ("wide", 64))])
+    (2048, ("wide", None)), (65536, ("wide", None))])
 def test_indexed_layout(kp, layout):
+    """Past 1,024 kmers the wide row, whose geometry also depends on the
+    launch's segment count (profile_hmm_viterbi.wide_layout)."""
     assert pi.indexed_layout(kp) == layout
     assert pi.indexed_width(kp) == kp and pi.indexed_width(kp - 1) == kp
+
+
+@pytest.mark.parametrize("kp,n", [(2048, 8), (2048, 200), (65536, 3)])
+def test_indexed_wide_launch_geometry(monkeypatch, kp, n):
+    """A wide launch of n segments hands the kernel wide_layout's kmers a
+    thread, threads a CTA and CTAs a segment for the Forward's rows, and
+    a scratch buffer exactly when those rows are in scratch."""
+    from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
+    from nanopolish_tpu_torch.utils import cuda_build
+    calls, scratches = [], []
+    monkeypatch.setattr(cuda_build, "require_cuda", lambda t: None)
+    monkeypatch.setattr(cuda_build, "launch",
+                        lambda name, *a: calls.append((name, a)))
+    monkeypatch.setattr(cuda_build, "count_launch", lambda name: None)
+    monkeypatch.setattr(pi, "card_sms", lambda dev: 132)
+    wide_scratch = pi.wide_scratch
+    monkeypatch.setattr(pi, "wide_scratch", lambda lay, m, dev: scratches.
+                        append(wide_scratch(lay, m, dev)) or scratches[-1])
+    meta = torch.device("meta")
+    f32, i32 = torch.float32, torch.int32
+    E, Tc, R, S, U = 2, 9, 1, 4096, 2
+    pi.forward_indexed(
+        torch.empty((E, Tc), dtype=f32, device=meta),
+        torch.empty(E, dtype=i32, device=meta),
+        torch.empty((3, R, S), dtype=f32, device=meta),
+        torch.empty((U, kp), dtype=i32, device=meta),
+        torch.empty(U, dtype=i32, device=meta),
+        torch.empty((1, 8), dtype=f32, device=meta),
+        torch.empty((n, 4), dtype=i32, device=meta),
+        torch.empty((n, 2), dtype=torch.uint8, device=meta), kp=kp)
+    (name, a), = calls
+    lay = pv.wide_layout(kp, n, False)
+    assert name == "forward_indexed" and a[16] == kp
+    assert a[17:21] == (lay.per_thread, lay.threads, lay.cluster, n)
+    (scratch,) = scratches
+    assert (scratch is None) == (lay.rows == "shared")
+    if scratch is not None:
+        assert scratch.numel() == n * lay.scratch
 
 
 def test_plan_flush_shares_one_launch_below_33_kmers():

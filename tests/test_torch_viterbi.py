@@ -22,7 +22,8 @@ from nanopolish_tpu.ops.profile_hmm import (BlockTransitions,
 from nanopolish_tpu_torch.ops import profile_hmm as ph
 from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
 from tests.backtrack_tiles import MOVES, tiled_paths
-from tests.kchain_lanes import chain_inputs, lane_schedule_chain
+from tests.kchain_lanes import (chain_inputs, lane_schedule_chain,
+                                wide_schedule_chain)
 
 torch.set_num_threads(2)
 
@@ -163,15 +164,124 @@ def test_row_layout(kp):
 
 @pytest.mark.parametrize("kp", [2048, 4096, 32768, 1 << 20])
 def test_row_layout_wide(kp):
-    """Past 1,024 kmers: one block of 1,024 threads, kp / 1024 kmers per
-    thread; the rows go to global scratch once 12 kp bytes and the tree
-    pass a block's 227 KB of shared memory."""
-    assert pv.row_layout(kp) == ("wide", kp // 1024)
-    scratch = pv.wide_scratch(kp, 2, torch.device("meta"))
-    if kp <= 16384:
-        assert scratch is None
+    """Past 1,024 kmers the wide row, whose geometry depends on the batch
+    too (wide_layout): kp = kmers a thread x threads x CTAs a segment, and
+    its rows go to global scratch once a CTA's 13 bytes a kmer (12 for the
+    Forward) and the fixed 1,024 bytes pass a block's 227 KB."""
+    assert pv.row_layout(kp) == ("wide", None)
+    for B in (1, 2, 68, 4096):
+        for trace in (True, False):
+            lay = pv.wide_layout(kp, B, trace)
+            n = kp // lay.cluster
+            assert lay.per_thread * (lay.threads - 32) * lay.cluster == kp
+            row_bytes = n * (13 if trace else 12)
+            shared = pv.WIDE_FIXED_BYTES + row_bytes <= pv.SMEM_BLOCK_MAX
+            assert lay.rows == ("shared" if shared else "scratch")
+            assert lay.smem == pv.WIDE_FIXED_BYTES + (row_bytes if shared
+                                                      else 0)
+            assert lay.scratch == (0 if shared else lay.cluster * row_bytes)
+            scratch = pv.wide_scratch(lay, B, torch.device("meta"))
+            if shared:
+                assert scratch is None
+            else:
+                assert scratch.dtype == torch.uint8
+                assert scratch.numel() == B * lay.cluster * row_bytes
+
+
+# (kp, B, trace) -> (threads a CTA with the tree warp, kmers a thread,
+# CTAs a segment, rows, shared bytes a CTA, scratch bytes a segment) on a
+# card of 132 SMs
+WIDE_GEOMETRIES = [
+    ((2048, 8, True), (288, 1, 8, "shared", 1024 + 13 * 256, 0)),
+    ((2048, 132, False), (544, 4, 1, "shared", 1024 + 12 * 2048, 0)),
+    ((4096, 1, False), (288, 1, 16, "shared", 1024 + 12 * 256, 0)),
+    ((8192, 1, False), (544, 1, 16, "shared", 1024 + 12 * 512, 0)),
+    ((8192, 4, False), (544, 1, 16, "shared", 1024 + 12 * 512, 0)),
+    ((8192, 8, True), (544, 1, 16, "shared", 1024 + 13 * 512, 0)),
+    ((8192, 9, True), (544, 2, 8, "shared", 1024 + 13 * 1024, 0)),
+    ((8192, 17, False), (544, 4, 4, "shared", 1024 + 12 * 2048, 0)),
+    ((8192, 64, False), (544, 8, 2, "shared", 1024 + 12 * 4096, 0)),
+    ((8192, 67, False), (544, 16, 1, "shared", 1024 + 12 * 8192, 0)),
+    ((16384, 68, True), (544, 32, 1, "shared", 1024 + 13 * 16384, 0)),
+    ((32768, 68, True), (544, 64, 1, "scratch", 1024, 13 * 32768)),
+    ((32768, 68, False), (544, 64, 1, "scratch", 1024, 12 * 32768)),
+    ((32768, 4, True), (544, 4, 16, "shared", 1024 + 13 * 2048, 0)),
+    ((131072, 2, True), (544, 16, 16, "shared", 1024 + 13 * 8192, 0)),
+    ((524288, 1, False), (544, 64, 16, "scratch", 1024, 12 * 524288)),
+]
+
+
+@pytest.mark.parametrize("key,want", WIDE_GEOMETRIES)
+def test_wide_layout_geometry(key, want):
+    """The wide row's launch geometry for each kmer width and batch: the
+    largest cluster (up to 16) that keeps every CTA of the launch on the
+    card at once with at least 256 kmers a CTA, then up to 512 kmer
+    threads a CTA beside its tree warp; the rows in shared memory while
+    they fit."""
+    assert tuple(pv.wide_layout(*key)) == want
+
+
+@pytest.mark.parametrize("n_sms", [1, 66, 114, 132])
+def test_wide_layout_fills_the_card_once(n_sms):
+    """Every wide geometry multiplies out to kp, keeps B x cluster CTAs
+    within the card's SMs (or one CTA a segment), and takes the largest
+    such cluster."""
+    for kp in (2048, 4096, 8192, 65536, 1 << 20):
+        for B in (1, 2, 3, 4, 7, 16, 33, 64, 65, 132, 1000):
+            lay = pv.wide_layout(kp, B, True, n_sms)
+            assert lay.per_thread * (lay.threads - 32) * lay.cluster == kp
+            assert lay.cluster == 1 or B * lay.cluster <= n_sms
+            assert kp // lay.cluster >= pv.WIDE_MIN_CTA_KMERS
+            bigger = 2 * lay.cluster
+            assert (bigger > pv.WIDE_MAX_CLUSTER or B * bigger > n_sms
+                    or kp // bigger < pv.WIDE_MIN_CTA_KMERS)
+
+
+@pytest.mark.parametrize("kp", [32, 1024, 3000])
+def test_wide_layout_rejects_other_widths(kp):
+    with pytest.raises(ValueError, match="wide-row width"):
+        pv.wide_layout(kp, 1, True)
+
+
+@pytest.mark.parametrize("kp,B", [(256, 4), (1024, 4), (2048, 8), (8192, 4),
+                                  (8192, 64), (32768, 68)])
+def test_viterbi_fill_launch_geometry(monkeypatch, kp, B):
+    """viterbi_fill hands the kernel the kmer width, kpl, threads a CTA
+    and CTAs a segment of row_layout / wide_layout (on the card's SMs),
+    and a scratch buffer exactly when the rows are in scratch."""
+    from nanopolish_tpu_torch.utils import cuda_build
+    calls = []
+    monkeypatch.setattr(cuda_build, "require_cuda", lambda t: None)
+    monkeypatch.setattr(cuda_build, "launch",
+                        lambda name, *a: calls.append((name, a)))
+    monkeypatch.setattr(cuda_build, "count_launch", lambda name: None)
+    monkeypatch.setattr(pv, "card_sms", lambda dev: 132)
+    scratches = []
+    wide_scratch = pv.wide_scratch
+    monkeypatch.setattr(pv, "wide_scratch", lambda lay, n, dev: scratches.
+                        append(wide_scratch(lay, n, dev)) or scratches[-1])
+    meta = torch.device("meta")
+    T = 5
+    f32, i32 = torch.float32, torch.int32
+    args = [torch.empty((B, T), dtype=f32, device=meta),
+            torch.empty(B, dtype=i32, device=meta)]
+    args += [torch.empty((B, kp), dtype=f32, device=meta) for _ in range(3)]
+    args += [torch.empty(B, dtype=i32, device=meta),
+             torch.empty((B, 8), dtype=f32, device=meta),
+             torch.empty((B, 2), dtype=torch.uint8, device=meta)]
+    pv.viterbi_fill(*args)
+    (name, a), = calls
+    assert name == "viterbi_fill" and a[1] == T and a[5] == kp
+    mode, kpl = pv.row_layout(kp)
+    if mode == "wide":
+        lay = pv.wide_layout(kp, B, True)
+        assert a[6:9] == (lay.per_thread, lay.threads, lay.cluster)
+        (scratch,) = scratches
+        assert (scratch is None) == (lay.rows == "shared")
+        if scratch is not None:
+            assert scratch.numel() == B * lay.scratch
     else:
-        assert scratch.shape == (2, 3, kp) and scratch.dtype == torch.float32
+        assert a[6:9] == (kpl, 0, 0) and a[-1] is None and not scratches
 
 
 @pytest.mark.parametrize("kp", [0, 16, 48, 100, 384])
@@ -181,11 +291,15 @@ def test_row_layout_rejects_other_widths(kp):
 
 
 @pytest.mark.parametrize("K,T,flags", [(1100, 500, 3), (1100, 500, 0),
-                                         (20000, 40, 3)])
+                                         (20000, 40, 3), (3000, 150, 1),
+                                         (12000, 40, 2)])
 def test_wide_segment_matches_jax_scan(K, T, flags):
     """A 500-event segment of 1,100 kmers (the wide row at 2,048 on the
     card) and one of 20,000 kmers (width 32,768: its rows in global
-    scratch on the card) align exactly as the JAX scan aligns them."""
+    scratch on the card when the batch keeps one CTA a segment) align
+    exactly as the JAX scan aligns them; so do segments at 4,096 kmers
+    (two warps a CTA of eight) and 16,384 (the widest row one CTA holds
+    in shared memory), where wide_layout's geometry changes."""
     from nanopolish_tpu.alignment import segments as jseg
     from nanopolish_tpu_torch.alignment import segments as tseg
     lv, Ts, mu, sd, Ks, epb = _batch(1, K + 1, T + 1, seed=K + flags)
@@ -249,20 +363,44 @@ def test_kmer_width_has_no_ceiling(n, kp):
 
 @pytest.mark.parametrize("R", [1, 2])
 def test_wide_lane_schedule_matches_kstate_chain(R):
-    """The wide row's K chain (csrc/profile_hmm_wide.cuh): R kmers per
-    thread, the in-thread levels, then the 1,024 threads' in-place tree
-    (tests/kchain_lanes.py with 1,024 lanes) gives kstate_chain_max's
-    values bit for bit."""
+    """The wide row's K chain (csrc/profile_hmm_wide.cuh) at the train
+    step's geometry: R kmers a thread, 1,024 threads a CTA, a cluster of
+    8 CTAs (tests/kchain_lanes.py wide_schedule_chain), gives
+    kstate_chain_max's values bit for bit."""
     rng = np.random.default_rng(7 + R)
-    c, lp_kk = chain_inputs(rng, 3, 1024 * R)
+    c, lp_kk = chain_inputs(rng, 3, 8 * 1024 * R)
 
     def op(x, y):
         return np.where(x > y, x, y)    # npt_max
 
-    got = lane_schedule_chain(c, lp_kk, R, op, width=1024, lanes=1024)
+    got = wide_schedule_chain(c, lp_kk, R, 1024, 8, op)
     ref = ph.kstate_chain_max(torch.from_numpy(c),
                               torch.from_numpy(lp_kk)).numpy()
     np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
+@pytest.mark.parametrize("J,nt,C", [(1, 32, 1), (1, 64, 2), (2, 64, 4),
+                                    (4, 32, 8), (1, 256, 8), (8, 64, 1),
+                                    (16, 32, 2), (4, 256, 4)])
+def test_wide_schedule_matches_kstate_chain_max(J, nt, C):
+    """The wide row's tiers (J kmers a thread, nt threads a CTA, C CTAs a
+    segment: the in-thread levels, a warp's lanes, warp 0 over the warps'
+    totals, every CTA over the cluster's totals, then the down-sweeps with
+    the prefix of the tier below) give kstate_chain_max's values bit for
+    bit, exact ties and -inf runs included, at every geometry shape
+    wide_layout picks."""
+    rng = np.random.default_rng(J * 1000 + nt + C)
+    c, lp_kk = chain_inputs(rng, 6, J * nt * C)
+
+    def op(x, y):
+        return np.where(x > y, x, y)    # npt_max
+
+    got = wide_schedule_chain(c, lp_kk, J, nt, C, op)
+    ref = ph.kstate_chain_max(torch.from_numpy(c),
+                              torch.from_numpy(lp_kk)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    tie = (c[:, 1:] == ref[:, :-1] + lp_kk[:, None]) & np.isfinite(c[:, 1:])
+    assert tie.sum() > 0
 
 
 def _fill_plain(lv, Ts, mu, sd, Ks, epb, flags):
@@ -441,6 +579,28 @@ def test_kernels_match_plain_on_gpu(cuda_device, kp):
     ref = ph.paths_to_segments(
         ph.viterbi_backtrack_plain(tp, x["n_events"], x["n_kmers"]).cpu().numpy())
     assert all(_same(r, g) for r, g in zip(ref, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kp,B,T", [(2048, 8, 60), (8192, 1, 40),
+                                    (8192, 4, 40), (8192, 64, 12),
+                                    (16384, 68, 8), (32768, 68, 8)])
+def test_wide_geometries_match_plain_on_gpu(cuda_device, kp, B, T):
+    """The wide row at each kind of wide_layout geometry (clusters of 8, 2
+    and 1 CTA a segment, rows in shared memory and in scratch), trace
+    cells bit for bit."""
+    lv, Ts, mu, sd, Ks, epb = _batch(B, kp, T, seed=kp + B)
+    Ks[0] = kp - 1
+    flags = np.arange(B, dtype=np.int32) % 4
+    x = pv.prepare_viterbi_inputs(lv, Ts, mu, sd, Ks, epb, flags,
+                                  device=cuda_device)
+    assert x["mu"].shape[1] == kp
+    names = ("levels", "n_events", "mu", "sigma", "c", "n_kmers", "trans",
+             "clips")
+    got = pv.viterbi_fill(*[x[k] for k in names])
+    ref = ph.viterbi_fill_plain(*[x[k] for k in names])
+    for b in range(B):
+        assert torch.equal(got[b, :Ts[b]], ref[b, :Ts[b]])
 
 
 @pytest.mark.cuda

@@ -3,7 +3,8 @@
 
     python3 tools/probe_hmm_rows.py [--root DIR] [--json FILE]
                                     [--against FILE] [--sass DIR] [--paths]
-                                    [--capture FILE]
+                                    [--capture FILE] [--step FILE]
+                                    [--cases REGEX] [--wide-cluster N,...]
 
 Builds the kernels of the checkout at --root (default: the one holding
 this script) with that checkout's own utils/cuda_build, and drives its
@@ -30,9 +31,17 @@ chip_smoke.py, so that two checkouts run the same inputs:
                length and kmer width; fwd-<T>x<KP> is each bucket alone
   vit-<kp>, fwd-<kp>
                chip_smoke.py's batch at each width of HMM_WIDTHS
-  idx-screen, idx-call
+  vit-wide-<kp>, fwd-wide-<kp>
+               chip_smoke.py's wide-row batches at each width of
+               WIDE_WIDTHS, and vit-wide-<name>, fwd-wide-<name> its
+               WIDE_CASES (the train step's kmer width with 1 and 4
+               segments; 68 segments at the shared-memory/scratch edge)
+  fwd-step     the train step's Forward on its 4 longest reads (--step:
+               the forward_inputs.npz chip_smoke.py's phase 6b writes)
+  idx-screen, idx-call, idx-wide
                chip_smoke.py's 8,192 screening-shaped and 512
-               calling-shaped indexed segments, one flush each
+               calling-shaped indexed segments and its 8 of 1,025-3,000
+               kmers (the wide row), one flush each
   idx-flush    the largest flush of the 50 kb variants run (--capture),
                and idx-flush-<kp> each of its kmer-width buckets (8, 16,
                32, 64 ... as indexed_width groups them) alone
@@ -56,6 +65,12 @@ are the kernel's device time per call too (a ~20 us traceback is shorter
 than its wrapper's host work), with the call's CUDA-event time in
 wall_ms.  Every other time is a CUDA-event mean over REPS calls after
 a warm-up.
+
+--cases REGEX runs only the cases whose names match.  --wide-cluster
+N,... also times every wide-row fill case (vit-wide-*, fwd-wide-*,
+fwd-step) with profile_hmm_viterbi.WIDE_MAX_CLUSTER set to each N, as
+<case>@c<N>, its output held to the case's own (one CTA a segment at
+N = 1).
 
 --capture FILE: the idx-flush, seg-polya and banded-ea inputs.  When
 FILE does not exist, the run builds chip_smoke.py's eventalign, 50 kb
@@ -140,8 +155,11 @@ def sass(cs, out_dir):
             for fn, (n, b) in counts.items()))
 
 
-def fill_cases(cs, model, dev):
-    """(case, kernel, [prepared inputs of each launch]) of the two fills."""
+def fill_cases(cs, model, dev, want, step=None):
+    """(case, kernel, [prepared inputs of each launch]) of the two fills,
+    those whose names want() takes; step: the train step's Forward
+    inputs (an npz of chip_smoke.FWD_ARGS)."""
+    import torch
     from nanopolish_tpu_torch.alignment.segments import _bucket_key
     from nanopolish_tpu_torch.ops import profile_hmm_viterbi as pv
 
@@ -175,7 +193,23 @@ def fill_cases(cs, model, dev):
             cs.width_batch(model, kp, cs.WIDTH_SEGMENTS, seed=kp))]))
         out.append((f"fwd-{kp}", "forward_fill", [prep(
             cs.width_batch(model, kp, cs.WIDTH_SEGMENTS, seed=kp + 1))]))
-    return out
+    # the wide row: chip_smoke phases 3 and 4's batches, seeded alike
+    for kp in cs.WIDE_WIDTHS:
+        out.append((f"vit-wide-{kp}", "viterbi_fill",
+                    [prep(cs.wide_batch(model, kp, seed=kp))]))
+        out.append((f"fwd-wide-{kp}", "forward_fill",
+                    [prep(cs.wide_batch(model, kp, seed=kp + 1))]))
+    for name, shape in cs.WIDE_CASES.items():
+        seed = shape[0] + shape[1]
+        out.append((f"vit-wide-{name}", "viterbi_fill",
+                    [prep(cs.wide_case(model, *shape, seed=seed))]))
+        out.append((f"fwd-wide-{name}", "forward_fill",
+                    [prep(cs.wide_case(model, *shape, seed=seed + 1))]))
+    if step:
+        a = np.load(step)
+        out.append(("fwd-step", "forward_fill", [
+            {k: torch.as_tensor(a[k], device=dev) for k in cs.FWD_ARGS}]))
+    return [c for c in out if want(c[0])]
 
 
 def indexed_cases(cs, model, cap):
@@ -189,7 +223,12 @@ def indexed_cases(cs, model, cap):
                      widths=np.arange(1, 33))
     call = cs.indexed_batch(model, rng, cs.IDX_CALL, 100, 256, None, None,
                             per_ev=4)
-    out = [("idx-screen", screen, 3), ("idx-call", call, 3)]
+    cs.indexed_batch(model, rng, cs.IDX_CALL, 33, 64, None, None, per_ev=4)
+    cs.indexed_batch(model, rng, 64, 257, 1024, 40, 120, per_ev=2)
+    wide = cs.short_rows(cs.indexed_batch(model, rng, 8, 1025, 3000, 40, 120,
+                                          per_ev=1), 120)
+    out = [("idx-screen", screen, 3), ("idx-call", call, 3),
+           ("idx-wide", wide, 3)]
     if cap is not None:
         flush = tuple(cap[f"flush{i}"] for i in range(7))
         flags = np.broadcast_to(cap["flush7"], (len(flush[6]),))
@@ -343,7 +382,18 @@ def main() -> int:
     ap.add_argument("--capture", metavar="FILE",
                     help="the variants flush and polya launch to time "
                          "(made by running both paths when missing)")
+    ap.add_argument("--step", metavar="FILE",
+                    help="the train step's Forward inputs (chip_smoke "
+                         "phase 6b's forward_inputs.npz): case fwd-step")
+    ap.add_argument("--cases", metavar="REGEX",
+                    help="run only the cases whose names match")
+    ap.add_argument("--wide-cluster", metavar="N,...",
+                    help="also time the wide-row fill cases at these "
+                         "cluster-size limits")
     a = ap.parse_args()
+
+    def want(case):
+        return a.cases is None or re.search(a.cases, case) is not None
     cs = load_chip_smoke()
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is False: this probe needs a GPU")
@@ -390,7 +440,7 @@ def main() -> int:
     model = PoreModelSet.instance().get_model(
         "r9.4_450bps", "nucleotide", "template", 6)
     times, walls, digests = {}, {}, {}
-    for case, name, xs in fill_cases(cs, model, dev):
+    for case, name, xs in fill_cases(cs, model, dev, want, a.step):
         args = [(x["levels"], x["n_events"], x["mu"], x["sigma"], x["c"],
                  x["n_kmers"], x["trans"], x["clips"]) for x in xs]
         digests[case] = [fill_digest(name, x, fill[name](*arg))
@@ -401,7 +451,32 @@ def main() -> int:
                f"{len(xs)} launches, kmer widths "
                f"{sorted({x['mu'].shape[1] for x in xs})}: "
                f"{times[case]:.4f} ms")
-    for case, tr, nev, nk in backtrack_cases(cs, model, dev):
+        if a.wide_cluster and ("-wide-" in case or case == "fwd-step"):
+            default = pv.WIDE_MAX_CLUSTER
+            for c in (int(v) for v in a.wide_cluster.split(",")):
+                pv.WIDE_MAX_CLUSTER = c
+                try:
+                    got = [fill_digest(name, x, fill[name](*arg))
+                           for x, arg in zip(xs, args)]
+                    if got != digests[case]:
+                        cs.fail(f"{case} at cluster limit {c} differs from "
+                                f"its output at {default}")
+                    key = f"{case}@c{c}"
+                    times[key] = cs.cuda_ms(
+                        lambda: [fill[name](*arg) for arg in args],
+                        reps=REPS)
+                finally:
+                    pv.WIDE_MAX_CLUSTER = default
+                cs.log(f"{key}: {times[key]:.4f} ms")
+    def family(*names):
+        return any(want(c) for c in names)
+
+    bt_cases = backtrack_cases(cs, model, dev) \
+        if family("vit-bt-check", "vit-bt-wave") else []
+    for case, tr, nev, nk in bt_cases:
+        if not want(case):
+            continue
+
         def run():
             return pv.viterbi_backtrack(tr, nev, nk)
         digests[case] = path_digest(run())
@@ -410,7 +485,13 @@ def main() -> int:
         cs.log(f"{case}: {tr.shape[0]} segments, kmer width {tr.shape[2]}: "
                f"kernel {times[case]:.4f} ms (call {walls[case]:.4f} ms)")
         del tr
-    for case, args in banded_cases(cs, model, dev, cap):
+    b_cases = banded_cases(cs, model, dev, cap) if family(
+        "banded-check", "banded-ea", "banded-bt-check", "banded-bt-ea") \
+        else []
+    for case, args in b_cases:
+        if not (want(case) or want(case.replace("banded-", "banded-bt-"))):
+            continue
+
         def run():
             return bx.banded_fill(*args)
         digests[case] = sha(*(t.cpu().numpy() for t in run()))
@@ -431,7 +512,12 @@ def main() -> int:
         walls[bt] = cs.cuda_ms(run_bt, reps=REPS)
         cs.log(f"{bt}: kernel {times[bt]:.4f} ms (call {walls[bt]:.4f} ms)")
         del fill
-    for case, arrays, flags in indexed_cases(cs, model, cap):
+    i_cases = indexed_cases(cs, model, cap) if family(
+        "idx-screen", "idx-call", "idx-wide", "idx-flush") else []
+    for case, arrays, flags in i_cases:
+        if not want(case):
+            continue
+
         def run():
             return pi.forward_indexed_scores(*arrays, flags, device=dev)
         digests[case] = sha(run())
@@ -442,7 +528,12 @@ def main() -> int:
                f"{int(arrays[4][arrays[6][:, 2]].max())}: kernels "
                f"{times[case]:.4f} ms per flush (flush {walls[case]:.4f} ms "
                f"with its uploads and fetch)")
-    for case, x, n, s, k in seg_cases(cs, dev, cap):
+    s_cases = seg_cases(cs, dev, cap) if family(
+        "seg-check", "seg-check-dpi", "seg-polya", "seg-bt-check",
+        "seg-bt-check-dpi", "seg-bt-polya") else []
+    for case, x, n, s, k in s_cases:
+        if not (want(case) or want(case.replace("seg-", "seg-bt-"))):
+            continue
         bk, vk = sv.seg_viterbi_fill(x, n, s, k)
         digests[case] = sha(bk.contiguous().cpu().numpy(), vk.cpu().numpy())
         del bk, vk
@@ -469,8 +560,8 @@ def main() -> int:
             json.dump(result, fh)
     if a.against:
         with open(a.against) as fh:
-            want = json.load(fh)["sha256"]
-        differ = [c for c in digests if digests[c] != want.get(c)]
+            want_sha = json.load(fh)["sha256"]
+        differ = [c for c in digests if digests[c] != want_sha.get(c)]
         if differ:
             cs.fail(f"outputs differ from {a.against} in {differ}")
         cs.log(f"every output equals {a.against}'s")
