@@ -154,6 +154,22 @@ Phases (any failure exits non-zero; nothing is caught):
      printed-output rule; one `scale_paths` JSON line (per run: wall, rate, Viterbi
      rounds, peak RSS, peak device memory, and per kernel the launches
      made and recorded and path ms);
+  6d. the JAX package's last routes, at phase 6's and 6c's widths:
+     call-methylation's object path (NPT_METH_ARRAY=0: per-window
+     HMMInputSequence pairs through ScoreBatcher's indexed drain, the
+     forward_indexed kernel; the flat Forward must not launch) on the
+     64 x 8 kb methylation corpus under torch.profiler, its TSV
+     byte-identical to phase 6's array path (any differing row counted
+     and held to the printed-output rule, no call flipped) and its modbam
+     under the printed-output rule; the array path with NPT_METH_NATIVE=0
+     (the NumPy geometry), its TSV byte-identical to phase 6's;
+     `variants --consensus` on phase 6c's 2 kb window
+     with NPT_VAR_ARRAY=0, its VCF identical to phase 6c's; eventalign
+     64 x 8 kb under NPT_PROFILE=1, byte-identical to phase 6's, and the
+     scope report's top lines; one `last_routes` JSON line.  Every
+     timed run (timed_run, also under profiled_run) logs its sync
+     accounting (utils/syncstats: fetches, seconds blocked in them,
+     bytes) beside its wall;
   7. one JSON line describing each kernel (with `path_ms`, its summed
      device time in one run of its own main path, beside the launches
      made and those torch.profiler recorded), then the result line.
@@ -2009,18 +2025,28 @@ def main_corpus():
     return _MAIN["files"]
 
 
+LAST_SYNC = {}
+
+
 def timed_run(fn, kernels):
     """Run fn() with the launch counts set to 0 just before it and read
-    just after; fail unless each named kernel was launched.  Returns
-    (wall seconds, launches)."""
+    just after; fail unless each named kernel was launched.  Logs the
+    run's sync accounting (utils/syncstats: device-to-host fetches, the
+    seconds the host waited in them, the bytes) beside its wall and keeps
+    it in LAST_SYNC.  Returns (wall seconds, launches)."""
     import torch
     from nanopolish_tpu_torch.utils import cuda_build
+    from nanopolish_tpu_torch.utils.syncstats import SYNC_STATS
     torch.cuda.synchronize()
     cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
+    with SYNC_STATS.capture() as sync:
+        fn()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    LAST_SYNC.clear()
+    LAST_SYNC.update(sync.as_dict(), wall_s=round(wall, 4))
+    log(f"  sync accounting {json.dumps(LAST_SYNC)}")
     launches = dict(cuda_build.LAUNCHES)
     for name in kernels:
         if launches[name] <= 0:
@@ -3959,6 +3985,170 @@ def phase_longread_scale(dev, lr, sc, cpu_proc):
     return rec
 
 
+@contextlib.contextmanager
+def env_set(**kw):
+    """The NPT_* switches kw set in os.environ for the block's length."""
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update({k: str(v) for k, v in kw.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def same_files(pairs, what):
+    """Fail unless each (got, want) file pair is byte-identical, with the
+    count of differing lines."""
+    for got, want in pairs:
+        a, b = open(got).read(), open(want).read()
+        if a != b:
+            al, bl = a.splitlines(), b.splitlines()
+            n = abs(len(al) - len(bl)) + sum(x != y for x, y in zip(al, bl))
+            fail(f"{what}: {os.path.basename(got)} differs from "
+                 f"{os.path.basename(want)} in {n} lines")
+
+
+def phase_last_routes(dev, meth_corpus, sc, scale):
+    """Phase 6d: the JAX package's last routes on the card, at phase 6's
+    and 6c's widths.  (a) call-methylation's object path
+    (NPT_METH_ARRAY=0: collect_read_tasks, ScoreBatcher's indexed drain
+    on forward_indexed) on the 64 x 8 kb methylation corpus, held to
+    phase 6's array-path TSV byte for byte (rows that differ counted and
+    held to the printed-output rule, no call flipped) and its modbam under
+    the printed-output rule, and the array path with NPT_METH_NATIVE=0
+    (the NumPy geometry) held to the same TSV byte for byte; (b) variants
+    --consensus on phase 6c's 2 kb window with NPT_VAR_ARRAY=0 against
+    phase 6c's VCF, identical; (c) eventalign 64 x 8 kb without and then
+    under NPT_PROFILE=1 against phase 6's outputs, byte for byte, and the
+    scope report's top lines.  Every run logs its sync accounting (timed_run).
+    Returns the `last_routes` record."""
+    from nanopolish_tpu_torch.apps import call_methylation as cm_app
+    from nanopolish_tpu_torch.apps import eventalign as ea_app
+    from nanopolish_tpu_torch.apps import variants as va_app
+    from nanopolish_tpu_torch.utils import profiler
+
+    rec = {"card": card()}
+    banded = ("banded_fill", "banded_backtrack")
+    viterbi = banded + ("viterbi_fill", "viterbi_backtrack")
+
+    # (a) the object path
+    d = os.path.join(WORK, "main_meth")
+    ref_fa, fastq, bam = meth_corpus
+    array_tsv = os.path.join(d, "methylation.tsv")
+    argv = ["-r", fastq, "-b", bam, "-g", ref_fa, "--device", dev.type]
+
+    def cm_run(out_path, extra=()):
+        def run():
+            with open(out_path, "w") as fh:
+                cm_app.main(argv + list(extra), stdout=fh)
+        return run
+
+    arr2 = os.path.join(d, "array2.tsv")
+    wall_arr, _ = timed_run(cm_run(arr2), banded + ("forward_fill",))
+    sync_arr = dict(LAST_SYNC)
+    same_files([(arr2, array_tsv)], "call-methylation array path, again")
+    obj_tsv = os.path.join(d, "objects.tsv")
+    obj_bam = os.path.join(d, "objects_mods.bam")
+    with env_set(NPT_METH_ARRAY=0):
+        wall_obj, launches, busy_s, top, path = profiled_run(
+            cm_run(obj_tsv, ["--modbam-output-name", obj_bam]),
+            banded + ("forward_indexed",))
+        sync_obj = dict(LAST_SYNC)
+        if launches["forward_fill"] or launches["forward_table"]:
+            fail(f"the object path launched the flat Forward: "
+                 f"{json.dumps(launches)}")
+    got, want = open(obj_tsv).read(), open(array_tsv).read()
+    rep = {"rows": len(want.splitlines()) - 1, "differ": 0}
+    if got != want:
+        rep = assert_agree(got, want, "object path vs array path",
+                           sign_cols=(LLR,))
+        if rep["flips"]:
+            fail(f"the object path flips {rep['flips']} calls")
+    arr_nn = os.path.join(d, "array_native0.tsv")
+    with env_set(NPT_METH_NATIVE=0):
+        wall_nn, _ = timed_run(cm_run(arr_nn), banded + ("forward_fill",))
+        sync_nn = dict(LAST_SYNC)
+    same_files([(arr_nn, array_tsv)],
+               "call-methylation array path NPT_METH_NATIVE=0")
+    assert_agree(render_bam(obj_bam), render_bam(os.path.join(d, "mods.bam")),
+                 "object path modbam", sam=True)
+    sites = rep["rows"]
+    rec["object path"] = {
+        "wall_s": round(wall_obj, 3), "sites_per_s": round(sites / wall_obj, 1),
+        "array_wall_s": round(wall_arr, 3), "native0_wall_s": round(wall_nn, 3),
+        "rows_differ": rep["differ"], "busy_s": round(busy_s, 4),
+        "sync": sync_obj, "array_sync": sync_arr, "native0_sync": sync_nn,
+        "forward_indexed": path_summary(path).get("forward_indexed")}
+    log(f"6d object path call-methylation {MAIN_READS} x {MAIN_READ_LEN} on "
+        f"{dev.type} ({card()}): {sites} sites in {wall_obj:.2f} s under "
+        f"torch.profiler ({sites / wall_obj:.0f} sites/s; the array path "
+        f"{wall_arr:.2f} s, not profiled; the array path under "
+        f"NPT_METH_NATIVE=0 {wall_nn:.2f} s, TSV identical), "
+        f"{rep['differ']} rows differ from the array "
+        f"path's; card busy {busy_s:.4f} s, by kernel {json.dumps(top)}; "
+        f"path ms (launches made, recorded) {json.dumps(path_summary(path))}")
+
+    # (b) variants' object screening
+    d = os.path.join(WORK, "scale")
+    vcf0 = os.path.join(d, "polished_var_array0.vcf")
+    args = ["-r", sc["fastq"], "-b", sc["bam"], "-g", sc["draft_fa"], "-w",
+            SC_VAR_WINDOW, "--consensus", "-d", "10", "--device", dev.type]
+    with env_set(NPT_VAR_ARRAY=0):
+        wall_v, _ = timed_run(lambda: va_app.main(args + ["-o", vcf0]),
+                              banded + ("forward_indexed",))
+        sync_v = dict(LAST_SYNC)
+    same_files([(vcf0, os.path.join(d, "polished.vcf"))],
+               "variants --consensus NPT_VAR_ARRAY=0")
+    rec["variants NPT_VAR_ARRAY=0"] = {
+        "wall_s": round(wall_v, 3), "sync": sync_v,
+        "array_wall_s_profiled": scale["scale variants --consensus"]["wall_s"]}
+    log(f"6d variants --consensus {SC_VAR_WINDOW} NPT_VAR_ARRAY=0 on "
+        f"{dev.type}: {wall_v:.2f} s (array path, profiled: "
+        f"{scale['scale variants --consensus']['wall_s']:.2f} s); VCF "
+        f"identical")
+
+    # (c) the macro profiler
+    d = os.path.join(WORK, "main")
+    ref_fa, fastq, bam = main_corpus()
+    argv = ["-r", fastq, "-b", bam, "-g", ref_fa, "--device", dev.type]
+
+    def ea_run(out_path, summary):
+        def run():
+            with open(out_path, "w") as fh:
+                ea_app.main(argv + ["--summary", summary], stdout=fh)
+        return run
+
+    pf_tsv, pf_sum = (os.path.join(d, f) for f in ("profiled.tsv",
+                                                   "profiled_summary.tsv"))
+    # the same run without the profiler first: the scopes' cost
+    wall_np, _ = timed_run(ea_run(pf_tsv, pf_sum), viterbi + ("chain_step",))
+    profiler._scopes.clear()
+    with env_set(NPT_PROFILE=1):
+        wall_p, _ = timed_run(ea_run(pf_tsv, pf_sum), viterbi +
+                              ("chain_step",))
+        sync_p = dict(LAST_SYNC)
+    same_files([(pf_tsv, os.path.join(d, "eventalign.tsv")),
+                (pf_sum, os.path.join(d, "summary.tsv"))],
+               "eventalign under NPT_PROFILE=1")
+    buf = io.StringIO()
+    profiler._report(buf)
+    profiler._scopes.clear()
+    top_lines = buf.getvalue().splitlines()[:8]
+    if not any("ea.emit" in ln for ln in top_lines):
+        fail(f"NPT_PROFILE=1 reported no ea.emit scope: {top_lines}")
+    rec["profile"] = {"wall_s": round(wall_p, 3), "sync": sync_p,
+                      "unprofiled_wall_s": round(wall_np, 3),
+                      "top": top_lines}
+    log(f"6d eventalign 64 x 8 kb under NPT_PROFILE=1: {wall_p:.2f} s "
+        f"(without it, the run just before: {wall_np:.2f} s), outputs "
+        f"identical; scope report:\n  " + "\n  ".join(top_lines))
+    return rec
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cpu-subset"]:
         return cpu_subset_run(sys.argv[2])
@@ -4064,6 +4254,12 @@ def main() -> int:
     scale = phase_longread_scale(dev, lr_corpus, sc_corpus, cpu_scale)
     scale["seconds"] = round(time.perf_counter() - t0, 1)
     log(json.dumps({"scale_paths": scale}))
+    # the JAX package's last routes: call-methylation's object path,
+    # variants' object screening, the macro profiler
+    t0 = time.perf_counter()
+    last = phase_last_routes(dev, meth_corpus, sc_corpus, scale)
+    last["seconds"] = round(time.perf_counter() - t0, 1)
+    log(json.dumps({"last_routes": last}))
     path = dict(ea_path)
     for name, own_path in own.items():
         path[name] = own_path[name]

@@ -53,6 +53,8 @@ from ..ops.chain_step import (ACTIVE, DONE, M_COFF, M_FWD, M_K,
 from ..ops.profile_hmm import make_transitions
 from ..ops.profile_hmm_viterbi import viterbi_backtrack, viterbi_fill
 from ..utils.device import resolve_device
+from ..utils.profiler import profile_scope
+from ..utils.syncstats import timed_fetch
 from .anchor import start_segment
 from .segments import _model_tables, read_drift_levels
 
@@ -201,9 +203,11 @@ def run_device_chain(djobs: List[DeviceJob], device=None) -> List[bool]:
     dev = resolve_device(device)
     ok: List[bool] = []
     for lo in range(0, len(djobs), CHAIN_BATCH):
-        batch = ChainBatch(djobs[lo:lo + CHAIN_BATCH], dev)
+        with profile_scope("ea.chain_build"):
+            batch = ChainBatch(djobs[lo:lo + CHAIN_BATCH], dev)
         batch.run()
-        ok += batch.unpack()
+        with profile_scope("ea.chain_unpack"):
+            ok += batch.unpack()
     return ok
 
 
@@ -292,7 +296,7 @@ class ChainBatch:
         """The chains still active: one blocking read of the device's
         state (the host waits for the rounds issued so far)."""
         CHAIN_STATS["checks"] += 1
-        return int((self.state[:, S_STATUS] == ACTIVE).sum())
+        return int(timed_fetch((self.state[:, S_STATUS] == ACTIVE).sum()))
 
     def run(self) -> int:
         """Rounds until every chain has ended (read every CHECK_EVERY
@@ -314,8 +318,8 @@ class ChainBatch:
         chain's rows go to its _Job, which is marked done.  Returns
         per-job success flags."""
         B = self.B
-        flat = torch.cat([self.state.reshape(-1),
-                          self.rows.reshape(-1)]).cpu().numpy()
+        flat = timed_fetch(torch.cat([self.state.reshape(-1),
+                                      self.rows.reshape(-1)]))
         st = flat[:B * N_STATE].reshape(B, N_STATE)
         out = flat[B * N_STATE:].reshape(3, self.n_rows)
         ok = []

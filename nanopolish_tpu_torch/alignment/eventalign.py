@@ -24,6 +24,7 @@ from ..io.bam import BamRecord
 from ..models.hmm_input import HMMInputSequence
 from ..models.squiggle import SquiggleRead
 from ..utils.device import resolve_device
+from ..utils.profiler import profile_scope
 from .anchor import (get_aligned_segments, get_end_pair, start_segment,
                      trim_pairs_to_kmer, trim_pairs_to_ref_region)
 from .device_chain import CHAIN_STATS, run_device_chain, stage_job
@@ -331,14 +332,15 @@ def _run_device_chain(live: List[_Job], device) -> None:
     """Stage each job for the device chain and run the chain, one batch
     per kmer size; the jobs it declines or gives back stay not done."""
     by_k: dict = {}
-    for j in live:
-        d = stage_job(j)
-        if d is not None:
-            by_k.setdefault(j.model.k, []).append(d)
-        elif not j.done:
-            # a job stage_job completed (nothing left to align) is no
-            # fallback
-            CHAIN_STATS["ineligible"] += 1
+    with profile_scope("ea.stage_jobs"):
+        for j in live:
+            d = stage_job(j)
+            if d is not None:
+                by_k.setdefault(j.model.k, []).append(d)
+            elif not j.done:
+                # a job stage_job completed (nothing left to align) is no
+                # fallback
+                CHAIN_STATS["ineligible"] += 1
     for group in by_k.values():
         run_device_chain(group, device)
 

@@ -31,6 +31,8 @@ from ..ops.profile_hmm_indexed import forward_indexed_scores
 from ..ops.profile_hmm_viterbi import prepare_viterbi_inputs, viterbi_paths
 from ..utils.device import resolve_device
 from ..utils.logsum import logsum_mode
+from ..utils.profiler import profile_scope
+from ..utils.syncstats import timed_fetch
 
 import threading
 
@@ -228,7 +230,7 @@ def viterbi_segments(segments: Sequence[HMMSegment],
         x = prepare_viterbi_inputs(
             levels, n_events, mu, sigma, n_kmers, epb, flags, indel_bias,
             make_transitions(epb, indel_bias, **(probs or {})), device=dev)
-        backs = paths_to_segments(viterbi_paths(x).cpu().numpy())
+        backs = paths_to_segments(timed_fetch(viterbi_paths(x)))
         for bi, si in enumerate(chunk):
             results[si] = backs[bi]
     return results  # type: ignore[return-value]
@@ -272,17 +274,19 @@ def forward_arrays_async(levels_mat: np.ndarray, n_events: np.ndarray,
                             (16 * tp if logsum == "table" else 0))
         for lo in range(0, len(idxs), step):
             ii = np.asarray(idxs[lo:lo + step])
-            x = prepare_forward_inputs(
-                levels_mat[ii, :T], n_events[ii], mu_mat[ii, :K],
-                sigma_mat[ii, :K], n_kmers[ii], epb[ii], flags[ii],
-                indel_bias, trans[ii], device=dev)
-            pending.append(forward_scores(x, logsum))
+            with profile_scope("segments.fa_pack"):
+                x = prepare_forward_inputs(
+                    levels_mat[ii, :T], n_events[ii], mu_mat[ii, :K],
+                    sigma_mat[ii, :K], n_kmers[ii], epb[ii], flags[ii],
+                    indel_bias, trans[ii], device=dev)
+            with profile_scope("segments.fa_dispatch"):
+                pending.append(forward_scores(x, logsum))
             order.append(ii)
     cat = torch.cat(pending)
     order = np.concatenate(order)
 
     def materialize() -> np.ndarray:
-        out[order] = cat.cpu().numpy()
+        out[order] = timed_fetch(cat)
         return out
 
     return materialize

@@ -7,11 +7,19 @@ and modbam output.
 
 Every (read, strand, motif group) gives two Forward scoring tasks: the
 window's unmethylated and methylated sequence against the same events.
-A chunk's groups are collected as struct-of-arrays blocks (the native
-geometry of ``csrc/meth_geometry.cpp``, or its NumPy twin), gathered into
-padded matrices on the host and scored by one asynchronous sweep of the
-Forward kernel (``alignment.segments.forward_arrays_async``); a worker
-thread resolves the scores while the next chunk loads.
+On the array path (the default) a chunk's groups are collected as
+struct-of-arrays blocks (the native geometry of ``csrc/meth_geometry.cpp``,
+or its NumPy twin under ``NPT_METH_NATIVE=0``), gathered into padded
+matrices on the host and scored by one asynchronous sweep of the Forward
+kernel (``alignment.segments.forward_arrays_async``); a worker thread
+resolves the scores while the next chunk loads.  The object path
+(``NPT_METH_ARRAY=0``) builds an HMMInputSequence pair per group and
+scores a chunk's pairs in one ``ScoreBatcher`` flush, the indexed drain
+(``csrc/forward_indexed.cu`` on the card).  Both print the same rows;
+neither falls back to the other.  The object path is the JAX package's
+``NPT_METH_ARRAY=0`` route, and the one call-methylation route through the
+indexed Forward: on the card it holds the array path's scores to a second
+kernel.
 """
 
 from __future__ import annotations
@@ -29,11 +37,13 @@ import numpy as np
 
 from ..alignment.records import (MAX_EVENT_TO_BP_RATIO, EventAlignmentRecord,
                                  SequenceAlignmentRecord)
-from ..alignment.segments import (_model_tables, forward_arrays_async,
-                                  read_drift_levels)
+from ..alignment.alignment_db import EventSequence
+from ..alignment.segments import (ScoreBatcher, _model_tables,
+                                  forward_arrays_async, read_drift_levels)
 from ..io.bam import BamRecord, BamWriter
 from ..io.fasta import FastaIndex
 from ..io.readdb import ReadDB
+from ..models.hmm_input import HMMInputSequence
 from ..models.pore_model import PoreModelSet
 from ..models.read_builder import GLOBAL_READ_STATS
 from ..models.read_loader import load_squiggle_reads
@@ -41,6 +51,7 @@ from ..ops.profile_hmm import HAF_ALLOW_POST_CLIP, HAF_ALLOW_PRE_CLIP
 from ..utils.alphabet import DNA_ALPHABET, get_alphabet_by_name
 from ..utils.device import resolve_device
 from ..utils.native import get_native_lib
+from ..utils.profiler import profile_scope
 from .bam_processor import BamBatchProcessor
 
 HMM_FLAGS = HAF_ALLOW_PRE_CLIP | HAF_ALLOW_POST_CLIP
@@ -76,6 +87,24 @@ class ScoredSite:
     ll_unmethylated: List[float] = field(default_factory=lambda: [0.0, 0.0])
     ll_methylated: List[float] = field(default_factory=lambda: [0.0, 0.0])
     strands_scored: int = 0
+
+
+def motif_groups(motif_sites: List[int], min_separation: int
+                 ) -> List[Tuple[int, int]]:
+    """basemods.cpp:306-320: (first, end) index bounds of the maximal runs
+    of motif sites whose gaps are <= min_separation."""
+    groups = []
+    curr = 0
+    n = len(motif_sites)
+    while curr < n:
+        end = curr + 1
+        while end < n:
+            if motif_sites[end] - motif_sites[end - 1] > min_separation:
+                break
+            end += 1
+        groups.append((curr, end))
+        curr = end
+    return groups
 
 
 def _motif_group_spans(motif_arr: np.ndarray, min_separation: int):
@@ -119,6 +148,187 @@ def _spans_empty_vec(arr: np.ndarray, lo: np.ndarray, hi: np.ndarray):
         return np.ones(len(lo), bool)
     i = np.searchsorted(arr, lo, side="left")
     return (i >= len(arr)) | (arr[np.minimum(i, len(arr) - 1)] > hi)
+
+
+class _Groups:
+    """A read's strand-independent motif-group geometry (basemods.cpp:
+    273-330), shared by both collectors: the whole-read sequences and,
+    per group, its motif index span (gs, ge), first/last motif, window
+    [sub_start, sub_end], reference positions, the QC mask ok0, and
+    fast_v, true where the window's methylated ranks are a slice of the
+    whole-read methylated ranks: no recognition site straddles a window
+    boundary and no modified char in the halo outside the window could
+    bleed into its site-aware reverse complement (tests/test_alphabet.py
+    property-tests the rule); the other groups methylate their own
+    window."""
+
+    def __init__(self, ref_seq, ref_start_pos, params, region_start,
+                 region_end):
+        alphabet = params.alphabet
+        self.motif_arr = motif_arr = alphabet.motif_positions(ref_seq)
+        if len(motif_arr) == 0:
+            return
+        rl = alphabet.recognition_length
+        self.n_ref = n_ref = len(ref_seq)
+        self.rc_ref = alphabet.reverse_complement(ref_seq)
+        self.meth_ref = meth_ref = alphabet.methylate(ref_seq)
+        self.rc_meth_ref = alphabet.reverse_complement(meth_ref)
+        # positions where whole-read methylation modified a char
+        mod_pos = np.flatnonzero(
+            np.frombuffer(meth_ref.encode("ascii"), np.uint8)
+            != np.frombuffer(ref_seq.encode("ascii"), np.uint8))
+        site_halo = max(len(s) for s in alphabet.recognition_sites) - 1
+
+        self.gs, self.ge = gs, ge = _motif_group_spans(motif_arr,
+                                                       params.min_separation)
+        self.first = first = motif_arr[gs]
+        self.last = last = motif_arr[ge - 1]
+        self.sub_start = sub_start = first - params.min_flank
+        self.sub_end = sub_end = last + params.min_flank
+        ok0 = ((sub_start > params.min_separation) & (last - first <= 200)
+               & (sub_end < n_ref))
+        self.start_pos = first + ref_start_pos
+        self.end_pos = last + ref_start_pos
+        if region_start != -1:
+            ok0 &= self.start_pos >= region_start
+        if region_end != -1:
+            ok0 &= self.end_pos < region_end
+        self.ok0 = ok0
+        self.fast_v = (
+            _spans_empty_vec(motif_arr, sub_start - rl + 1, sub_start - 1)
+            & _spans_empty_vec(motif_arr, sub_end - rl + 2, sub_end)
+            & _spans_empty_vec(mod_pos, np.maximum(0, sub_start - site_halo),
+                               sub_start - 1)
+            & _spans_empty_vec(mod_pos, sub_end + 1, sub_end + site_halo))
+
+    def strand_ok(self, event_record, ref_start_pos):
+        """Per strand: each group's event bounds (e1, e2), their span d and
+        the groups that pass the event QC (d > 10, the event-to-base
+        ratio)."""
+        e1_v, e2_v, okb = _find_by_ref_bounds_vec(
+            event_record.aligned_events, self.sub_start + ref_start_pos,
+            self.sub_end + ref_start_pos)
+        d = np.abs(e2_v - e1_v)
+        ratio = d.astype(np.float64) / np.maximum(
+            self.sub_end - self.sub_start, 1)
+        ok = self.ok0 & okb & (d > 10) & ~(ratio > MAX_EVENT_TO_BP_RATIO)
+        return e1_v, e2_v, d, ok
+
+
+def collect_read_tasks(sr, record, ref_seq, ref_start_pos, params,
+                       region_start, region_end):
+    """Per-read task generation (basemods.cpp:273-380) for the object path
+    (``NPT_METH_ARRAY=0``).  Returns (segments, metas): two
+    (HMMInputSequence, EventSequence) scoring units (unmethylated,
+    methylated) per scored group, consumed by score_batch's shared
+    ScoreBatcher, and one meta dict per group."""
+    segments: List[Tuple] = []
+    metas = []
+    alphabet = params.alphabet
+    g = _Groups(ref_seq, ref_start_pos, params, region_start, region_end)
+    if len(g.motif_arr) == 0:
+        return segments, metas
+    # the unmethylated windows are slices of ref_seq, so their reverse
+    # complements and kmer ranks are slices of once-per-read arrays, as
+    # are the methylated windows' where g.fast_v holds
+    n_ref, rc_ref = g.n_ref, g.rc_ref
+    meth_ref, rc_meth_ref = g.meth_ref, g.rc_meth_ref
+    ref_ranks: Dict[int, np.ndarray] = {}
+    rc_ref_ranks: Dict[int, np.ndarray] = {}
+    meth_ranks: Dict[int, np.ndarray] = {}
+    rc_meth_ranks: Dict[int, np.ndarray] = {}
+    for strand_idx, meth_model, event_record in _scorable_strands(
+            sr, record, params):
+        k = sr.get_model_k(strand_idx)
+        rc = event_record.rc
+        e1_v, e2_v, _, ok = g.strand_ok(event_record, ref_start_pos)
+
+        if k not in ref_ranks:
+            ref_ranks[k] = alphabet.seq_to_kmer_ranks(ref_seq, k)
+            rc_ref_ranks[k] = alphabet.seq_to_kmer_ranks(rc_ref, k)
+        for gi in np.flatnonzero(ok):
+            sub_start_pos = int(g.sub_start[gi])
+            sub_end_pos = int(g.sub_end[gi])
+            e1, e2 = int(e1_v[gi]), int(e2_v[gi])
+            subseq = ref_seq[sub_start_pos:sub_end_pos + 1]
+            rc_subseq = rc_ref[n_ref - 1 - sub_end_pos:n_ref - sub_start_pos]
+
+            unmeth = HMMInputSequence(subseq, rc_subseq, alphabet)
+            nk_sub = sub_end_pos + 1 - sub_start_pos - k + 1
+            unmeth._rank_cache[(k, False)] = \
+                ref_ranks[k][sub_start_pos:sub_start_pos + nk_sub]
+            s0 = n_ref - 1 - sub_end_pos
+            unmeth._rank_cache[(k, True)] = \
+                rc_ref_ranks[k][s0:s0 + nk_sub][::-1].copy()
+            if g.fast_v[gi]:
+                m_subseq = meth_ref[sub_start_pos:sub_end_pos + 1]
+                meth = HMMInputSequence(
+                    m_subseq, rc_meth_ref[s0:n_ref - sub_start_pos],
+                    alphabet)
+                if k not in meth_ranks:
+                    meth_ranks[k] = alphabet.seq_to_kmer_ranks(meth_ref, k)
+                    rc_meth_ranks[k] = alphabet.seq_to_kmer_ranks(
+                        rc_meth_ref, k)
+                meth._rank_cache[(k, False)] = \
+                    meth_ranks[k][sub_start_pos:sub_start_pos + nk_sub]
+                meth._rank_cache[(k, True)] = \
+                    rc_meth_ranks[k][s0:s0 + nk_sub][::-1].copy()
+            else:
+                m_subseq = alphabet.methylate(subseq)
+                meth = HMMInputSequence(m_subseq,
+                                        alphabet.reverse_complement(m_subseq),
+                                        alphabet)
+            es = EventSequence(sr=sr, strand=strand_idx, rc=rc,
+                               stride=event_record.stride,
+                               event_start_idx=e1, event_stop_idx=e2)
+            segments.append((unmeth, es))
+            segments.append((meth, es))
+            site_output_start = int(g.first[gi]) - k + 1
+            site_output_end = int(g.last[gi]) + k
+            metas.append({
+                "strand_idx": strand_idx,
+                "start_position": int(g.start_pos[gi]),
+                "end_position": int(g.end_pos[gi]),
+                "n_motif": int(g.ge[gi] - g.gs[gi]),
+                "sequence": ref_seq[site_output_start:site_output_end],
+            })
+    return segments, metas
+
+
+def score_batch(tasks, device=None) -> None:
+    """The object path's scoring: every collected unit of the chunk in one
+    ScoreBatcher flush (the indexed drain, ``csrc/forward_indexed.cu`` on
+    the card) on ``device``; fills each read's site_score_map."""
+    b = ScoreBatcher(device=device)
+    index = []
+    n_units = 0
+    for t in tasks:
+        for mi in range(len(t["metas"])):
+            index.append((t, mi))
+        for hs, es in t["segments"]:
+            b.add([hs], es)
+            n_units += 1
+    if not n_units:
+        return
+    b.flush()
+    scores = b.scores
+    si = 0
+    for (t, mi) in index:
+        m = t["metas"][mi]
+        unmeth_score = float(scores[si])
+        meth_score = float(scores[si + 1])
+        si += 2
+        smap: Dict[int, ScoredSite] = t["site_score_map"]
+        pos = m["start_position"]
+        ss = smap.get(pos)
+        if ss is None:
+            ss = ScoredSite(chromosome=t["contig"], start_position=pos,
+                            end_position=m["end_position"],
+                            n_motif=m["n_motif"], sequence=m["sequence"])
+            smap[pos] = ss
+        ss.ll_unmethylated[m["strand_idx"]] = unmeth_score
+        ss.ll_methylated[m["strand_idx"]] = meth_score
+        ss.strands_scored += 1
 
 
 class _ScoreArrays:
@@ -175,59 +385,21 @@ def collect_read_tasks_arrays(sr, record, ref_seq, ref_start_pos, params,
     bounds and QC, and each group's unmethylated/methylated rank row as
     (row id, start, step) into `reg`.  Returns a list of blocks."""
     alphabet = params.alphabet
-    motif_arr = alphabet.motif_positions(ref_seq)
-    if len(motif_arr) == 0:
+    g = _Groups(ref_seq, ref_start_pos, params, region_start, region_end)
+    if len(g.motif_arr) == 0:
         return []
-    rl = alphabet.recognition_length
-    n_ref = len(ref_seq)
-    rc_ref = alphabet.reverse_complement(ref_seq)
-    meth_ref = alphabet.methylate(ref_seq)
-    rc_meth_ref = alphabet.reverse_complement(meth_ref)
+    n_ref, rc_ref = g.n_ref, g.rc_ref
+    meth_ref, rc_meth_ref = g.meth_ref, g.rc_meth_ref
+    sub_start, sub_end = g.sub_start, g.sub_end
     ref_rank_ids: Dict[Tuple[int, bool], int] = {}
     meth_rank_ids: Dict[Tuple[int, bool], int] = {}
-    # positions where whole-read methylation modified a char
-    mod_pos = np.flatnonzero(
-        np.frombuffer(meth_ref.encode("ascii"), np.uint8)
-        != np.frombuffer(ref_seq.encode("ascii"), np.uint8))
-    site_halo = max(len(s) for s in alphabet.recognition_sites) - 1
-
-    gs, ge = _motif_group_spans(motif_arr, params.min_separation)
-    first = motif_arr[gs]
-    last = motif_arr[ge - 1]
-    sub_start = first - params.min_flank
-    sub_end = last + params.min_flank
-    ok0 = ((sub_start > params.min_separation) & (last - first <= 200)
-           & (sub_end < n_ref))
-    start_position_v = first + ref_start_pos
-    end_position_v = last + ref_start_pos
-    if region_start != -1:
-        ok0 &= start_position_v >= region_start
-    if region_end != -1:
-        ok0 &= end_position_v < region_end
-    # a group's methylated ranks are a slice of the whole-read methylated
-    # ranks unless a recognition site straddles a window boundary or a
-    # modified char in the halo outside the window could bleed into the
-    # window's site-aware reverse complement; those groups methylate
-    # their own window (tests/test_alphabet.py property-tests the rule)
-    fast_v = (_spans_empty_vec(motif_arr, sub_start - rl + 1, sub_start - 1)
-              & _spans_empty_vec(motif_arr, sub_end - rl + 2, sub_end)
-              & _spans_empty_vec(mod_pos,
-                                 np.maximum(0, sub_start - site_halo),
-                                 sub_start - 1)
-              & _spans_empty_vec(mod_pos, sub_end + 1,
-                                 sub_end + site_halo))
 
     blocks = []
     for strand_idx, meth_model, event_record in _scorable_strands(
             sr, record, params):
         k = sr.get_model_k(strand_idx)
         rc = event_record.rc
-        e1_v, e2_v, okb = _find_by_ref_bounds_vec(
-            event_record.aligned_events, sub_start + ref_start_pos,
-            sub_end + ref_start_pos)
-        d = np.abs(e2_v - e1_v)
-        ratio = d.astype(np.float64) / np.maximum(sub_end - sub_start, 1)
-        ok = ok0 & okb & (d > 10) & ~(ratio > MAX_EVENT_TO_BP_RATIO)
+        e1_v, e2_v, d, ok = g.strand_ok(event_record, ref_start_pos)
         idx = np.flatnonzero(ok)
         if len(idx) == 0:
             continue
@@ -251,7 +423,7 @@ def collect_read_tasks_arrays(sr, record, ref_seq, ref_start_pos, params,
             rstep = 1
         rm_src = np.empty(len(idx), np.int64)
         rm_start = np.empty(len(idx), np.int64)
-        fast = fast_v[idx]
+        fast = g.fast_v[idx]
         if fast.any():
             mi = meth_rank_ids.get(rkey)
             if mi is None:
@@ -282,11 +454,11 @@ def collect_read_tasks_arrays(sr, record, ref_seq, ref_start_pos, params,
             "rm_src": rm_src,
             "rm_start": rm_start,
             "nk": nk,
-            "start_pos": start_position_v[idx],
-            "end_pos": end_position_v[idx],
-            "n_motif": ge[idx] - gs[idx],
-            "seq_lo": first[idx] - k + 1,
-            "seq_hi": last[idx] + k,
+            "start_pos": g.start_pos[idx],
+            "end_pos": g.end_pos[idx],
+            "n_motif": g.ge[idx] - g.gs[idx],
+            "seq_lo": g.first[idx] - k + 1,
+            "seq_hi": g.last[idx] + k,
         })
     return blocks
 
@@ -419,8 +591,9 @@ def score_batch_arrays(tasks, reg: _ScoreArrays, device=None):
     nk2 = np.tile(nk, 2).astype(np.int32)
     epb2 = np.tile(epb, 2)
     flags = np.full(2 * G, HMM_FLAGS, np.int32)
-    fetch = forward_arrays_async(levels_mat, nev2, mu_mat, sig_mat, nk2,
-                                 epb2, flags, device=device)
+    with profile_scope("meth.drain_dispatch"):
+        fetch = forward_arrays_async(levels_mat, nev2, mu_mat, sig_mat, nk2,
+                                     epb2, flags, device=device)
     return _make_resolver(tasks, fetch, G)
 
 
@@ -641,6 +814,22 @@ def write_site_header(fp: TextIO):
              "num_calling_strands\tnum_motifs\tsequence\n")
 
 
+def write_read_sites(fp: TextIO, record, site_score_map):
+    """call_methylation.cpp:532-550 with identical formats, from the object
+    path's ScoredSite map."""
+    orientation = "-" if record.is_reverse else "+"
+    for pos in sorted(site_score_map):
+        ss = site_score_map[pos]
+        sum_ll_m = ss.ll_methylated[0] + ss.ll_methylated[1]
+        sum_ll_u = ss.ll_unmethylated[0] + ss.ll_unmethylated[1]
+        diff = sum_ll_m - sum_ll_u
+        fp.write(f"{ss.chromosome}\t{orientation}\t{ss.start_position}\t"
+                 f"{ss.end_position}\t")
+        fp.write(f"{record.qname}\t{diff:.2f}\t")
+        fp.write(f"{sum_ll_m:.2f}\t{sum_ll_u:.2f}\t")
+        fp.write(f"{ss.strands_scored}\t{ss.n_motif}\t{ss.sequence}\n")
+
+
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="nanopolish_tpu_torch call-methylation",
@@ -831,6 +1020,12 @@ def _call_single(opt, out, device):
         bam_writer = BamWriter(opt.modbam_output_name, proc.header_text,
                                proc.references, proc.reader.lengths)
 
+    # NPT_METH_ARRAY=0 takes the object path (per-window HMMInputSequence
+    # pairs through ScoreBatcher's indexed drain), NPT_METH_NATIVE=0 the
+    # array path's NumPy geometry instead of csrc/meth_geometry.cpp
+    use_array = os.environ.get("NPT_METH_ARRAY", "1") != "0"
+    use_native = os.environ.get("NPT_METH_NATIVE", "1") != "0"
+
     def build_task(item, reads, reg):
         read_idx, rec = item
         sr = reads.get(rec.qname)
@@ -839,41 +1034,57 @@ def _call_single(opt, out, device):
         contig = proc.references[rec.tid]
         ref_seq = DNA_ALPHABET.disambiguate(
             fai.fetch(contig, rec.pos, rec.reference_end() + 1).upper())
+        t = {"record": rec, "contig": contig, "ref_seq": ref_seq}
+        if reg is None:
+            t["segments"], t["metas"] = collect_read_tasks(
+                sr, rec, ref_seq, rec.pos, params, region_start, region_end)
+            t["site_score_map"] = {}
+            return t
         blocks = collect_read_tasks_native(
-            sr, rec, ref_seq, rec.pos, params, region_start, region_end, reg)
+            sr, rec, ref_seq, rec.pos, params, region_start, region_end,
+            reg) if use_native else None
         if blocks is None:
             blocks = collect_read_tasks_arrays(
                 sr, rec, ref_seq, rec.pos, params, region_start, region_end,
                 reg)
-        return {"record": rec, "contig": contig, "ref_seq": ref_seq,
-                "blocks": blocks}
+        t["blocks"] = blocks
+        return t
 
     def load_and_build(records):
         """Loader-thread stage: signal load + ingest, then task geometry."""
         names = sorted({rec.qname for _, rec in records})
         reads = load_squiggle_reads(names, read_db, stats=GLOBAL_READ_STATS,
                                     num_threads=opt.threads, device=device)
-        reg = _ScoreArrays()
-        built = [build_task(item, reads, reg) for item in records]
+        reg = _ScoreArrays() if use_array else None
+        with profile_scope("meth.collect"):
+            built = [build_task(item, reads, reg) for item in records]
         return [t for t in built if t is not None], reg
 
     def write_tasks(tasks):
-        for t in tasks:
-            write_read_sites_cols(out, t["record"], t)
-            if bam_writer is None:
-                continue
-            smap = site_cols_to_map(t)
-            if opt.modbam_style == "read":
-                rec = create_modbam_record(t["record"], smap, params.alphabet)
-            else:
-                rec = create_reference_modbam_record(
-                    fai, t["contig"], t["record"], smap, params.alphabet)
-            bam_writer.write(rec)
+        with profile_scope("meth.write"):
+            for t in tasks:
+                if use_array:
+                    write_read_sites_cols(out, t["record"], t)
+                    smap = site_cols_to_map(t) \
+                        if bam_writer is not None else None
+                else:
+                    smap = t["site_score_map"]
+                    write_read_sites(out, t["record"], smap)
+                if bam_writer is None:
+                    continue
+                if opt.modbam_style == "read":
+                    rec = create_modbam_record(t["record"], smap,
+                                               params.alphabet)
+                else:
+                    rec = create_reference_modbam_record(
+                        fai, t["contig"], t["record"], smap, params.alphabet)
+                bam_writer.write(rec)
 
     # Chunks load (signal, ingest, geometry) on loader threads with a
-    # bounded lookahead; this thread issues each chunk's Forward sweep and
-    # a fetch thread resolves it, so a chunk's scoring overlaps the next
-    # chunks' loading.  Output stays in BAM order within each batch.
+    # bounded lookahead; on the array path this thread issues each chunk's
+    # Forward sweep and a fetch thread resolves it, so a chunk's scoring
+    # overlaps the next chunks' loading; the object path scores each chunk
+    # here.  Output stays in BAM order within each batch.
     write_site_header(out)
     with ThreadPoolExecutor(LOADERS) as ing_pool, \
             ThreadPoolExecutor(2) as fetch_pool:
@@ -887,9 +1098,10 @@ def _call_single(opt, out, device):
             def drain(block: bool) -> None:
                 while done:
                     tasks, fut = done[0]
-                    if not block and not fut.done():
-                        return
-                    fut.result()
+                    if fut is not None:
+                        if not block and not fut.done():
+                            return
+                        fut.result()
                     done.popleft()
                     write_tasks(tasks)
 
@@ -898,8 +1110,14 @@ def _call_single(opt, out, device):
                 if ci + LOOKAHEAD < len(subs):
                     ing_futs.append(ing_pool.submit(
                         load_and_build, subs[ci + LOOKAHEAD]))
-                resolve = score_batch_arrays(tasks, reg, device=device)
-                done.append((tasks, fetch_pool.submit(resolve)))
+                if use_array:
+                    with profile_scope("meth.drain_prep"):
+                        resolve = score_batch_arrays(tasks, reg,
+                                                     device=device)
+                    done.append((tasks, fetch_pool.submit(resolve)))
+                else:
+                    score_batch(tasks, device=device)
+                    done.append((tasks, None))
                 drain(block=False)
             drain(block=True)
     if bam_writer is not None:

@@ -25,6 +25,7 @@ from ..models.read_builder import GLOBAL_READ_STATS, SRF_LOAD_RAW_SAMPLES
 from ..models.read_loader import load_squiggle_reads
 from ..models.squiggle import SquiggleRead
 from ..utils.device import resolve_device
+from ..utils.profiler import profile_scope
 from .bam_processor import BamBatchProcessor
 
 
@@ -359,29 +360,30 @@ def main(argv: Optional[List[str]] = None, stdout: Optional[TextIO] = None):
         results = align_reads_to_ref(jobs, fai, proc.references,
                                      region_start, region_end,
                                      columnar=True, device=device)
-        for (sr, rec, strand, read_idx), cols in zip(meta, results):
-            alignment = None          # row materialization, on demand only
-            if opt.sam:
-                alignment = cols.to_rows() if cols is not None else []
-                emit_event_alignment_sam(out, sr, rec, proc.references,
-                                         alignment)
-            elif cols is not None:
-                emit_event_alignment_tsv_cols(
-                    out, sr, strand, cols, opt.print_read_names,
-                    opt.scale_events, opt.signal_index, opt.samples)
-            if summary_fp is not None and cols is not None and len(cols):
-                if alignment is None:
-                    alignment = cols.to_rows()
-                s = summarize_alignment(sr, strand, alignment, rec)
-                sc = sr.scalings[strand]
-                model = sr.base_model[strand]
-                summary_fp.write(
-                    f"{read_idx}\t{sr.read_name}\t{sr.fast5_path}\t"
-                    f"{model.name}\t"
-                    f"{'template' if strand == 0 else 'complement'}\t"
-                    f"{s.num_events}\t{s.num_steps}\t{s.num_skips}\t"
-                    f"{s.num_stays}\t{s.sum_duration:.2f}\t{sc.shift:.3f}\t"
-                    f"{sc.scale:.3f}\t{sc.drift:.3f}\t{sc.var:.3f}\n")
+        with profile_scope("ea.emit"):
+            for (sr, rec, strand, read_idx), cols in zip(meta, results):
+                alignment = None      # row materialization, on demand only
+                if opt.sam:
+                    alignment = cols.to_rows() if cols is not None else []
+                    emit_event_alignment_sam(out, sr, rec, proc.references,
+                                             alignment)
+                elif cols is not None:
+                    emit_event_alignment_tsv_cols(
+                        out, sr, strand, cols, opt.print_read_names,
+                        opt.scale_events, opt.signal_index, opt.samples)
+                if summary_fp is not None and cols is not None and len(cols):
+                    if alignment is None:
+                        alignment = cols.to_rows()
+                    s = summarize_alignment(sr, strand, alignment, rec)
+                    sc = sr.scalings[strand]
+                    model = sr.base_model[strand]
+                    summary_fp.write(
+                        f"{read_idx}\t{sr.read_name}\t{sr.fast5_path}\t"
+                        f"{model.name}\t"
+                        f"{'template' if strand == 0 else 'complement'}\t"
+                        f"{s.num_events}\t{s.num_steps}\t{s.num_skips}\t"
+                        f"{s.num_stays}\t{s.sum_duration:.2f}\t{sc.shift:.3f}\t"
+                        f"{sc.scale:.3f}\t{sc.drift:.3f}\t{sc.var:.3f}\n")
 
     if summary_fp:
         summary_fp.close()

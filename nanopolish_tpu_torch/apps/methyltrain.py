@@ -34,6 +34,7 @@ from ..models.read_builder import GLOBAL_READ_STATS
 from ..models.read_loader import load_squiggle_reads
 from ..ops.mixture_em import train_gaussian_mixture_batched
 from ..utils.device import resolve_device
+from ..utils.syncstats import timed_fetch
 from .bam_processor import BamBatchProcessor
 from .scorereads import read_model_scores
 
@@ -365,7 +366,7 @@ def retrain_model_from_events(model: PoreModel, summaries,
         fit = train_gaussian_mixture_batched(
             *training_inputs(model, summaries, idx, is_m, kmers),
             device=device)
-        fetched = torch.cat([fit.means[:, 0], fit.stdvs[:, 0]]).cpu().numpy()
+        fetched = timed_fetch(torch.cat([fit.means[:, 0], fit.stdvs[:, 0]]))
         new_mean[idx] = fetched[:idx.size]
         new_stdv[idx] = fetched[idx.size:]
 

@@ -28,6 +28,7 @@ from ..ops import event_detect
 from ..ops.banded_exact import banded_align_exact
 from ..utils.alphabet import DNA_ALPHABET
 from ..utils.device import resolve_device
+from ..utils.syncstats import timed_fetch
 
 MIN_VALUES_TO_UPDATE = 10
 MIN_STDV = 0.5
@@ -74,9 +75,8 @@ def _align_and_collect(reads, model, k, device=None) -> List[np.ndarray]:
         nev[i] = len(et)
         nk[i] = len(ranks)
     res = banded_align_exact(ev, nev, mu, sd, np.log(sd), nk, device=device)
-    b2e_start = res.b2e_start.cpu().numpy()
-    b2e_stop = res.b2e_stop.cpu().numpy()
-    failed = res.failed.cpu().numpy()
+    b2e_start, b2e_stop, failed = (
+        timed_fetch(x) for x in (res.b2e_start, res.b2e_stop, res.failed))
 
     # every (read, kmer, event) of the base->event maps, in row-major order
     kmer_ok = (np.arange(b2e_start.shape[1])[None, :] < nk[:, None]) \

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 from typing import Dict, List, Optional, Sequence, TextIO, Tuple
 
@@ -49,6 +50,7 @@ from ..ops.profile_hmm_indexed import forward_indexed_scores
 from ..utils.alphabet import DNA_ALPHABET, get_alphabet_by_name
 from ..utils.device import resolve_device
 from ..utils.logsum import logsum_mode
+from ..utils.profiler import profile_scope
 
 ALIGNMENT_FLAGS = HAF_ALLOW_PRE_CLIP | HAF_ALLOW_POST_CLIP
 
@@ -309,9 +311,11 @@ def score_variants_batched_arrays(variant_jobs, indel_bias: float = 1.0,
     trans_u = make_transitions(epb_arr, indel_bias, **(probs or {}))
 
     def score_ids(ids):
-        return forward_indexed_scores(levels_u, n_ev_u, tabs, rank_mat,
-                                      n_km_u, trans_u, ids, ALIGNMENT_FLAGS,
-                                      device=dev, logsum=logsum_mode())
+        with profile_scope("va.score_ids"):
+            return forward_indexed_scores(levels_u, n_ev_u, tabs, rank_mat,
+                                          n_km_u, trans_u, ids,
+                                          ALIGNMENT_FLAGS, device=dev,
+                                          logsum=logsum_mode())
 
     # ---- geometric chunk loop (the object path's schedule and order) ----
     max_events = max(len(job_evlist[ji]) for ji in alive)
@@ -467,11 +471,13 @@ def score_variants_batched(variant_jobs, methylation_types,
 
 def _screen_scores(jobs, alignments, opts) -> List[float]:
     """Screening: the array path for plain nucleotide scoring over fresh
-    haplotypes, the object path otherwise (methylation alternatives)."""
+    haplotypes, the object path otherwise (methylation alternatives, or
+    every screen under ``NPT_VAR_ARRAY=0``)."""
     kw = dict(screen_threshold=opts.screen_score_threshold,
               total_memo=_job_total_memo(alignments), device=opts.device,
               probs=opts.probs())
-    if not opts.methylation_types:
+    if not opts.methylation_types and \
+            os.environ.get("NPT_VAR_ARRAY", "1") != "0":
         scores = score_variants_batched_arrays(jobs, opts.indel_bias, **kw)
         if scores is not None:
             return scores
@@ -1049,8 +1055,9 @@ def call_variants_for_region(contig: str, region_start: int, region_end: int,
                               and region_start <= v.ref_position <= region_end]
 
     if opts.consensus_mode:
-        sbe = generate_candidate_single_base_edits(
-            alignments, region_start, region_end, opts)
+        with profile_scope("var.sbe_screen"):
+            sbe = generate_candidate_single_base_edits(
+                alignments, region_start, region_end, opts)
         candidate_variants = dedup_sorted(candidate_variants + sbe)
     if opts.verbose:
         print(f"[variants] {contig}:{region_start}-{region_end}: "
@@ -1066,10 +1073,12 @@ def call_variants_for_region(contig: str, region_start: int, region_end: int,
                                               opts)
     last_keys: set = set()
     for round_i in range(opts.max_rounds):
-        filtered = screen_variants_by_score(alignments, candidate_variants,
-                                            opts)
-        called_haplotype = call_haplotype_from_candidates(alignments,
-                                                          filtered, opts)
+        with profile_scope("var.screen"):
+            filtered = screen_variants_by_score(alignments,
+                                                candidate_variants, opts)
+        with profile_scope("var.call_group"):
+            called_haplotype = call_haplotype_from_candidates(alignments,
+                                                              filtered, opts)
         called_variants = called_haplotype.get_variants()
         this_keys = {v.key() for v in called_variants}
         changed = this_keys != last_keys
@@ -1080,8 +1089,9 @@ def call_variants_for_region(contig: str, region_start: int, region_end: int,
                   file=sys.stderr)
         if not changed:
             break
-        candidate_variants = expand_variants(alignments, called_variants,
-                                             opts)
+        with profile_scope("var.expand"):
+            candidate_variants = expand_variants(alignments, called_variants,
+                                                 opts)
     if opts.fix_homopolymers:
         called_haplotype = fix_homopolymers(called_haplotype, alignments,
                                             opts)

@@ -16,6 +16,7 @@ import torch
 from ..ops.scaling import recalibrate
 from .pore_model import PoreModel
 from ..utils.device import resolve_device
+from ..utils.syncstats import timed_fetch
 from .squiggle import SquiggleRead, SquiggleScalings
 
 MIN_EVENTS_TO_RESCALE = 200
@@ -90,8 +91,9 @@ def _solve_and_update(sr, strand_idx, levels, t, mu, sd, mask, scale_var,
     res = recalibrate(*(torch.as_tensor(x, device=dev)
                         for x in (levels, t, mu, sd, mask)),
                       scale_var=scale_var, scale_drift=scale_drift)
-    vals = torch.stack([res.shift[0], res.scale[0], res.drift[0], res.var[0],
-                        res.recalibrated[0].to(torch.float32)]).cpu().numpy()
+    vals = timed_fetch(torch.stack([res.shift[0], res.scale[0], res.drift[0],
+                                    res.var[0],
+                                    res.recalibrated[0].to(torch.float32)]))
     if vals[4] == 0.0:
         return False
     sr.scalings[strand_idx] = SquiggleScalings.from4(*(float(v) for v in vals[:4]))

@@ -15,6 +15,7 @@ tools/import_models.py from the published ONT model tables).
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -149,6 +150,9 @@ class PoreModel:
         )
 
 
+_BUILTIN_LOCK = threading.Lock()
+
+
 class PoreModelSet:
     """Registry of pore models keyed by (kit, alphabet, strand, k).
 
@@ -173,9 +177,17 @@ class PoreModelSet:
         cls._instance = None
 
     def _ensure_builtin(self):
+        # loader threads can make the first lookup together: the flag goes
+        # up only once every built-in model is in, under a lock, so none of
+        # them sees a half-filled registry
         if self._builtin_loaded:
             return
-        self._builtin_loaded = True
+        with _BUILTIN_LOCK:
+            if not self._builtin_loaded:
+                self._load_builtin()
+                self._builtin_loaded = True
+
+    def _load_builtin(self):
         if not os.path.exists(BUILTIN_NPZ):
             return
         data = np.load(BUILTIN_NPZ, allow_pickle=False)

@@ -27,6 +27,7 @@ import torch
 from ..ops import event_detect
 from ..ops.ingest_fused import ingest_align_recalibrate_async
 from ..utils.device import resolve_device
+from ..utils.profiler import profile_scope
 from .pore_model import PoreModel, PoreModelSet
 from .squiggle import (
     MAX_EVENTS_PER_BASE,
@@ -190,7 +191,8 @@ def build_reads(
     for lo in range(0, len(work), max_batch):
         chunks.extend(_split_for_hbm(work[lo : lo + max_batch]))
     for c in chunks:
-        _finish_chunk(c, _dispatch_chunk(c, dev), results, stats)
+        with profile_scope("read_builder.process_chunk"):
+            _finish_chunk(c, _dispatch_chunk(c, dev), results, stats)
     return results
 
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.syncstats import SYNC_STATS, timed_fetch
 from .banded_align import emission_constant, transition_params_f32
 from .banded_exact import align_prepared
 from .scaling import estimate_scalings_mom, mstate_events_batch, recalibrate
@@ -107,7 +108,7 @@ def ingest_align_recalibrate_async(ev_mean, ev_time, n_events, lvl_mean,
                       res.failed.to(torch.int32)[:, None],
                       floats.view(torch.int32)], dim=1)
     if dev.type == "cpu":
-        return lambda: IngestResult(wire.numpy(), K)
+        return lambda: IngestResult(timed_fetch(wire), K)
     # the copy is queued behind the chunk's work; the device tensors may go
     # (the caching allocator hands their memory only to later work on this
     # stream)
@@ -117,7 +118,8 @@ def ingest_align_recalibrate_async(ev_mean, ev_time, n_events, lvl_mean,
     ready.record()
 
     def resolve() -> IngestResult:
-        ready.synchronize()
+        with SYNC_STATS.sync(host.numel() * host.element_size()):
+            ready.synchronize()
         return IngestResult(host.numpy(), K)
 
     return resolve

@@ -22,6 +22,7 @@ import torch
 
 from ..utils import cuda_build
 from ..utils.logsum import logsum_mode, logsum_table
+from ..utils.syncstats import timed_fetch
 from .profile_hmm import _CLIP_BASE, _CLIP_STEP, _LOG1M_CLIP, forward_fill_plain
 from .profile_hmm_viterbi import fill_geometry, prepare_viterbi_inputs
 
@@ -123,4 +124,4 @@ def profile_hmm_forward(levels, n_events, mu, sigma, n_kmers,
     x = prepare_forward_inputs(levels, n_events, mu, sigma, n_kmers,
                                events_per_base, flags, indel_bias, trans,
                                device=device)
-    return forward_scores(x, logsum_mode()).cpu().numpy()
+    return timed_fetch(forward_scores(x, logsum_mode()))

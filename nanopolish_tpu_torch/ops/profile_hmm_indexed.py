@@ -37,6 +37,7 @@ import torch
 
 from ..utils import cuda_build
 from ..utils.device import resolve_device
+from ..utils.syncstats import timed_fetch
 from .profile_hmm import (_CLIP_BASE, _CLIP_STEP, _LOG1M_CLIP,
                           HAF_ALLOW_POST_CLIP, HAF_ALLOW_PRE_CLIP, PAD_C,
                           forward_indexed_plain, gather_indexed)
@@ -276,5 +277,5 @@ def forward_indexed_scores(levels_u, n_ev_u, tabs, rank_mat, n_km_u,
         pending = run_flush_table(tens, ids_t, clips_t, launches, t_max)
     else:
         pending = run_flush(tens, ids_t, clips_t, launches)
-    out[order] = torch.cat(pending).cpu().numpy()
+    out[order] = timed_fetch(torch.cat(pending))
     return out

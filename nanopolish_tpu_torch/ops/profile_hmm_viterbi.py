@@ -20,6 +20,7 @@ import torch
 
 from ..utils import cuda_build
 from ..utils.device import resolve_device
+from ..utils.syncstats import timed_fetch
 from .banded_align import emission_constant
 from .profile_hmm import (_CLIP_BASE, _CLIP_STEP, _LOG1M_CLIP,
                           HAF_ALLOW_POST_CLIP, HAF_ALLOW_PRE_CLIP,
@@ -277,4 +278,4 @@ def profile_hmm_viterbi_align(levels, n_events, mu, sigma, n_kmers,
     x = prepare_viterbi_inputs(levels, n_events, mu, sigma, n_kmers,
                                events_per_base, flags, indel_bias, trans,
                                device=device)
-    return paths_to_segments(viterbi_paths(x).cpu().numpy())
+    return paths_to_segments(timed_fetch(viterbi_paths(x)))

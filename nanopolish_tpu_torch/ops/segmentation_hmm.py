@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.syncstats import timed_fetch
 
 S, L, A, P, C, T = range(6)
 NEG = -1.0e30
@@ -376,7 +377,7 @@ def segment_reads(samples_list: List[np.ndarray], scalings_list,
         smp = dwire[o:o + N * (hi - lo)].view(N, hi - lo)
         bptr, _ = seg_viterbi_fill(smp, n_dev[lo:hi], scal[lo:hi], consts)
         seg_backtrack(bptr, n_dev[lo:hi], out=summary[lo:hi])
-    summ = summary.cpu().numpy()
+    summ = timed_fetch(summary)
     out: List[Segmentation] = [None] * B
     for j, i in enumerate(order):
         out[i] = segmentation_from_summary(summ[j], int(lens[i]))

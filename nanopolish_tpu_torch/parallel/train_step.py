@@ -39,6 +39,7 @@ from ..ops.scaling import estimate_scalings_mom, mstate_events_batch, recalibrat
 from ..ops.training import KmerMoments, gaussian_update, kmer_moments, psum_moments
 from ..utils.device import resolve_device
 from ..utils.logsum import logsum_mode
+from ..utils.syncstats import timed_fetch
 from .distributed import all_gather, all_reduce
 from .mesh import Mesh, model_rows
 
@@ -66,7 +67,7 @@ def _gather_model(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    return timed_fetch(t)
 
 
 def _train_step_body(level_mean, level_stdv, batch: TrainBatch, mesh: Mesh,

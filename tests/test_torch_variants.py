@@ -598,3 +598,34 @@ def test_consensus_gpu_matches_cpu(golden_pipe, cuda_device):
                 stdout=out)
         outs[dev] = out.getvalue()
     assert_agree(outs["cuda"], outs["cpu"], "variants --consensus")
+
+
+def test_var_array_switch_matches_array_path_and_jax(golden_pipe,
+                                                     monkeypatch):
+    """NPT_VAR_ARRAY=0 screens every candidate through the object path
+    (ScoreBatcher's indexed drain) instead of the array path: the same
+    VCF as the default, and the JAX app's under the same switch."""
+    from nanopolish_tpu.apps import variants as jax_va
+    args = _args(golden_pipe, "tig1:0-299") + ["--consensus", "-d", "5"]
+    arrays = []
+    real = va.score_variants_batched_arrays
+
+    def spy(*a, **k):
+        arrays.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(va, "score_variants_batched_arrays", spy)
+    got = {}
+    for mode in ("1", "0"):
+        monkeypatch.setenv("NPT_VAR_ARRAY", mode)
+        n = len(arrays)
+        out = io.StringIO()
+        va.main(args + ["--device", "cpu"], stdout=out)
+        got[mode] = out.getvalue()
+        assert (len(arrays) > n) == (mode == "1")
+    assert got["0"] == got["1"] and "\tPASS\t" in got["0"]
+    want = io.StringIO()
+    jax_va.main(args, stdout=want)
+    rep = assert_agree(got["0"], want.getvalue(),
+                       "variants --consensus NPT_VAR_ARRAY=0")
+    assert rep["flips"] == 0
