@@ -170,6 +170,21 @@ Phases (any failure exits non-zero; nothing is caught):
      timed run (timed_run, also under profiled_run) logs its sync
      accounting (utils/syncstats: fetches, seconds blocked in them,
      bytes) beside its wall;
+  6e. options the card had not run, each under torch.profiler and held to
+     a fifth process's --device cpu run of the same command (started
+     after the kernel build, at nice 10): `variants -c`, `--genotype`
+     (a sorted candidate VCF: the planted edits and decoys),
+     `--consensus --faster`, `-c -q cpg` and `--consensus -q cpg` on a
+     2 kb window of utils/synthetic.build_methylated_variants_corpus (20
+     reads x 1 kb of cpg-methylated signal, depth ~10, a substitution at
+     a CpG site and one away every 300 bases; under -q cpg the indexed
+     Forward takes the 4,096- and 15,625-kmer tables in one [3, R, 15625]
+     stack, its R and S logged), `call-methylation -q gpc`, `-q dam` and
+     `-q dcm` and `eventalign --samples --signal-index --scale-events` on
+     the first 8 reads of phase 6's corpora; eventalign byte for byte,
+     the others under the printed-output rule with no call flipped; one
+     `options_paths` JSON line (per run: wall, sync accounting, card busy
+     time, and per kernel the launches made and recorded and path ms);
   7. one JSON line describing each kernel (with `path_ms`, its summed
      device time in one run of its own main path, beside the launches
      made and those torch.profiler recorded), then the result line.
@@ -202,6 +217,11 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 
 # the main path's corpus: reads x bases from a synthetic genome
 MAIN_READS, MAIN_READ_LEN, MAIN_GENOME_LEN = 64, 8000, 100_000
+# phase 6e: the options' variants window (OPT_READS reads of OPT_READ_LEN:
+# depth ~10), and how many of phase 6's reads its other runs take
+OPT_WINDOW, OPT_READS, OPT_READ_LEN = 2000, 20, 1000
+OPT_MAIN_READS = 8
+OPT_METH_TYPES = ("gpc", "dam", "dcm")
 # Forward kernel check: call-methylation-shaped and scorereads-shaped
 FWD_SEGMENTS, FWD_LONG = 2048, 64
 # one batch at each row layout of the profile-HMM fills (row_layout);
@@ -4149,6 +4169,249 @@ def phase_last_routes(dev, meth_corpus, sc, scale):
     return rec
 
 
+# ------------------------------------------------- phase 6e: the options --
+
+def options_variants_corpus(d):
+    """utils/synthetic.build_methylated_variants_corpus over OPT_WINDOW
+    bases (OPT_READS reads of OPT_READ_LEN: depth ~10; cpg-methylated
+    signal, a substitution at a CpG site and one away every 300 bases),
+    with cands.vcf: the planted edits' true alleles and, 50 bases after
+    every other edit, a substitution the reads do not carry, sorted by
+    position."""
+    from nanopolish_tpu_torch.utils.synthetic import \
+        build_methylated_variants_corpus
+    c = build_methylated_variants_corpus(d, genome_len=OPT_WINDOW,
+                                         n_reads=OPT_READS,
+                                         read_len=OPT_READ_LEN)
+    draft, truth = c["draft"], c["truth"]
+    c["records"] = sorted(
+        [(p, draft[p], truth[p]) for p in c["edits"]] +
+        [(p + 50, draft[p + 50], SUB[draft[p + 50]])
+         for p in c["edits"][::2]])
+    c["cands"] = os.path.join(d, "cands.vcf")
+    with open(c["cands"], "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n"
+                 "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        for p, ref, alt in c["records"]:
+            fh.write(f"tig1\t{p + 1}\t.\t{ref}\t{alt}\t.\tPASS\t.\n")
+    return c
+
+
+def options_runs(var, ea_files, meth_files):
+    """Phase 6e's runs, card and cpu alike: (name, app, argv, comparison
+    rule, the kernels it must launch, the kernel whose recorded launches
+    the phase requires).  ea_files and meth_files are phase 6's
+    eventalign and call-methylation corpora (ref, fastq, bam), of which
+    the runs take the first OPT_MAIN_READS records."""
+    v_args = ["-r", var["fastq"], "-b", var["bam"], "-g", var["draft_fa"],
+              "-w", f"tig1:0-{OPT_WINDOW - 1}"]
+    first = ["--max-reads", str(OPT_MAIN_READS)]
+    banded = ("banded_fill", "banded_backtrack")
+    indexed = banded + ("forward_indexed",)
+    runs = [
+        ("variants -c", "variants", v_args + ["-c", var["cands"]],
+         "printed", indexed, "forward_indexed"),
+        ("variants --genotype", "variants",
+         v_args + ["--genotype", var["cands"]], "printed", indexed,
+         "forward_indexed"),
+        ("variants --consensus --faster", "variants",
+         v_args + ["--consensus", "--faster", "-d", "10"], "printed",
+         indexed, "forward_indexed"),
+        ("variants -c -q cpg", "variants",
+         v_args + ["-c", var["cands"], "-q", "cpg"], "printed", indexed,
+         "forward_indexed"),
+        ("variants --consensus -q cpg", "variants",
+         v_args + ["--consensus", "-d", "10", "-q", "cpg"], "printed",
+         indexed, "forward_indexed")]
+    m_args = ["-r", meth_files[1], "-b", meth_files[2], "-g", meth_files[0]]
+    for mtype in OPT_METH_TYPES:
+        runs.append((f"call-methylation -q {mtype}", "call_methylation",
+                     m_args + first + ["-q", mtype], "methylation",
+                     banded + ("forward_fill",), "forward_fill"))
+    runs.append(("eventalign --samples --signal-index --scale-events",
+                 "eventalign",
+                 ["-r", ea_files[1], "-b", ea_files[2], "-g", ea_files[0]]
+                 + first + ["--samples", "--signal-index", "--scale-events"],
+                 "identical", banded + ("viterbi_fill", "viterbi_backtrack",
+                                        "chain_step"), "viterbi_fill"))
+    return runs
+
+
+def run_option(run, dev_type):
+    """One phase 6e run on dev_type; returns its standard output."""
+    import importlib
+    _, app, argv, _, _, _ = run
+    mod = importlib.import_module(f"nanopolish_tpu_torch.apps.{app}")
+    buf = io.StringIO()
+    mod.main(argv + ["--device", dev_type], stdout=buf)
+    return buf.getvalue()
+
+
+def start_cpu_options(var):
+    """Phase 6e's --device cpu runs (--cpu-options DIR)."""
+    return start_cpu_process("--cpu-options", os.path.join(WORK,
+                                                           "options_cpu"),
+                             "corpus.json", var)
+
+
+def cpu_options_run(d) -> int:
+    """--cpu-options DIR: phase 6e's runs on the cpu, on the main process's
+    variants corpus and on this process's own copies of phase 6's
+    corpora (build_main_corpus is seeded), each output saved under DIR as
+    cpu.<i>.txt for the main process."""
+    import torch
+    sys.path.insert(0, ROOT)
+    os.nice(10)
+    torch.set_num_threads(CPU_SCALE_THREADS)
+    with open(os.path.join(d, "corpus.json")) as fh:
+        var = json.load(fh)
+    ea_files = build_main_corpus(os.path.join(d, "main"))
+    meth_files = build_main_corpus(os.path.join(d, "main_meth"),
+                                   main_methylated())
+    secs = []
+    for i, run in enumerate(options_runs(var, ea_files, meth_files)):
+        t0 = time.perf_counter()
+        text = run_option(run, "cpu")
+        secs.append(round(time.perf_counter() - t0, 2))
+        with open(os.path.join(d, f"cpu.{i}.txt"), "w") as fh:
+            fh.write(text)
+    with open(os.path.join(d, "cpu_seconds.json"), "w") as fh:
+        json.dump(secs, fh)
+    return 0
+
+
+@contextlib.contextmanager
+def table_stacks():
+    """The [3, R, S] table stacks every indexed Forward drain takes while
+    the block runs (variants' array screening and ScoreBatcher's flush):
+    yields a list of (R, S)."""
+    from nanopolish_tpu_torch.alignment import segments
+    from nanopolish_tpu_torch.apps import variants as va_app
+    seen = []
+    saved = [(m, m.forward_indexed_scores) for m in (segments, va_app)]
+
+    def spy(real):
+        def run(levels, n_ev, tabs, *a, **k):
+            seen.append((int(tabs.shape[1]), int(tabs.shape[2])))
+            return real(levels, n_ev, tabs, *a, **k)
+        return run
+
+    for m, real in saved:
+        m.forward_indexed_scores = spy(real)
+    try:
+        yield seen
+    finally:
+        for m, real in saved:
+            m.forward_indexed_scores = real
+
+
+def vcf_rows(text):
+    return [ln.split("\t") for ln in text.splitlines()
+            if ln and not ln.startswith("#")]
+
+
+def check_option_output(name, text, var):
+    """What each phase 6e run must print on the card, beside agreeing with
+    the cpu: records at the planted edits, every candidate genotyped,
+    methylation rows, eventalign rows with samples."""
+    if name.startswith("variants"):
+        rows = vcf_rows(text)
+        called = {(int(r[1]) - 1, r[3], r[4]) for r in rows}
+        planted = {(p, var["draft"][p], var["truth"][p])
+                   for p in var["edits"]}
+        if name == "variants --genotype":
+            if [(int(r[1]) - 1, r[3], r[4]) for r in rows] != \
+                    [tuple(r) for r in var["records"]]:
+                fail(f"{name} did not genotype the {len(var['records'])} "
+                     f"candidate records in order")
+        elif len(called & planted) < len(planted) // 2:
+            fail(f"{name} called {len(called & planted)} of {len(planted)} "
+                 f"planted edits")
+        return {"records": len(rows), "planted_called":
+                len(called & planted), "planted": len(planted)}
+    lines = text.splitlines()
+    if len(lines) < 2:
+        fail(f"{name} printed no rows")
+    if name.startswith("eventalign") and \
+            "samples" not in lines[0].split("\t"):
+        fail(f"{name}: no samples column")
+    return {"rows": len(lines) - 1}
+
+
+def phase_options(dev, var, ea_files, meth_files, cpu_proc):
+    """Phase 6e: options the card had not run, each profiled on the card
+    and held to the --cpu-options process's run of the same command:
+    variants -c, --genotype, --consensus --faster, -c -q cpg and
+    --consensus -q cpg on the 2 kb cpg-methylated corpus (forward_indexed on the
+    mixed-width table stack under -q cpg: its S and R logged),
+    call-methylation -q gpc/dam/dcm and eventalign --samples
+    --signal-index --scale-events on the first OPT_MAIN_READS of phase 6's
+    reads.  eventalign byte for byte, the others under the printed-output
+    rule with no call flipped.  Returns the `options_paths` record."""
+    rec = {"card": card(), "runs": {}}
+    runs = options_runs(var, ea_files, meth_files)
+    texts = []
+    for run in runs:
+        name, app, _, _, kernels, must = run
+        box = {}
+
+        def fn(run=run):
+            box["text"] = run_option(run, dev.type)
+
+        with table_stacks() as stacks:
+            wall, launches, busy_s, top, path = profiled_run(fn, kernels)
+        if not path[must]["recorded"]:
+            fail(f"{name}: torch.profiler recorded no {must} launch")
+        text = box["text"]
+        texts.append(text)
+        r = {"wall_s": round(wall, 4), "sync": dict(LAST_SYNC),
+             "card_busy_s": round(busy_s, 4), "path": path_summary(path)}
+        if app == "variants":
+            if not stacks:
+                fail(f"{name}: no indexed Forward drain ran")
+            S = max(st[1] for st in stacks)
+            R = max(st[0] for st in stacks if st[1] == S)
+            if ("-q" in run[2]) != (S == 15625):
+                fail(f"{name}: the widest table stack is [3, {R}, {S}]")
+            r["stack_R_S"] = [R, S]
+        r.update(check_option_output(name, text, var))
+        rec["runs"][name] = r
+        log(f"6e {name} on {dev.type} ({card()}): {wall:.3f} s under "
+            f"torch.profiler; card busy {busy_s:.4f} s, by kernel "
+            f"{json.dumps(top)}; path ms (launches made, recorded) "
+            f"{json.dumps(path_summary(path))}"
+            + (f"; widest table stack [3, {r['stack_R_S'][0]}, "
+               f"{r['stack_R_S'][1]}]" if "stack_R_S" in r else ""))
+    t1 = time.perf_counter()
+    if cpu_proc.wait() != 0:
+        with open(os.path.join(WORK, "options_cpu", "cpu_run.log")) as fh:
+            fail(f"the options' cpu runs failed:\n{fh.read()[-4000:]}")
+    rec["cpu_waited_s"] = round(time.perf_counter() - t1, 2)
+    d = os.path.join(WORK, "options_cpu")
+    with open(os.path.join(d, "cpu_seconds.json")) as fh:
+        cpu_s = json.load(fh)
+    for i, (run, text) in enumerate(zip(runs, texts)):
+        name, rule = run[0], run[3]
+        want = open(os.path.join(d, f"cpu.{i}.txt")).read()
+        if rule == "identical":
+            if text != want:
+                gl, wl = text.splitlines(), want.splitlines()
+                n = abs(len(gl) - len(wl)) + sum(a != b for a, b in
+                                                 zip(gl, wl))
+                fail(f"{name}: the card's output differs from the cpu's in "
+                     f"{n} lines")
+            rep = {"differ": 0, "flips": 0}
+        else:
+            rep = assert_agree(text, want, f"6e {name}, card vs cpu",
+                               **({"sign_cols": (LLR,)}
+                                  if rule == "methylation" else {}))
+            if rep["flips"]:
+                fail(f"{name}: {rep['flips']} calls flip between the card "
+                     f"and the cpu")
+        rec["runs"][name].update(cpu_s=cpu_s[i], rows_differ=rep["differ"])
+    return rec
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cpu-subset"]:
         return cpu_subset_run(sys.argv[2])
@@ -4158,6 +4421,8 @@ def main() -> int:
         return cpu_scale_run(sys.argv[2])
     if sys.argv[1:2] == ["--cpu-table"]:
         return cpu_table_run(sys.argv[2])
+    if sys.argv[1:2] == ["--cpu-options"]:
+        return cpu_options_run(sys.argv[2])
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -4194,6 +4459,9 @@ def main() -> int:
     cpu_scale = start_cpu_scale(lr_corpus, sc_corpus)
     # table-mode call-methylation's cpu side, a fourth process (phase 4d)
     cpu_table = start_cpu_table()
+    # the options' corpus and their cpu runs, a fifth process (phase 6e)
+    opt_corpus = options_variants_corpus(os.path.join(WORK, "options"))
+    cpu_options = start_cpu_options(opt_corpus)
     report = {name: {} for name in cuda_build.KERNELS}
     model = PoreModelSet.instance().get_model(
         "r9.4_450bps", "nucleotide", "template", 6)
@@ -4260,6 +4528,14 @@ def main() -> int:
     last = phase_last_routes(dev, meth_corpus, sc_corpus, scale)
     last["seconds"] = round(time.perf_counter() - t0, 1)
     log(json.dumps({"last_routes": last}))
+    # options the card had not run: variants' candidate files, --faster
+    # and -q cpg; call-methylation's other alphabets; eventalign's sample
+    # columns
+    t0 = time.perf_counter()
+    options = phase_options(dev, opt_corpus, main_corpus(), meth_corpus,
+                            cpu_options)
+    options["seconds"] = round(time.perf_counter() - t0, 1)
+    log(json.dumps({"options_paths": options}))
     path = dict(ea_path)
     for name, own_path in own.items():
         path[name] = own_path[name]

@@ -981,10 +981,23 @@ def fix_homopolymers(input_haplotype: Haplotype, alignments: AlignmentDB,
 # region pipeline
 # ---------------------------------------------------------------------------
 
+class CandidateOrderError(ValueError):
+    """A candidate file whose records are out of position order gives a
+    group an empty or inverted calling window."""
+
+
+def _vcf_record(v: Variant) -> str:
+    return f"{v.ref_name}:{v.ref_position + 1} {v.ref_seq}>{v.alt_seq}"
+
+
 def call_haplotype_from_candidates(alignments: AlignmentDB,
                                    candidate_variants: List[Variant],
                                    opts: Opts) -> Haplotype:
-    """call_variants.cpp:782-880."""
+    """call_variants.cpp:782-880.  The candidates must be in position
+    order, as the reference reads them: a group whose calling window is
+    empty or inverted (a later record before an earlier one) raises
+    CandidateOrderError, which names the group's first and last records;
+    neither this nor the JAX app sorts them."""
     derived = Haplotype(alignments.get_region_contig(),
                         alignments.get_region_start(),
                         alignments.get_reference())
@@ -1006,6 +1019,13 @@ def call_haplotype_from_candidates(alignments: AlignmentDB,
         calling_end = candidate_variants[end - 1].ref_position + \
             len(candidate_variants[end - 1].ref_seq) + \
             opts.min_flanking_sequence
+        if calling_end <= calling_start:
+            raise CandidateOrderError(
+                f"candidate records {_vcf_record(candidate_variants[curr])} "
+                f"and {_vcf_record(candidate_variants[end - 1])} give the "
+                f"empty or inverted calling window [{calling_start} "
+                f"{calling_end}]: the candidate file is out of position "
+                f"order; sort it by position")
         if calling_end - calling_start <= 200:
             calling_hap = derived.substr_by_reference(calling_start,
                                                       calling_end)
@@ -1197,8 +1217,11 @@ def main(argv: Optional[List[str]] = None, stdout: Optional[TextIO] = None):
 
     alignments = AlignmentDB(opt.reads, opt.genome, opt.bam,
                              num_threads=opt.threads, device=opts.device)
-    haplotype = call_variants_for_region(contig, start_base, end_base,
-                                         alignments, opts, candidates)
+    try:
+        haplotype = call_variants_for_region(contig, start_base, end_base,
+                                             alignments, opts, candidates)
+    except CandidateOrderError as e:
+        raise SystemExit(f"variants: {e}")
 
     fp = open(opt.outfile, "w") if opt.outfile else out
     writer = VcfWriter(fp, extra_header=[

@@ -301,3 +301,65 @@ def build_scale_corpus(d: str, n_reads: int = 500, read_len: int = 1200,
         _write_plan_bam(out["subset_bam"], truth,
                         [p for p in plan if p[0] in subset])
     return out
+
+
+def build_methylated_variants_corpus(d: str, genome_len: int = 360,
+                                     n_reads: int = 25,
+                                     read_len: Optional[int] = None) -> dict:
+    """A variants corpus whose signal is CpG-methylated: a random truth
+    (seed 53), a draft carrying, in every 300 bases from 100 (while the
+    block's first 160 bases end 100 before the end), a substitution at the
+    C of the block's first CpG among its first 60 bases and one among its
+    bases 120-160 that is in no CpG and makes none, and n_reads reads of
+    the truth (full length, or read_len bases evenly staggered), each with
+    a random shift in [-2, 2] pA and its signal drawn from the
+    r9.4_450bps cpg 6-mer model over the cpg alphabet's methylation of
+    the read (9 samples a base, slow5).  Files in directory d.  Returns
+    {draft_fa, fastq, bam, draft, truth, edits, plan} with plan = [(name,
+    pos, is_rev, read_len)]."""
+    from ..apps import index as index_app
+    from ..io.slow5 import Slow5Writer
+    from ..models.pore_model import PoreModelSet
+    from ..utils.alphabet import METHYL_CPG_ALPHABET
+
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(53)
+    model = PoreModelSet.instance().get_model("r9.4_450bps", "cpg",
+                                              "template", 6)
+    truth = random_sequence(rng, genome_len)
+    edits = []
+    for b in range(100, genome_len - 259, 300):
+        at_cpg = next((i for i in range(b, b + 60)
+                       if truth[i:i + 2] == "CG"), None)
+        away = next((j for j in range(b + 120, b + 160)
+                     if "CG" not in truth[j - 1:j + 2]
+                     and "CG" not in truth[j - 1] + SUBSTITUTE[truth[j]]
+                     + truth[j + 1]), None)
+        edits += [p for p in (at_cpg, away) if p is not None]
+    draft = list(truth)
+    for p in edits:
+        draft[p] = SUBSTITUTE[draft[p]]
+    draft = "".join(draft)
+    draft_fa = os.path.join(d, "draft.fa")
+    _write_fasta(draft_fa, "tig1", draft)
+    rlen = read_len or genome_len
+    span = genome_len - rlen
+    plan = [(f"m{i}", span * i // max(n_reads - 1, 1), False, rlen)
+            for i in range(n_reads)]
+    fastq, slow5 = os.path.join(d, "reads.fastq"), os.path.join(d, "sig.slow5")
+    with open(fastq, "w") as fq, Slow5Writer(slow5) as sw:
+        for name, pos, _, _ in plan:
+            seq = truth[pos:pos + rlen]
+            fq.write(f"@{name}\n{seq}\n+\n{'I' * rlen}\n")
+            sc = SquiggleScalings.from4(float(rng.uniform(-2, 2)), 1.0, 0.0,
+                                        1.0)
+            pa = synthetic_raw_signal(rng, METHYL_CPG_ALPHABET.methylate(seq),
+                                      model, sc, samples_per_base=9.0,
+                                      leader=450, trailer=90)
+            sw.write(name, _signal_adc(pa), 8192.0, 0.0, 1400.0, 4000.0)
+    index_app.main([fastq, "--slow5", slow5])
+    bam = os.path.join(d, "aln.bam")
+    # the reads are truth, so their BAM records carry the truth's bases
+    _write_plan_bam(bam, truth, plan)
+    return {"draft_fa": draft_fa, "fastq": fastq, "bam": bam, "draft": draft,
+            "truth": truth, "edits": edits, "plan": plan}

@@ -313,3 +313,66 @@ def cuda_device():
 def test_gpu_matches_golden_tsv(meth_pipe, cuda_device):
     assert_agree(_run(meth_pipe, device="cuda"), _golden("methylation.tsv"),
                  "methylation.tsv", sign_cols=(LLR,))
+
+
+# the three geometries that read --min-separation and --min-flank: the
+# array path with csrc/meth_geometry.cpp, with its NumPy twin, and the
+# object path (collect_read_tasks through ScoreBatcher)
+GEOMETRIES = {"native": {}, "numpy": {"NPT_METH_NATIVE": "0"},
+              "objects": {"NPT_METH_ARRAY": "0"}}
+
+
+@pytest.fixture(scope="module")
+def meth_default(meth_pipeline):
+    """The port's TSV on meth_pipeline with no option."""
+    return _run(meth_pipeline)
+
+
+@pytest.mark.parametrize("case", ["min_separation_5", "min_flank_5",
+                                  "batchsize_3", "min_mapping_quality_61",
+                                  "models_fofn"])
+def test_calling_options_match_jax_app(meth_pipeline, meth_default,
+                                       tmp_path, case):
+    """--min-separation, --min-flank, -K, --min-mapping-quality and
+    --models-fofn against the JAX app, on each geometry, each shown to
+    take effect: the TSV moves off the default run's, or (-K 3, whose
+    output must not move) the reads go through in batches of 3 and 1."""
+    from nanopolish_tpu.apps import call_methylation as jax_app
+    from nanopolish_tpu_torch.apps.bam_processor import BamBatchProcessor
+    from tests.model_files import (CPG, NUC, fresh_model_sets,
+                                   shifted_models_fofn)
+    opts = {"min_separation_5": ["--min-separation", "5"],
+            "min_flank_5": ["--min-flank", "5"],
+            "batchsize_3": ["-K", "3"],
+            "min_mapping_quality_61": ["--min-mapping-quality", "61"],
+            "models_fofn": ["--models-fofn", shifted_models_fofn(
+                tmp_path, [NUC, CPG], 1.5)]}[case]
+    default = meth_default
+    sizes = []
+    real = BamBatchProcessor.batches
+
+    def spy(proc):
+        for batch in real(proc):
+            sizes.append(len(batch))
+            yield batch
+
+    with fresh_model_sets(), pytest.MonkeyPatch.context() as mp:
+        want = io.StringIO()
+        jax_app.main(_args(meth_pipeline) + opts, stdout=want)
+        mp.setattr(BamBatchProcessor, "batches", spy)
+        for geometry, env in GEOMETRIES.items():
+            with pytest.MonkeyPatch.context() as ep:
+                for k, v in env.items():
+                    ep.setenv(k, v)
+                del sizes[:]
+                got = _run(meth_pipeline, *opts)
+            rep = assert_agree(got, want.getvalue(),
+                               f"call-methylation {case} ({geometry})",
+                               sign_cols=(LLR,))
+            assert rep["flips"] == 0
+            if case == "batchsize_3":
+                assert got == default and sizes == [3, 1]
+            elif case == "min_mapping_quality_61":
+                assert got.splitlines() == default.splitlines()[:1]
+            else:
+                assert got != default and rep["rows"] > 1

@@ -151,3 +151,50 @@ def test_eventalign_gpu_matches_golden_sam(ea_pipe, cuda_device):
     ea_app.main(["-r", p["fastq"], "-b", p["bam"], "-g", p["ref_fa"], "--sam",
                  "--device", "cuda"], stdout=out)
     _check("eventalign.sam", out.getvalue())
+
+
+@pytest.mark.parametrize("case", ["batchsize_3", "models_fofn"])
+def test_eventalign_batch_and_model_options_match_jax_package(ea_pipe,
+                                                              tmp_path, case):
+    """--batchsize and --models-fofn against the JAX package's eventalign,
+    byte for byte, each shown to take effect: batches of 3 and 1 reads
+    with the default run's rows, or the rows of a model whose means moved
+    (nothing downloaded: the files are the built-in model, rewritten).
+    The JAX side runs with the port's transition table
+    (tests/test_torch_scorereads_phase._port_transitions_in_jax): with its
+    own scan table, a few ulp away, the moved model's Viterbi takes the
+    other side of a near-tie on one of the 2,047 rows (ROADMAP.md,
+    divergences inside the reference)."""
+    from nanopolish_tpu.apps import eventalign as jax_app
+    from nanopolish_tpu_torch.apps.bam_processor import BamBatchProcessor
+    from tests.model_files import NUC, fresh_model_sets, shifted_models_fofn
+    from tests.test_torch_scorereads_phase import _port_transitions_in_jax
+    p = ea_pipe
+    base = ["-r", p["fastq"], "-b", p["bam"], "-g", p["ref_fa"]]
+    opts = ["--batchsize", "3"] if case == "batchsize_3" else \
+        ["--models-fofn", shifted_models_fofn(tmp_path, [NUC], 1.5)]
+    default = io.StringIO()
+    ea_app.main(base + ["--device", "cpu"], stdout=default)
+    sizes = []
+    real = BamBatchProcessor.batches
+
+    def spy(proc):
+        for batch in real(proc):
+            sizes.append(len(batch))
+            yield batch
+
+    want, got = io.StringIO(), io.StringIO()
+    with fresh_model_sets(), pytest.MonkeyPatch.context() as mp:
+        _port_transitions_in_jax(mp)
+        jax_app.main(base + opts, stdout=want)
+        mp.setattr(BamBatchProcessor, "batches", spy)
+        ea_app.main(base + opts + ["--device", "cpu"], stdout=got)
+    n = _differing_rows(got.getvalue(), want.getvalue())
+    print(f"eventalign {' '.join(opts)}: {n} rows differ from the JAX "
+          f"package")
+    assert n == 0 and got.getvalue() == want.getvalue()
+    if case == "batchsize_3":
+        assert sizes == [3, 1] and got.getvalue() == default.getvalue()
+    else:
+        assert sizes == [4] and _differing_rows(
+            got.getvalue(), default.getvalue()) > 100

@@ -146,6 +146,113 @@ UNPORTED_SWITCHES = {
 }
 
 
+# port app flags that no tests/test_torch_*.py and no chip_smoke.py name,
+# and why; a key without a subcommand covers every app that has the flag
+UNTESTED_FLAGS = {
+    "--threads": "the signal loader's thread pool width "
+                 "(models/read_loader.py); reads are gathered by name, so "
+                 "no output depends on it",
+    "index --verbose": "accepted for the reference's command line; the "
+                       "app prints the same one stderr line either way",
+    "variants --verbose": "per-round candidate and call counts on stderr; "
+                          "the VCF does not depend on it",
+    "call-methylation --watch-poll": "seconds between scans of the watched "
+                                     "directory; the watch tests scan once "
+                                     "(--watch-once)",
+}
+
+
+def _app_flags():
+    """{subcommand: [each flag's option strings]} of every port app,
+    -h/--help left out."""
+    import importlib
+
+    from nanopolish_tpu_torch.__main__ import SUBCOMMANDS
+    out = {}
+    for name in SUBCOMMANDS:
+        app = importlib.import_module(
+            f"nanopolish_tpu_torch.apps.{name.replace('-', '_')}")
+        out[name] = [a.option_strings for a in app.make_parser()._actions
+                     if a.option_strings and "--help" not in a.option_strings]
+    return out
+
+
+def _named_flags(path) -> set:
+    """The string constants of a Python file and each of their
+    whitespace-separated words ("-q cpg" names -q)."""
+    import ast
+    out = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            out.add(node.value)
+            out.update(node.value.split())
+    return out
+
+
+def _reaches(text: str, name: str) -> bool:
+    """Whether a file's text reaches the app: it imports the port's
+    module, or the helpers of the app's own test file, or names the
+    subcommand as a string."""
+    import re
+    mod = name.replace("-", "_")
+    return bool(re.search(rf"apps\.{mod}\b|apps import[^)]*?\b{mod}\b|"
+                          rf"tests\.test_torch_{mod}\b|"
+                          rf"[\"']{re.escape(name)}[\"']", text, re.S))
+
+
+def _unnamed_flags() -> set:
+    """(subcommand, long option) of every port app flag that no test file
+    of the port and no chip_smoke.py names, among the files that drive
+    that app.  This file lists flags rather than testing them, so it is
+    not searched."""
+    import glob
+    files = sorted(f for f in glob.glob(os.path.join(ROOT, "tests",
+                                                     "test_torch_*.py"))
+                   if os.path.basename(f) != os.path.basename(__file__))
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    texts = {f: open(f).read() for f in files}
+    named = {f: _named_flags(f) for f in files}
+    out = set()
+    for name, flags in _app_flags().items():
+        callers = [f for f in files if _reaches(texts[f], name)]
+        for opts in flags:
+            if not any(o in named[f] for f in callers for o in opts):
+                out.add((name, max(opts, key=len)))
+    return out
+
+
+def test_every_app_flag_is_tested_or_listed_with_its_reason():
+    """Each flag of each port app is named by a test file of the port or
+    by chip_smoke.py (in a file that drives that app), or stands in
+    UNTESTED_FLAGS with its reason; a listed flag that a test now names,
+    or that no app has, is a stale entry."""
+    unnamed = _unnamed_flags()
+
+    def listed(name, flag):
+        return flag in UNTESTED_FLAGS or f"{name} {flag}" in UNTESTED_FLAGS
+
+    missing = sorted(f"{n} {f}" for n, f in unnamed if not listed(n, f))
+    assert not missing, f"app flags neither tested nor listed: {missing}"
+    keys = {f"{n} {f}" for n, f in unnamed} | {f for _, f in unnamed}
+    assert set(UNTESTED_FLAGS) <= keys, \
+        f"stale entries: {sorted(set(UNTESTED_FLAGS) - keys)}"
+
+
+def test_unnamed_flag_check_sees_a_missing_flag(monkeypatch):
+    """A flag added to an app and named nowhere is found."""
+    from nanopolish_tpu_torch.apps import variants as va
+    make = va.make_parser
+
+    def parser():
+        p = make()
+        p.add_argument("--an-untested-flag", action="store_true")
+        return p
+
+    monkeypatch.setattr(va, "make_parser", parser)
+    assert ("variants", "--an-untested-flag") in _unnamed_flags()
+    assert ("variants", "--genotype") not in _unnamed_flags()
+
+
 def _py_files(pkg):
     root = os.path.dirname(pkg.__file__)
     for dirpath, _, files in os.walk(root):

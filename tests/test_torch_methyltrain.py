@@ -301,3 +301,82 @@ def test_finalize_events_over_cap_matches_jax(monkeypatch):
     for g, w in zip(got["counts"], want["counts"]):
         np.testing.assert_array_equal(g, w)
     assert got["next"] == want["next"]
+
+
+# methyltrain --seed: the reservoir cap the seed's case runs under
+SEED_CAP = PARITY_MIN_EVENTS + 1
+
+
+def _trained(summary: str, is_m):
+    """(methylated, unmethylated) kmers the summary marks as trained."""
+    rows = [ln.split("\t") for ln in summary.splitlines()[1:]]
+    trained = np.array([r[6] == "1" for r in rows])
+    return int((trained & is_m).sum()), int((trained & ~is_m).sum())
+
+
+@pytest.mark.parametrize("case", ["train_kmers_all", "train_kmers_methylated",
+                                  "train_kmers_unmethylated", "out_suffix",
+                                  "seed_7"])
+def test_methyltrain_options_match_jax_app(runs, corpus, tmp_path_factory,
+                                           case):
+    """--train-kmers (each value the parser takes), --out-suffix and --seed
+    against the JAX app, one round, each shown to take effect: which
+    kmers train, the names the summary and the model are written under,
+    and (with the reservoir cap one event above --min-events in both
+    packages, so that the kmers that train keep events the seed drew) the
+    events the seed draws."""
+    from nanopolish_tpu.apps import methyltrain as jax_app
+    from nanopolish_tpu.models.pore_model import PoreModelSet as JaxModels
+    extra = {"train_kmers_all": ["--train-kmers", "all"],
+             "train_kmers_methylated": ["--train-kmers", "methylated"],
+             "train_kmers_unmethylated": ["--train-kmers", "unmethylated"],
+             "out_suffix": ["--out-suffix", ".opt"],
+             "seed_7": ["--seed", "7"]}[case]
+    argv = _args(corpus, "--rounds", "1", *extra)
+    suffix = extra[1] if case == "out_suffix" else ""
+    got = {}
+    with pytest.MonkeyPatch.context() as mp:
+        if case == "seed_7":
+            mp.setattr(jax_app, "MAX_EVENTS", SEED_CAP)
+            mp.setattr(mt, "MAX_EVENTS", SEED_CAP)
+        for pkg, app, models, more in (
+                ("jax", jax_app, JaxModels, []),
+                ("port", mt, PoreModelSet, ["--device", "cpu"])):
+            d = str(tmp_path_factory.mktemp(f"mt_{case}_{pkg}"))
+            out, rounds, final = _run(app, models, argv + more, d)
+            got[pkg] = (rounds, d, final)
+        if case == "seed_7":
+            d = str(tmp_path_factory.mktemp(f"mt_{case}_default"))
+            _, seed42, final42 = _run(mt, PoreModelSet, _args(
+                corpus, "--rounds", "1", "--device", "cpu"), d)
+    (g_rounds, pd, g_final), (w_rounds, jd, _) = got["port"], got["jax"]
+    np.testing.assert_array_equal(g_rounds[0], w_rounds[0])
+    name = f"r9.4_450bps.cpg.6mer.template{suffix}.round0.model"
+    assert sorted(os.listdir(pd)) == sorted(os.listdir(jd)) == sorted(
+        [f"methyltrain{suffix}.summary", name])
+    _assert_models_agree(*_model_columns(os.path.join(pd, name)),
+                         *_model_columns(os.path.join(jd, name)),
+                         f"methyltrain {' '.join(extra)}: round 0 model")
+    summary = open(os.path.join(pd, f"methyltrain{suffix}.summary")).read()
+    _summary_agrees(summary, open(os.path.join(
+        jd, f"methyltrain{suffix}.summary")).read(),
+        f"methyltrain {' '.join(extra)}: summary")
+    n_m, n_u = _trained(summary, corpus["is_m"])
+    default = runs[1]["port"]
+    d_m, d_u = _trained(open(os.path.join(default[3], "methyltrain.summary"))
+                        .read(), corpus["is_m"])
+    assert d_m > 0 and d_u > 0
+    if case == "train_kmers_methylated":
+        assert (n_m, n_u) == (d_m, 0)
+    elif case == "train_kmers_unmethylated":
+        assert (n_m, n_u) == (0, d_u)
+    elif case == "seed_7":
+        # each kmer keeps at most SEED_CAP of its events, drawn by the
+        # seed: the same counts as the port's seed-42 run under the same
+        # cap, other events, so other trained means
+        kept = g_rounds[0][:, 3]
+        assert (kept <= SEED_CAP).all() and (kept == SEED_CAP).sum() >= 20
+        np.testing.assert_array_equal(g_rounds[0], seed42[0])
+        assert not np.array_equal(g_final.level_mean, final42.level_mean)
+    else:
+        assert (n_m, n_u) == (d_m, d_u)

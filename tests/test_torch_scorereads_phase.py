@@ -324,3 +324,72 @@ def test_phase_reads_gpu_matches_cpu(phased_pipeline, cuda_device):
         pr.main(_args(p) + [p["vcf"], "--device", dev], stdout=out)
         outs[dev] = out.getvalue()
     assert_agree(outs["cuda"], outs["cpu"], "phase-reads", sam=True)
+
+
+def test_scorereads_zero_drift_matches_jax_app(phased_pipeline, capsys,
+                                              monkeypatch):
+    """-z/--zero-drift: every recalibration leaves the drift out, so each
+    SEGMENT line's drift column prints 0.00, the same way in the JAX
+    app."""
+    from nanopolish_tpu.apps import scorereads as jax_app
+    args = _args(phased_pipeline) + ["-z"]
+    want, got = io.StringIO(), io.StringIO()
+    jax_app.main(args, stdout=want)
+    drift = []
+    real = sc.recalibrate_model
+
+    def spy(sr, model, strand, aln, scale_var, scale_drift, **k):
+        drift.append(scale_drift)
+        return real(sr, model, strand, aln, scale_var, scale_drift, **k)
+
+    monkeypatch.setattr(sc, "recalibrate_model", spy)
+    sc.main(args + ["--device", "cpu"], stdout=got)
+    capsys.readouterr()
+    with capsys.disabled():
+        rep = assert_agree(got.getvalue(), want.getvalue(), "scorereads -z")
+    segments = [ln.split("\t") for ln in got.getvalue().splitlines()
+                if ln.startswith("SEGMENT\t")]
+    assert rep["rows"] >= 4 and len(segments) >= 2
+    assert drift and not any(drift)
+    assert {f[7] for f in segments} == {"0.00"}
+
+
+def test_phase_reads_min_flanking_sequence_matches_jax_app(phased_pipeline,
+                                                           monkeypatch):
+    """--min-flanking-sequence 20 scores each SNP over 20 bases a side (41
+    bases, 36 6-mers, where the default's 30 give 56), the same way in the
+    JAX app."""
+    from nanopolish_tpu.apps import phase_reads as jax_app
+    p = phased_pipeline
+    args = _args(p) + [p["vcf"], "--min-flanking-sequence", "20"]
+    want, got = io.StringIO(), io.StringIO()
+    jax_app.main(args, stdout=want)
+    widths = set()
+    real = pr.forward_segments
+
+    def spy(tasks, *a, **k):
+        widths.update(len(t.mu) for t in tasks)
+        return real(tasks, *a, **k)
+
+    monkeypatch.setattr(pr, "forward_segments", spy)
+    pr.main(args + ["--device", "cpu"], stdout=got)
+    assert_agree(got.getvalue(), want.getvalue(),
+                 "phase-reads --min-flanking-sequence 20", sam=True)
+    assert widths == {2 * 20 + 1 - 6 + 1}
+
+
+def test_scorereads_individual_reads_matches_jax_app(phased_pipeline,
+                                                     capsys):
+    """-i/--individual-reads scores only the named reads: one of the two
+    reads' lines, the same as the JAX app's."""
+    from nanopolish_tpu.apps import scorereads as jax_app
+    args = _args(phased_pipeline) + ["-i", "hap_ref"]
+    want, got = io.StringIO(), io.StringIO()
+    jax_app.main(args, stdout=want)
+    sc.main(args + ["--device", "cpu"], stdout=got)
+    capsys.readouterr()
+    with capsys.disabled():
+        assert_agree(got.getvalue(), want.getvalue(), "scorereads -i")
+    names = {ln.split("\t")[1] if ln.startswith("SEGMENT\t")
+             else ln.split()[0] for ln in got.getvalue().splitlines()}
+    assert names == {"hap_ref"}

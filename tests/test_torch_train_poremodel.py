@@ -140,3 +140,18 @@ def test_values_keep_the_order_of_the_per_event_loop():
                     want[int(rk[i, ki])].append(float(ev[i, ei]))
     assert [list(v) for v in per_rank] == want
     assert sum(map(len, want)) > 100
+
+
+def test_kmer_size_option_matches_jax_app(reads, tmp_path):
+    """-k 5 bootstraps a 5-mer model (1,024 kmers where the default has
+    4,096), byte-identical to the JAX app's."""
+    from nanopolish_tpu.apps import train_poremodel_from_basecalls as jax_app
+    fastq, _ = reads
+    want, got = str(tmp_path / "jax.model"), str(tmp_path / "port.model")
+    jax_app.main(["-r", fastq, "-k", "5", "--rounds", "1", "-o", want])
+    tp.main(["-r", fastq, "-k", "5", "--rounds", "1", "-o", got, "--device",
+             "cpu"])
+    assert open(got, "rb").read() == open(want, "rb").read()
+    m = PoreModel.from_file(got)
+    assert m.k == 5 and m.num_states == 4 ** 5
+    assert int((m.level_stdv != 2.5).sum()) >= 50

@@ -13,6 +13,7 @@ no call differs.  Within the port the two screening paths (array and
 object) share one drain and must agree bit for bit.
 """
 
+import contextlib
 import io
 import math
 import os
@@ -629,3 +630,252 @@ def test_var_array_switch_matches_array_path_and_jax(golden_pipe,
     rep = assert_agree(got["0"], want.getvalue(),
                        "variants --consensus NPT_VAR_ARRAY=0")
     assert rep["flips"] == 0
+
+
+# ---------------------------------------------------------------------------
+# candidate files and the calling options, each against the JAX app's main
+# on the same corpus (the polishing options and -q:
+# tests/test_torch_variants_options.py)
+# ---------------------------------------------------------------------------
+
+WINDOW = f"tig1:0-{DRAFT_LEN - 1}"
+
+
+def _write_vcf(path, records):
+    """A candidate VCF of (POS, REF, ALT) records on tig1, in the order
+    given."""
+    with open(path, "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n"
+                 "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        for pos, ref, alt in records:
+            fh.write(f"tig1\t{pos}\t.\t{ref}\t{alt}\t.\tPASS\t.\n")
+    return str(path)
+
+
+def _rows(vcf_text):
+    return [ln.split("\t") for ln in vcf_text.splitlines()
+            if ln and not ln.startswith("#")]
+
+
+def _jax_vcf(args):
+    from nanopolish_tpu.apps import variants as jax_va
+    want = io.StringIO()
+    jax_va.main(args, stdout=want)
+    return want.getvalue()
+
+
+def _port_vcf(args, stderr=None):
+    got = io.StringIO()
+    with contextlib.redirect_stderr(stderr or io.StringIO()):
+        va.main(args + ["--device", "cpu"], stdout=got)
+    return got.getvalue()
+
+
+def _agree(args, name, stderr=None, empty=False):
+    """The port's VCF for ``args``, held to the JAX app's under the
+    printed-output rule with no call flipped (and with a record, unless
+    ``empty``)."""
+    want = _jax_vcf(args)
+    got = _port_vcf(args, stderr)
+    assert empty or _rows(want), f"{name}: the JAX app called nothing"
+    rep = assert_agree(got, want, name)
+    assert rep["flips"] == 0
+    return got
+
+
+class _Spy:
+    """What a port run of variants did: the indexed Forward's segments and
+    table widths, the screening thresholds, the polishing rounds, each
+    group's calling window, the pileup's candidate thresholds and the
+    largest scoring set a ScoreBatcher unit held."""
+
+    def __init__(self, mp):
+        from nanopolish_tpu_torch.alignment import segments
+        self.segments = 0
+        self.table_widths = set()
+        self.thresholds = set()
+        self.rounds = 0
+        self.windows = []
+        self.pileup = []
+        self.unit_seqs = 0
+        self.array_screens = 0
+
+        def fwd(real):
+            def run(*a, **k):
+                self.segments += len(a[6])
+                self.table_widths.add(int(a[2].shape[2]))
+                return real(*a, **k)
+            return run
+
+        for mod in (va, segments):
+            mp.setattr(mod, "forward_indexed_scores",
+                       fwd(mod.forward_indexed_scores))
+        screen, rounds, group = (va._screen_scores,
+                                 va.screen_variants_by_score,
+                                 va.score_variant_group)
+        arrays, pileup = (va.score_variants_batched_arrays,
+                          AlignmentDB.get_variants_in_region)
+        add = segments.ScoreBatcher.add
+
+        def spy_screen(jobs, alignments, opts):
+            self.thresholds.add(opts.screen_score_threshold)
+            return screen(jobs, alignments, opts)
+
+        def spy_rounds(*a, **k):
+            self.rounds += 1
+            return rounds(*a, **k)
+
+        def spy_group(group_, base, *a, **k):
+            self.windows.append((group_.get(0).ref_position,
+                                 base.ref_position))
+            return group(group_, base, *a, **k)
+
+        def spy_arrays(*a, **k):
+            self.array_screens += 1
+            return arrays(*a, **k)
+
+        def spy_pileup(db, contig, s, e, freq, depth):
+            self.pileup.append((freq, depth))
+            return pileup(db, contig, s, e, freq, depth)
+
+        def spy_add(batcher, sequences, *a, **k):
+            self.unit_seqs = max(self.unit_seqs, len(sequences))
+            return add(batcher, sequences, *a, **k)
+
+        mp.setattr(va, "_screen_scores", spy_screen)
+        mp.setattr(va, "screen_variants_by_score", spy_rounds)
+        mp.setattr(va, "score_variant_group", spy_group)
+        mp.setattr(va, "score_variants_batched_arrays", spy_arrays)
+        mp.setattr(AlignmentDB, "get_variants_in_region", spy_pileup)
+        mp.setattr(segments.ScoreBatcher, "add", spy_add)
+
+
+def _spied(args):
+    """(the port's VCF, its _Spy) for ``args``."""
+    with pytest.MonkeyPatch.context() as mp:
+        spy = _Spy(mp)
+        return _port_vcf(args), spy
+
+
+@pytest.fixture(scope="module")
+def calling_default(consensus_pipeline):
+    """The port's calling-mode VCF with no option, and its spy."""
+    return _spied(_args(consensus_pipeline, WINDOW))
+
+
+
+
+def _order_records(p, order):
+    """Two candidate records, out of position order with an empty calling
+    window (POS 121 before POS 60: the window is 120 - 30 = 90 to
+    59 + 1 + 30 = 90), out of order with a window, or sorted."""
+    sub = (121, p["draft"][120], p["orig"])
+    far = (60, p["draft"][59], SUB[p["draft"][59]])
+    return {"empty_window": [sub, far],
+            "out_of_order": [(80, p["draft"][79], SUB[p["draft"][79]]),
+                             (70, p["draft"][69], SUB[p["draft"][69]])],
+            "sorted": [far, sub]}[order]
+
+
+@pytest.mark.parametrize("flag", ["-c", "--genotype"])
+@pytest.mark.parametrize("order", ["empty_window", "out_of_order", "sorted"])
+def test_candidate_file_order_against_jax_app(consensus_pipeline,
+                                              calling_default, tmp_path,
+                                              order, flag):
+    """-c / --genotype take the file's records in the file's order, as the
+    JAX app does.  Where that gives a group an empty calling window the
+    JAX app fails in its scan and the port raises, naming the records;
+    elsewhere both print the same VCF, which differs from the run that
+    takes its candidates from the pileup."""
+    p = consensus_pipeline
+    recs = _order_records(p, order)
+    args = _args(p, WINDOW) + [flag, _write_vcf(tmp_path / "c.vcf", recs)]
+    if order == "empty_window":
+        from nanopolish_tpu.apps import variants as jax_va
+        with pytest.raises(TypeError):
+            jax_va.main(args, stdout=io.StringIO())
+        with pytest.raises(SystemExit, match="out of position order") as e:
+            _port_vcf(args)
+        assert f"tig1:121 {recs[0][1]}>{recs[0][2]}" in str(e.value)
+        assert f"tig1:60 {recs[1][1]}>{recs[1][2]}" in str(e.value)
+        return
+    got = _agree(args, f"variants {flag} ({order})",
+                 empty=(flag, order) == ("-c", "out_of_order"))
+    assert got != calling_default[0]
+    called = [(int(r[1]), r[3], r[4]) for r in _rows(got)]
+    if flag == "--genotype":
+        # every record is genotyped, in the file's order
+        assert called == recs
+    else:
+        assert set(called) <= set(recs)
+
+
+def test_unsorted_candidates_cli_exits_non_zero(consensus_pipeline,
+                                               tmp_path):
+    """python -m nanopolish_tpu_torch variants -c FILE exits non-zero and
+    says which records are out of position order."""
+    p = consensus_pipeline
+    recs = _order_records(p, "empty_window")
+    env = dict(os.environ, OMP_NUM_THREADS="2", CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-m", "nanopolish_tpu_torch",
+                        "variants", *_args(p, WINDOW), "-c",
+                        _write_vcf(tmp_path / "c.vcf", recs), "--device",
+                        "cpu"], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode != 0 and r.stdout == ""
+    assert "out of position order" in r.stderr
+    assert f"tig1:121 {recs[0][1]}>{recs[0][2]}" in r.stderr
+
+
+def _mixed_candidates(p, d):
+    """The planted substitution and the planted deletion's insertion."""
+    ins = p["truth"][180]
+    return _write_vcf(d / "mixed.vcf",
+                      [(60, p["draft"][59], SUB[p["draft"][59]]),
+                       (121, p["draft"][120], p["orig"]),
+                       (180, p["draft"][179], p["draft"][179] + ins)])
+
+
+@pytest.mark.parametrize("case", ["ploidy_1", "ploidy_3", "snps",
+                                  "min_flanking_sequence"])
+def test_calling_options_match_jax_app(consensus_pipeline, calling_default,
+                                       tmp_path, case):
+    """-p, --snps and --min-flanking-sequence in calling mode on the
+    consensus_pipeline corpus, each shown to take effect."""
+    p = consensus_pipeline
+    args = _args(p, WINDOW)
+    default, dspy = calling_default
+    if case.startswith("ploidy"):
+        n = int(case[-1])
+        got = _agree(args + ["-p", str(n)], f"variants -p {n}")
+        gts = {r[-1] for r in _rows(got)}
+        assert gts == {"/".join(["1"] * n)} != {r[-1] for r in _rows(default)}
+    elif case == "snps":
+        mixed = _mixed_candidates(p, tmp_path)
+        got = _agree(args + ["-c", mixed, "--snps"], "variants --snps")
+        every = _port_vcf(args + ["-c", mixed])
+        indels = [r for r in _rows(every) if len(r[3]) != len(r[4])]
+        assert indels and [r for r in _rows(every) if r not in indels] == \
+            _rows(got)
+    else:
+        with pytest.MonkeyPatch.context() as mp:
+            spy = _Spy(mp)
+            got = _agree(args + ["--min-flanking-sequence", "20"],
+                         "variants --min-flanking-sequence 20")
+        assert {v - h for v, h in spy.windows} == {20}
+        assert {v - h for v, h in dspy.windows} == {30}
+        assert _rows(got)
+
+
+def test_models_fofn_matches_jax_app(consensus_pipeline, calling_default,
+                                     tmp_path):
+    """--models-fofn: the nucleotide model read from a file with every
+    mean shifted changes the calls' qualities, the same way in both
+    apps."""
+    from tests.model_files import NUC, fresh_model_sets, shifted_models_fofn
+    fofn = shifted_models_fofn(tmp_path, [NUC], 1.5)
+    with fresh_model_sets():
+        got = _agree(_args(consensus_pipeline, WINDOW) + ["--models-fofn",
+                                                         fofn],
+                     "variants --models-fofn")
+    assert got != calling_default[0]
