@@ -1,0 +1,10 @@
+""""meth.collect" scope seconds (call-methylation's task geometry on the
+loader threads, thread-seconds) per Mb of read bases.
+None where the traced run has nothing to read."""
+
+
+def read(rec):
+    s = rec["scopes"].get("meth.collect")
+    if rec["app"] != "call-methylation" or s is None:
+        return None
+    return s / (rec["bases"] / 1e6)
