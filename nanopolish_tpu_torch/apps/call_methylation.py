@@ -996,22 +996,28 @@ def main(argv: Optional[List[str]] = None, stdout: Optional[TextIO] = None):
 
 
 def _call_single(opt, out, device):
+    with profile_scope("meth.pass") as pass_span:
+        return _call_pass(opt, out, device, pass_span)
+
+
+def _call_pass(opt, out, device, pass_span):
     if opt.models_fofn:
         PoreModelSet.instance().initialize(opt.models_fofn)
     params = CallingParameters(methylation_type=opt.methylation,
                                min_separation=opt.min_separation,
                                min_flank=opt.min_flank)
 
-    read_db = ReadDB()
-    read_db.load(opt.reads)
-    fai = FastaIndex(opt.genome)
-    shard_index, shard_total = (int(x) for x in opt.shard.split("/"))
-    proc = BamBatchProcessor(opt.bam, region=opt.window,
-                             batch_size=opt.batchsize,
-                             min_mapping_quality=opt.min_mapping_quality,
-                             max_reads=opt.max_reads,
-                             shard_index=shard_index,
-                             shard_total=shard_total)
+    with profile_scope("meth.open"):
+        read_db = ReadDB()
+        read_db.load(opt.reads)
+        fai = FastaIndex(opt.genome)
+        shard_index, shard_total = (int(x) for x in opt.shard.split("/"))
+        proc = BamBatchProcessor(opt.bam, region=opt.window,
+                                 batch_size=opt.batchsize,
+                                 min_mapping_quality=opt.min_mapping_quality,
+                                 max_reads=opt.max_reads,
+                                 shard_index=shard_index,
+                                 shard_total=shard_total)
     region_start = proc.clip_start if opt.window else -1
     region_end = proc.clip_end if (opt.window and proc.clip_end >= 0) else -1
 
@@ -1050,18 +1056,26 @@ def _call_single(opt, out, device):
         t["blocks"] = blocks
         return t
 
-    def load_and_build(records):
+    def load_and_build(records, chunk):
         """Loader-thread stage: signal load + ingest, then task geometry."""
-        names = sorted({rec.qname for _, rec in records})
-        reads = load_squiggle_reads(names, read_db, stats=GLOBAL_READ_STATS,
-                                    num_threads=opt.threads, device=device)
-        reg = _ScoreArrays() if use_array else None
-        with profile_scope("meth.collect"):
-            built = [build_task(item, reads, reg) for item in records]
-        return [t for t in built if t is not None], reg
+        with profile_scope("meth.load_chunk", parent=pass_span, chunk=chunk):
+            names = sorted({rec.qname for _, rec in records})
+            reads = load_squiggle_reads(names, read_db,
+                                        stats=GLOBAL_READ_STATS,
+                                        num_threads=opt.threads,
+                                        device=device)
+            reg = _ScoreArrays() if use_array else None
+            with profile_scope("meth.collect"):
+                built = [build_task(item, reads, reg) for item in records]
+            return [t for t in built if t is not None], reg
 
-    def write_tasks(tasks):
-        with profile_scope("meth.write"):
+    def resolve_chunk(resolve, chunk):
+        """Fetch-thread stage: a chunk's scores and site columns."""
+        with profile_scope("meth.resolve", parent=pass_span, chunk=chunk):
+            resolve()
+
+    def write_tasks(tasks, chunk):
+        with profile_scope("meth.write", chunk=chunk):
             for t in tasks:
                 if use_array:
                     write_read_sites_cols(out, t["record"], t)
@@ -1084,40 +1098,54 @@ def _call_single(opt, out, device):
     # bounded lookahead; on the array path this thread issues each chunk's
     # Forward sweep and a fetch thread resolves it, so a chunk's scoring
     # overlaps the next chunks' loading; the object path scores each chunk
-    # here.  Output stays in BAM order within each batch.
+    # here.  Output stays in BAM order within each batch.  A chunk's spans
+    # on every thread share its id (the pass's span id, chunk index).
     write_site_header(out)
-    with ThreadPoolExecutor(LOADERS) as ing_pool, \
-            ThreadPoolExecutor(2) as fetch_pool:
-        for batch in proc.batches():
+    pass_id = pass_span.id if pass_span else 0
+    n_chunks = 0
+    batches = proc.batches()
+    with (ThreadPoolExecutor(LOADERS, thread_name_prefix="loader") as ing_pool,
+          ThreadPoolExecutor(2, thread_name_prefix="fetch") as fetch_pool):
+        while True:
+            with profile_scope("meth.next_batch"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             subs = [batch[i:i + PIPE_CHUNK]
                     for i in range(0, len(batch), PIPE_CHUNK)]
-            ing_futs = deque(ing_pool.submit(load_and_build, s)
-                             for s in subs[:LOOKAHEAD])
+            ids = [(pass_id, n_chunks + i) for i in range(len(subs))]
+            n_chunks += len(subs)
+            ing_futs = deque(ing_pool.submit(load_and_build, s, c)
+                             for s, c in zip(subs[:LOOKAHEAD], ids))
             done: deque = deque()
 
             def drain(block: bool) -> None:
                 while done:
-                    tasks, fut = done[0]
+                    tasks, fut, chunk = done[0]
                     if fut is not None:
                         if not block and not fut.done():
                             return
-                        fut.result()
+                        with profile_scope("meth.drain_wait", chunk=chunk):
+                            fut.result()
                     done.popleft()
-                    write_tasks(tasks)
+                    write_tasks(tasks, chunk)
 
             for ci in range(len(subs)):
-                tasks, reg = ing_futs.popleft().result()
+                with profile_scope("meth.wait_chunk", chunk=ids[ci]):
+                    tasks, reg = ing_futs.popleft().result()
                 if ci + LOOKAHEAD < len(subs):
                     ing_futs.append(ing_pool.submit(
-                        load_and_build, subs[ci + LOOKAHEAD]))
+                        load_and_build, subs[ci + LOOKAHEAD],
+                        ids[ci + LOOKAHEAD]))
                 if use_array:
-                    with profile_scope("meth.drain_prep"):
+                    with profile_scope("meth.drain_prep", chunk=ids[ci]):
                         resolve = score_batch_arrays(tasks, reg,
                                                      device=device)
-                    done.append((tasks, fetch_pool.submit(resolve)))
+                    done.append((tasks, fetch_pool.submit(
+                        resolve_chunk, resolve, ids[ci]), ids[ci]))
                 else:
                     score_batch(tasks, device=device)
-                    done.append((tasks, None))
+                    done.append((tasks, None, ids[ci]))
                 drain(block=False)
             drain(block=True)
     if bam_writer is not None:

@@ -306,7 +306,11 @@ def main(argv: Optional[List[str]] = None, stdout: Optional[TextIO] = None):
     opt = make_parser().parse_args(argv)
     out = stdout if stdout is not None else sys.stdout
     device = resolve_device(opt.device)
+    with profile_scope("ea.pass"):
+        return _eventalign(opt, out, device)
 
+
+def _eventalign(opt, out, device):
     if opt.models_fofn:
         from ..models.pore_model import PoreModelSet
         PoreModelSet.instance().initialize(opt.models_fofn)

@@ -146,10 +146,21 @@ def build_reads(
             return i, None
         return i, (et, rna, start, end)
 
-    with ThreadPoolExecutor(max_workers=num_threads) as pool:
+    with profile_scope("read_builder.detect"), \
+            ThreadPoolExecutor(max_workers=num_threads) as pool:
         detected = list(pool.map(detect, enumerate(inputs)))
 
-    # ---- assemble per-read arrays ----
+    with profile_scope("read_builder.assemble"):
+        chunks = _assemble_work(inputs, detected, flags, stats, max_batch)
+    for c in chunks:
+        with profile_scope("read_builder.process_chunk"):
+            _finish_chunk(c, _dispatch_chunk(c, dev), results, stats)
+    return results
+
+
+def _assemble_work(inputs, detected, flags, stats: ReadStats, max_batch):
+    """The detected reads' kmer ranks and event tables, length-sorted and
+    cut into the device stage's chunks."""
     work = []   # (i, inp, EventTable, rna, ranks, model)
     pms = PoreModelSet.instance()
     for i, payload in detected:
@@ -185,15 +196,12 @@ def build_reads(
             samples = np.asarray(inp.raw[trim_start:trim_end], np.float32)
         work.append((i, inp, evt, rna, ranks, model, seq, samples, trim_start))
 
-    # ---- device stage, bucketed ----
+    # ---- bucketed for the device stage ----
     work.sort(key=lambda w: (len(w[2]), len(w[4])))
     chunks = []
     for lo in range(0, len(work), max_batch):
         chunks.extend(_split_for_hbm(work[lo : lo + max_batch]))
-    for c in chunks:
-        with profile_scope("read_builder.process_chunk"):
-            _finish_chunk(c, _dispatch_chunk(c, dev), results, stats)
-    return results
+    return chunks
 
 
 # device bytes per band per read held by the banded kernels (32 trace

@@ -13,6 +13,7 @@ from typing import Dict, Iterable, List, Optional, Sequence
 import numpy as np
 
 from ..io.readdb import ReadDB
+from ..utils.profiler import profile_scope
 from .read_builder import RawReadInput, ReadStats, build_reads
 from .squiggle import SquiggleRead
 
@@ -89,8 +90,9 @@ def load_squiggle_reads(read_names: Sequence[str], read_db: ReadDB,
                         ) -> Dict[str, SquiggleRead]:
     """Batched SquiggleRead construction for a set of read names; the
     batched ingest runs on ``device`` (``cuda`` unless ``cpu`` is asked)."""
-    inputs = load_raw_inputs(read_names, read_db, stats,
-                             num_threads=num_threads)
+    with profile_scope("read_loader.load_raw"):
+        inputs = load_raw_inputs(read_names, read_db, stats,
+                                 num_threads=num_threads)
     names = list(inputs)
     reads = build_reads([inputs[n] for n in names], flags=flags, stats=stats,
                         num_threads=num_threads, device=device)

@@ -25,6 +25,8 @@ import threading
 import time
 from typing import Dict
 
+from .profiler import profile_scope
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -109,9 +111,14 @@ def build_kernels(force: bool = False, verbose: bool = False) -> float:
     """Compile every stale kernel source, all nvcc processes at once.
     Returns the wall seconds spent; raises RuntimeError on any failure.
     With ``verbose`` the ptxas resource usage lands in BUILD_LOG."""
-    todo = [n for n in KERNELS if force or _stale(n)]
-    if not todo:
-        return 0.0
+    with profile_scope("cuda_build.build") as span:
+        todo = [n for n in KERNELS if force or _stale(n)]
+        if span:
+            span.args = {"kernels": todo}
+        return _build(todo, verbose) if todo else 0.0
+
+
+def _build(todo, verbose: bool) -> float:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -146,11 +153,13 @@ def kernel_fn(name: str):
     with _lock:
         if name not in _fns:
             build_kernels()
-            for n in KERNELS:
-                f = getattr(ctypes.CDLL(lib_path(n)), f"npt_launch_{n}")
-                f.argtypes = _ARGTYPES[n] + [_P]          # + stream
-                f.restype = ctypes.c_int
-                _fns[n] = f
+            with profile_scope("cuda_build.load"):
+                for n in KERNELS:
+                    f = getattr(ctypes.CDLL(lib_path(n)),
+                                f"npt_launch_{n}")
+                    f.argtypes = _ARGTYPES[n] + [_P]          # + stream
+                    f.restype = ctypes.c_int
+                    _fns[n] = f
     return _fns[name]
 
 

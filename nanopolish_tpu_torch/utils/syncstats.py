@@ -28,6 +28,10 @@ Usage:
     with SYNC_STATS.capture() as snap:
         run_app()
     print(snap.sync_count, snap.blocked_s, snap.bytes_fetched)
+
+Under NPT_PROFILE each wait is also attributed to the innermost span
+open on the thread that waited (``utils.profiler.note_wait``): a span's
+``blocked_s`` and ``fetch_bytes``; the counts here stay global.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
+
+from .profiler import note_wait
 
 
 @dataclass
@@ -67,6 +73,7 @@ class SyncStats:
             self._count += 1
             self._blocked += blocked_s
             self._bytes += nbytes
+        note_wait(blocked_s, nbytes)
 
     @contextmanager
     def sync(self, nbytes: int = 0):
