@@ -57,6 +57,7 @@ def banded_fill(event_mean, n_events, mu, sigma, c, n_kmers, lp_stay,
         trace.data_ptr(), moves.data_ptr(), lle.data_ptr(), best_e.data_ptr(),
         best_s.data_ptr())
     cuda_build.count_launch("banded_fill")
+    cuda_build.count_chain_bands("banded_fill", n_bands, B)
     return trace, moves, lle, best_e, best_s
 
 

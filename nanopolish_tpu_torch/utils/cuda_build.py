@@ -11,7 +11,12 @@ compiler's output; nothing falls back to another implementation.
 ``LAUNCHES`` holds one plain integer per kernel.  Each wrapper adds one
 (``count_launch``, under a lock: loader threads launch kernels too) where
 it launches its kernel and nowhere else, so a run can show which kernels
-its main path went through.
+its main path went through.  ``CHAIN_BANDS`` counts, for the banded
+fill, the serial bands each launch runs: its launches, its chains (each
+launch's n_bands, the length of its longest read's band loop at most)
+and its read bands (B x n_bands), from the shapes on the host with no
+device sync; with the kernel's device seconds they give ns per chain
+band.  The NPT_PROFILE report prints them.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict
+from typing import Dict, List
 
 from .profiler import profile_scope
 
@@ -39,6 +44,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# [launches, chain bands, read bands] of the kernels with a band chain
+CHAIN_BANDS: Dict[str, List[int]] = {"banded_fill": [0, 0, 0]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -74,11 +81,31 @@ def reset_launch_counts() -> None:
     with _count_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        for c in CHAIN_BANDS.values():
+            c[:] = [0, 0, 0]
 
 
 def count_launch(name: str) -> None:
     with _count_lock:
         LAUNCHES[name] += 1
+
+
+def count_chain_bands(name: str, n_bands: int, B: int) -> None:
+    """One launch of a band-chain kernel: n_bands serial bands on each
+    of B reads."""
+    with _count_lock:
+        c = CHAIN_BANDS[name]
+        c[0] += 1
+        c[1] += n_bands
+        c[2] += B * n_bands
+
+
+def chain_band_lines() -> List[str]:
+    """The NPT_PROFILE report's lines of CHAIN_BANDS (none unused)."""
+    with _count_lock:
+        return [f"[profile] {name} chain: {n} launches, {chain} chain "
+                f"bands, {reads} read bands"
+                for name, (n, chain, reads) in CHAIN_BANDS.items() if n]
 
 
 def _nvcc() -> str:

@@ -6,7 +6,8 @@ Rebuild of the reference's profiling aids:
   Here: `profile_scope(name)` / `@profiled`, enabled by NPT_PROFILE=1
   (off by default; outputs are byte-identical with it on).  The report
   goes to stderr at exit, one `[profile] name: N calls, S s total, M
-  ms/call` line a scope, the slowest first.
+  ms/call` line a scope, the slowest first, then the banded fill's chain
+  bands (utils/cuda_build.CHAIN_BANDS) where it ran.
 - `Progress` elapsed-time bars (src/common/progress.h:16-50; used by
   methyltrain rounds, nanopolish_methyltrain.cpp:788,816-818).
 
@@ -113,6 +114,9 @@ def _report(fp=None) -> None:
         fp.write(f"[profile] {name}: {int(calls)} calls, "
                  f"{ns / 1e9:.3f} s total, {ns / max(calls, 1) / 1e6:.3f} "
                  f"ms/call\n")
+    from .cuda_build import chain_band_lines   # cuda_build imports this
+    for ln in chain_band_lines():
+        fp.write(ln + "\n")
 
 
 def _ensure_atexit() -> None:

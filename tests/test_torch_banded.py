@@ -7,7 +7,11 @@ bit for bit on the cases of tests/test_pallas_banded_exact.py: every
 BandedAlignResult field identical, f32 fields compared by their bits.
 Both sides get the same inputs (numpy, from a seed) and the same
 transition terms (transition_params_f32).  The kernels themselves run
-only on a GPU (marked ``cuda``).
+only on a GPU (marked ``cuda``); the JAX package is imported by the tests
+that compare with it, so that the ``cuda`` cases also run where it is not
+installed (``python -m pytest --noconftest -m cuda
+tests/test_torch_banded.py``; this directory is the namespace package
+``tests``, which another installed package of that name shadows).
 """
 
 import os
@@ -17,16 +21,30 @@ import numpy as np
 import pytest
 import torch
 
-from nanopolish_tpu.models.pore_model import PoreModelSet
-from nanopolish_tpu.ops.banded_align import _banded_forward as jax_forward
-from nanopolish_tpu.ops.banded_align import banded_align_batch as jax_banded
-from nanopolish_tpu.ops.pallas_banded_exact import banded_align_exact as jax_exact
+from nanopolish_tpu_torch.models.pore_model import PoreModelSet
 from nanopolish_tpu_torch.ops import banded_align as ba
 from nanopolish_tpu_torch.ops import banded_exact as bx
 from nanopolish_tpu_torch.ops.emissions import fma32, log_normal_fused
+from nanopolish_tpu_torch.utils import cuda_build
 from tests import backtrack_chunks as bc
+from tests import banded_ring as br
 
 torch.set_num_threads(2)
+
+
+def jax_banded(*a, **k):
+    from nanopolish_tpu.ops.banded_align import banded_align_batch
+    return banded_align_batch(*a, **k)
+
+
+def jax_forward(*a, **k):
+    from nanopolish_tpu.ops.banded_align import _banded_forward
+    return _banded_forward(*a, **k)
+
+
+def jax_exact(*a, **k):
+    from nanopolish_tpu.ops.pallas_banded_exact import banded_align_exact
+    return banded_align_exact(*a, **k)
 
 
 def _synthetic(B, K, T, epk=2.1, seed=0, noise=1.0, garbage=False):
@@ -150,17 +168,25 @@ def _kernel_constant(name, kernel="banded_fill"):
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
-def ring_fill(x, lookahead):
-    """banded_fill_plain's recurrence with every emission taken from a
-    model of csrc/banded_fill.cu's producer ring: chunks of ``lookahead``
-    bands, each band a slot of 100 + 2 lookahead emissions along its
-    anti-diagonal (e + k = band - 2) from kmer kb on, kb the chain's ll_k
-    at the end of the chunk before the previous one.  Asserts that every
-    slot the chain reads (both placements' candidates at each of the 100
-    offsets) lies in the slot, and that the bands the kernel takes as
-    steady (no edge rules) have only valid cells below offset 100, none
-    in the trim column, and the last kmer past the band.  Returns
-    banded_fill_plain's outputs and the number of steady bands."""
+def ring_fill(x, lookahead, per_consumer):
+    """banded_fill_plain's recurrence as csrc/banded_fill.cu splits it
+    between its warps.  The chain takes every emission from a model of the
+    producer ring (chunks of ``lookahead`` bands, each band a slot of 100 +
+    2 lookahead emissions along its anti-diagonal e + k = band - 2 from
+    kmer kb on, kb the chain's ll_k at the end of the chunk before the
+    previous one) and leaves each band's cells, ll_k and su in the cell
+    ring, su[o + r] being offset o's up-move candidate under placement r;
+    the consumers take each chunk's bands in runs of ``per_consumer`` and
+    derive the moves (cell == sl -> FROM_L, else cell == su -> FROM_U) and
+    the trailing-trim best from that ring alone, the best of each run
+    merged at the end.  Asserts that every emission the chain reads lies in
+    its slot; that in a chunk the kernel takes as steady (tested once, at
+    its start) every band has all cells below offset 100 valid, none in
+    the trim column and the last kmer past the band; and that from band
+    D - 1 on (D = n_events + n_kmers + 2) a read's cells are -inf and its
+    rows zero, and from D on each placement is band & 1.  Returns the
+    outputs (the consumers' trace and best) and the number of steady
+    chunks summed over the reads."""
     ev, nev, mu, sigma, c = (x[k] for k in ("event_mean", "n_events", "mu",
                                             "sigma", "c"))
     nk, lps, lpt = x["n_kmers"], x["lp_stay"], x["lp_step"]
@@ -169,12 +195,14 @@ def ring_fill(x, lookahead):
     n_bands = ba.n_bands_for(T, K)
     span = ba.BANDWIDTH + 2 * lookahead
     f32, i64 = torch.float32, torch.int64
+    bw = ba.BANDWIDTH
     offs = torch.arange(ba.LANES, dtype=i64)[None, :]
-    inband = offs < ba.BANDWIDTH
+    inband = offs < bw
     neg = torch.tensor(float("-inf"), dtype=f32)
     lp_skip = torch.tensor(float(np.float32(ba.LP_SKIP)), dtype=f32)
     lp_trim = torch.tensor(float(np.float32(ba.LP_TRIM)), dtype=f32)
     nev64, nk64 = nev.to(i64)[:, None], nk.to(i64)[:, None]
+    D = torch.clamp(nev.to(i64) + nk.to(i64) + 2, max=n_bands)
     trace = torch.zeros((B, n_bands, ba.TRACE_BYTES), dtype=torch.uint8)
     moves = torch.zeros((B, n_bands), dtype=torch.uint8)
     half = ba.HALF_BANDWIDTH
@@ -184,16 +212,18 @@ def ring_fill(x, lookahead):
     ll_e = torch.full((B,), half, dtype=i64)
     ll_k = torch.full((B,), -1 - half, dtype=i64)
     r_prev = torch.zeros(B, dtype=i64)
-    best_s = torch.full((B,), float("-inf"), dtype=f32)
-    best_e = torch.zeros(B, dtype=i64)
+    n_runs = -(-lookahead // per_consumer)
+    run_s = torch.full((B, n_runs), float("-inf"), dtype=f32)
+    run_e = torch.zeros((B, n_runs), dtype=i64)
+    rows = torch.arange(B)
     kbase = [ll_k.clone(), ll_k.clone()]
     n_steady = 0
     t = torch.arange(span, dtype=i64)[None, :]
     n_chunks = -(-(n_bands - 2) // lookahead)
     for ch in range(n_chunks):
         kb = kbase[ch & 1]
-        bands = range(2 + ch * lookahead,
-                      min(2 + (ch + 1) * lookahead, n_bands))
+        b0 = 2 + ch * lookahead
+        bands = range(b0, min(b0 + lookahead, n_bands))
         ring = []                                # the producers' slots
         for bi in bands:
             k = kb[:, None] + t
@@ -202,14 +232,24 @@ def ring_fill(x, lookahead):
             ring.append(log_normal_fused(
                 torch.gather(ev, 1, e), torch.gather(mu, 1, kc),
                 torch.gather(sigma, 1, kc), torch.gather(c, 1, kc)))
+        # the kernel's steady chunk: tested once, at the chunk's start
+        chunk_steady = (b0 + lookahead <= D) & (ll_e >= bw - 1) & \
+            (ll_e + lookahead < nev64[:, 0]) & (ll_k >= 0) & \
+            (ll_k + lookahead + bw < nk64[:, 0])
+        n_steady += int(chunk_steady.sum())
         for slot, bi in zip(ring, bands):
-            cand = ll_k[:, None] - kb[:, None] + offs
-            assert bool(((cand >= 0) & (cand + 1 < span))[:, :100].all())
-            # the kernel's steady bands skip the edge rules
-            steady = (ll_e >= ba.BANDWIDTH - 1) & (ll_e + 1 < nev64[:, 0]) & \
-                (ll_k >= 0) & (ll_k + ba.BANDWIDTH + 1 < nk64[:, 0])
-            n_steady += int(steady.sum())
-            ll, ur = sp[:, 0], sp[:, ba.BANDWIDTH - 1]
+            live = bi < D                        # the chain's bands
+            d = ll_k - kb
+            cand = d[:, None] + offs
+            assert bool(((cand >= 0) & (cand + 1 < span))[:, :bw][live].all())
+            steady = (ll_e >= bw - 1) & (ll_e + 1 < nev64[:, 0]) & \
+                (ll_k >= 0) & (ll_k + bw + 1 < nk64[:, 0])
+            assert bool(steady[chunk_steady].all())
+            # su as the chain leaves it: offset o under placement 0, with
+            # the previous band's cells and the emission at its ll_k + o
+            em_u = torch.gather(slot, 1, cand.clamp(0, span - 1))
+            su_ring = torch.where(inband, (sp + lps[:, None]) + em_u, neg)
+            ll, ur = sp[:, 0], sp[:, bw - 1]
             both_ob = torch.isneginf(ll) & torch.isneginf(ur)
             right = torch.where(both_ob, bool(bi % 2 == 1), ll < ur)
             r = right.to(i64)
@@ -223,33 +263,53 @@ def ring_fill(x, lookahead):
                                    sp2, float("-inf"))))
             ei, ki = ll_e[:, None] - offs, ll_k[:, None] + offs
             valid = (ei >= 0) & (ei < nev64) & (ki >= 0) & (ki < nk64) & inband
-            # ... as every cell below offset 100 is valid there, none is
-            # in the trim column and the last kmer is past the band
             assert bool((valid == inband)[steady].all())
-            assert bool((nk64[:, 0] - 1 - ll_k >= ba.BANDWIDTH)[steady].all())
+            assert bool((nk64[:, 0] - 1 - ll_k >= bw)[steady].all())
             em = torch.gather(slot, 1, (ki - kb[:, None]).clamp(0, span - 1))
             sd, su = (diag + lpt[:, None]) + em, (up + lps[:, None]) + em
             sl = left + lp_skip
-            m2 = torch.maximum(sd, su)
-            f2 = torch.where(m2 == su, ba.FROM_U, ba.FROM_D)
-            m3 = torch.maximum(m2, sl)
-            code = torch.where(m3 == sl, ba.FROM_L, f2)
+            m3 = torch.maximum(torch.maximum(sd, su), sl)
             cell = torch.where(valid, m3, neg)
-            code = torch.where(valid, code, 0)
             trim = (ki == -1) & (ei >= 0) & (ei < nev64) & inband
             cell = torch.where(trim, lp_trim * (ei.to(f32) + 1.0), cell)
+            # the consumers' moves, from the ring: the cells, su[o + r],
+            # and sl from the previous band's cells
+            su_r = torch.where(rb, ba._shift_left(su_ring, float("-inf")),
+                               su_ring)
+            code = torch.where(cell == sl, ba.FROM_L,
+                               torch.where(cell == su_r, ba.FROM_U, ba.FROM_D))
+            code = torch.where(valid, code, 0)
             code = torch.where(trim, ba.FROM_U, code).to(torch.uint8)
+            # ... equal to banded_fill_plain's, from m2 = max(sd, su)
+            m2 = torch.maximum(sd, su)
+            plain = torch.where(m3 == sl, ba.FROM_L, torch.where(
+                m2 == su, ba.FROM_U, ba.FROM_D))
+            plain = torch.where(valid, plain, 0)
+            plain = torch.where(trim, ba.FROM_U, plain).to(torch.uint8)
+            assert torch.equal(code, plain)
+            # past the read: no cell, and both edges -inf from D on
+            past = bi >= D - 1
+            assert bool(torch.isneginf(cell[past]).all())
+            assert not bool(code[past].any())
+            assert bool((r[bi >= D] == bi % 2).all())
+            # trailing trim, each consumer run in band order, strict >
             end = fma32(nev.to(f32)[:, None] - ei.to(f32), lp_trim, cell)
             end = torch.where(valid & (ki == nk64 - 1), end, neg)
             cand_s, arg = torch.max(end, dim=1)
-            better = cand_s > best_s
-            best_s = torch.where(better, cand_s, best_s)
-            best_e = torch.where(better, ei[torch.arange(B), arg], best_e)
+            run = (bi - b0) // per_consumer
+            better = cand_s > run_s[:, run]
+            run_s[:, run] = torch.where(better, cand_s, run_s[:, run])
+            run_e[:, run] = torch.where(better, ei[rows, arg], run_e[:, run])
             trace[:, bi, :] = ba._pack_codes(code)
             moves[:, bi] = r.to(torch.uint8)
             sp2, sp, r_prev = sp, cell, r
         if ch + 2 < n_chunks:
             kbase[ch & 1] = ll_k.clone()
+    # merged: the largest, the earliest event among equals
+    best_s = run_s.max(dim=1).values
+    tie = run_s == best_s[:, None]
+    best_e = torch.where(tie, run_e, torch.iinfo(torch.int64).max).min(dim=1).values
+    best_e = torch.where(torch.isneginf(best_s), 0, best_e)
     return (trace, moves, ll_e.to(torch.int32), best_e.to(torch.int32),
             best_s), n_steady
 
@@ -268,8 +328,9 @@ def _bits(t):
 
 @pytest.mark.parametrize("case", sorted(CASES) + ["garbage"])
 def test_producer_ring_matches_plain_and_jax(case):
-    """The kernel's producer ring (LOOKAHEAD from csrc/banded_fill.cu)
-    covers every emission the chain reads, and the fill fed from it gives
+    """The kernel's split (LOOKAHEAD, SPAN and CONSUMERS from
+    csrc/banded_fill.cu): its producer ring covers every emission the chain
+    reads, the consumers' moves and best from the cell ring give
     banded_fill_plain's trace, moves, ll_e_last, best_e and best_s bit for
     bit, and the JAX scan's per-band moves, placements and best event."""
     if case == "garbage":
@@ -280,9 +341,10 @@ def test_producer_ring_matches_plain_and_jax(case):
     x = ba.prepare_banded_inputs(ev, nev, mu, sigma, np.log(sigma), nk,
                                  device="cpu")
     lookahead = _kernel_constant("LOOKAHEAD")
-    assert ba.BANDWIDTH + 2 * lookahead == 128
-    got, n_steady = ring_fill(x, lookahead)
-    if case == "clean":
+    assert ba.BANDWIDTH + 2 * lookahead == _kernel_constant("SPAN") == 128
+    per = -(-lookahead // _kernel_constant("CONSUMERS"))
+    got, n_steady = ring_fill(x, lookahead, per)
+    if case in ("clean", "noisy_nonpow2"):
         assert n_steady > 0
     ref = ba.banded_fill_plain(*(x[k] for k in (
         "event_mean", "n_events", "mu", "sigma", "c", "n_kmers", "lp_stay",
@@ -301,6 +363,65 @@ def test_producer_ring_matches_plain_and_jax(case):
     np.testing.assert_array_equal(got[1].numpy()[:, 2:],
                                   (np.diff(ll_e, axis=1) == 0)[:, 1:])
     np.testing.assert_array_equal(got[3].numpy(), np.asarray(best_event))
+
+
+# the chain's band counts: around the chunk edges, and the longest read of
+# the benchmark's first call-methylation chunk (79,509 bases, 79,504 kmers,
+# 2 events a kmer: D = 3 x 79,504 + 2)
+SCHEDULE_BANDS = [1, br.LOOKAHEAD - 1, br.LOOKAHEAD, br.LOOKAHEAD + 1,
+                  2 * br.LOOKAHEAD + 1, 3 * 79_504]
+
+
+@pytest.mark.parametrize("n_chain", SCHEDULE_BANDS)
+def test_handoff_schedule(n_chain):
+    """The model of the kernel's warps (tests/banded_ring.py) under random
+    interleavings, some running the chain far ahead and some far behind:
+    no warp waits forever, every read finds what the chain or the
+    producers wrote for it, no slot is overwritten before its readers are
+    done, and every band's trace row is written once."""
+    D = n_chain + 2
+    for seed in range(1 if n_chain > 1000 else 24):
+        rows, steps = br.run_block(D, D + 37, seed)
+        assert steps > n_chain
+
+
+def test_ring_constants_match_kernel():
+    """The schedule model's constants and warp roles are the kernel's."""
+    for name in ("LOOKAHEAD", "SPAN", "EM_BUFS", "CELL_BUFS", "WARPS",
+                 "CHAIN_WARP", "PRODUCERS", "CONSUMERS", "BAR_FULL",
+                 "BAR_EMPTY", "BAR_CFULL", "BAR_CEMPTY", "BAR_DONE"):
+        assert _kernel_constant(name) == getattr(br, name), name
+    src = open(os.path.join(os.path.dirname(bx.__file__), "..", "csrc",
+                            "banded_fill.cu")).read()
+    assert "if (warp != CHAIN_WARP && warp % 4 == 0) return;" in src
+    assert "const int role = warp - 1 - warp / 4;" in src
+    roles = br.roles()
+    assert [w for w, (r, _) in roles.items() if r == "idle"] == \
+        [w for w in range(br.WARPS) if w % 4 == 0 and w != br.CHAIN_WARP]
+    assert sorted(i for r, i in roles.values() if r == "producer") == \
+        list(range(br.PRODUCERS))
+    assert sorted(i for r, i in roles.values() if r == "consumer") == \
+        list(range(br.CONSUMERS))
+
+
+def test_chain_band_counter_in_profile_report():
+    """cuda_build.CHAIN_BANDS: a launch's chain and read bands, printed in
+    the NPT_PROFILE report after the scopes."""
+    import io
+    from nanopolish_tpu_torch.utils import profiler
+    before = list(cuda_build.CHAIN_BANDS["banded_fill"])
+    try:
+        cuda_build.count_chain_bands("banded_fill", 24_002, 256)
+        cuda_build.count_chain_bands("banded_fill", 100, 4)
+        n, chain, reads = cuda_build.CHAIN_BANDS["banded_fill"]
+        assert (n - before[0], chain - before[1], reads - before[2]) == \
+            (2, 24_102, 256 * 24_002 + 400)
+        buf = io.StringIO()
+        profiler._report(buf)
+        assert f"[profile] banded_fill chain: {n} launches, {chain} chain " \
+            f"bands, {reads} read bands" in buf.getvalue().splitlines()
+    finally:
+        cuda_build.CHAIN_BANDS["banded_fill"][:] = before
 
 
 def test_backtrack_chunk_constants_match_kernel():
@@ -368,14 +489,30 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(CASES) + ["2kb", "garbage"])
+@pytest.mark.parametrize("case", sorted(CASES) + ["2kb", "garbage",
+                                                  "long_among_short",
+                                                  "under_a_chunk"])
 def test_kernels_match_plain_on_gpu(case, cuda_device):
-    """Every case above, the garbage reads, and one 2 kb read (4,000
-    events: ~430 chunks of the fill's producer ring, ~190 of the
-    backtrack's), kernels against plain bit for bit."""
+    """Every case above, the garbage reads, one 2 kb read (4,000 events:
+    ~430 chunks of the fill's producer ring, ~190 of the backtrack's), one
+    20 kb read among seven 1 kb reads (their blocks end at bands 3,002 and
+    60,002: the short ones write the rows past their reads while the long
+    one runs) and one read of fewer bands than a chunk, kernels against
+    plain bit for bit (the long case's plain version on the CPU, where it
+    runs faster: plain is the same on both, chip_smoke phase 2)."""
+    plain_dev = cuda_device
     if case == "2kb":
         ev, mu, sigma = _synthetic(1, 2000, 4000, epk=2.0, seed=1)
         nev, nk = np.array([4000], np.int32), np.array([2000], np.int32)
+    elif case == "long_among_short":
+        ev, mu, sigma = _synthetic(8, 20_000, 40_000, epk=2.0, seed=12)
+        nev = np.array([40_000] + [2_000] * 7, np.int32)
+        nk = np.array([20_000] + [1_000] * 7, np.int32)
+        plain_dev = torch.device("cpu")
+    elif case == "under_a_chunk":
+        ev, mu, sigma = _synthetic(1, 4, 7, epk=7 / 4, seed=4)
+        nev, nk = np.array([7], np.int32), np.array([4], np.int32)
+        assert ba.n_bands_for(7, 4) - 2 < _kernel_constant("LOOKAHEAD")
     elif case == "garbage":
         ev, mu, sigma = _synthetic(2, 300, 640, seed=9, garbage=True)
         nev, nk = np.full(2, 640, np.int32), np.full(2, 300, np.int32)
@@ -385,14 +522,17 @@ def test_kernels_match_plain_on_gpu(case, cuda_device):
                                  device=cuda_device)
     args = (x["event_mean"], x["n_events"], x["mu"], x["sigma"], x["c"],
             x["n_kmers"], x["lp_stay"], x["lp_step"])
+    chain = list(cuda_build.CHAIN_BANDS["banded_fill"])
     fk = bx.banded_fill(*args)
-    fp = ba.banded_fill_plain(*args)
+    n_bands = ba.n_bands_for(ev.shape[1], mu.shape[1])
+    assert cuda_build.CHAIN_BANDS["banded_fill"] == [
+        chain[0] + 1, chain[1] + n_bands, chain[2] + len(nev) * n_bands]
+    fp = ba.banded_fill_plain(*(a.to(plain_dev) for a in args))
     for a, b in zip(fk, fp):
-        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
-                           b.view(torch.int32) if b.is_floating_point() else b)
+        assert torch.equal(_bits(a.cpu()), _bits(b.cpu()))
     tail = (x["event_mean"], x["mu"], x["sigma"], x["c"], x["n_kmers"])
     bk = bx.banded_backtrack(fk[0], fk[1], fk[2], fk[3], *tail)
-    bp = ba.banded_backtrack_plain(fp[0], fp[1], fp[2], fp[3], *tail)
+    bp = ba.banded_backtrack_plain(*(a.to(plain_dev) for a in (
+        fp[0], fp[1], fp[2], fp[3]) + tail))
     for a, b in zip(bk, bp):
-        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
-                           b.view(torch.int32) if b.is_floating_point() else b)
+        assert torch.equal(_bits(a.cpu()), _bits(b.cpu()))

@@ -24,6 +24,10 @@ chip_smoke.py, so that two checkouts run the same inputs:
   banded-check chip_smoke.py's banded fill batch, 256 reads x 8 kb
   banded-ea    the banded fill launch of the eventalign run on
                chip_smoke.py's 64 reads x 8 kb (--capture)
+  banded-cm    the benchmark's heaviest call-methylation launch: 64 reads
+               with the lengths of cm-longread's first chunk (longest
+               79,509 bases; benchmark/harness/generator.read_lengths),
+               2 events a kmer
   fwd-check    chip_smoke.py's 2,048 call-methylation-shaped Forward
                segments at one kmer width (256)
   fwd-bucketed the same 2,048 launched as segments.forward_arrays_async
@@ -63,7 +67,9 @@ differently; idx cases also report the flush's CUDA-event time with its
 uploads and fetch (wall_ms).  The vit-bt, banded and seg-bt cases' times
 are the kernel's device time per call too (a ~20 us traceback is shorter
 than its wrapper's host work), with the call's CUDA-event time in
-wall_ms.  Every other time is a CUDA-event mean over REPS calls after
+wall_ms; the banded fill cases also give ns per chain band (the kernel's
+time over the chain bands of a call, utils/cuda_build.CHAIN_BANDS, or the
+launch's n_bands where the checkout has no such counter).  Every other time is a CUDA-event mean over REPS calls after
 a warm-up.
 
 --cases REGEX runs only the cases whose names match.  --wide-cluster
@@ -89,7 +95,9 @@ to its length; the banded fill's five outputs; the banded backtrack's
 four; the segmentation backtrack's summary and labels).  --json writes that line to
 FILE; --against FILE fails the run unless every output equals FILE's.
 With --sass DIR, writes each kernel's SASS (cuobjdump) into DIR and
-prints instruction and branch counts per kernel function.
+prints instruction and branch counts per kernel function, and the
+instructions and shuffles of each loop that shuffles (a backward branch's
+body; the banded fill's steady loop runs two bands an iteration).
 
 To compare two commits, unpack one with `git archive` into a directory
 that .gitignore lists (here P) and run the two in turns in one call:
@@ -153,6 +161,29 @@ def sass(cs, out_dir):
         cs.log(f"sass {name}: " + "; ".join(
             f"{fn[-60:]}: {n} instructions, {b} branches"
             for fn, (n, b) in counts.items()))
+        loops = shuffle_loops(text)
+        if loops:
+            cs.log(f"sass {name} loops that shuffle (instructions, "
+                   f"shuffles): {loops}")
+
+
+def shuffle_loops(text):
+    """(instructions, SHFL) of each backward branch's body holding a
+    SHFL, innermost first."""
+    ins = []
+    for ln in text.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s*([^;]+);", ln)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2)))
+    out = []
+    for at, op in ins:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+        if m and int(m.group(1), 16) < at:
+            body = [o for a, o in ins if int(m.group(1), 16) <= a <= at]
+            n_shfl = sum("SHFL" in o for o in body)
+            if n_shfl:
+                out.append((len(body), n_shfl))
+    return sorted(set(out))
 
 
 def fill_cases(cs, model, dev, want, step=None):
@@ -259,6 +290,13 @@ def seg_cases(cs, dev, cap):
     return out
 
 
+def split_path(path):
+    """(launches made, path ms) by kernel of a chip_smoke.py path record
+    ({kernel: {"ms", "made", "recorded"}})."""
+    return ({k: v["made"] for k, v in path.items()},
+            {k: v["ms"] for k, v in path.items()})
+
+
 def capture(cs, dev, path):
     """Run the eventalign, variants and polya main paths once, recording
     the eventalign ingest's banded fill launch, the largest
@@ -296,9 +334,9 @@ def capture(cs, dev, path):
     sv.seg_viterbi_fill = seg_spy
     bx.banded_fill = band_spy
     try:
-        launches, path_ms, _ = cs.phase_eventalign(dev)
-        own = {"forward_indexed": cs.phase_variants(dev),
-               "seg_viterbi_fill": cs.phase_polya(dev)}
+        launches, path_ms = split_path(cs.phase_eventalign(dev)[0])
+        own = {"forward_indexed": split_path(cs.phase_variants(dev)),
+               "seg_viterbi_fill": split_path(cs.phase_polya(dev))}
     finally:
         for mod in callers:
             mod.forward_indexed_scores = flush_fn
@@ -323,22 +361,63 @@ def backtrack_cases(cs, model, dev):
     return out
 
 
+def cm_chunk_lengths():
+    """The read lengths of the benchmark's cm-longread first chunk of 64
+    (its configuration's pass, in the harness's layout)."""
+    bench = os.path.join(HERE, "benchmark")
+    sys.path.insert(0, bench)
+    try:
+        from harness import generator
+    finally:
+        sys.path.remove(bench)
+    with open(os.path.join(bench, "configs", "r94-na12878-cpg.json")) as fh:
+        cfg = json.load(fh)
+    with open(os.path.join(bench, "traffic", "longread.json")) as fh:
+        traffic = json.load(fh)
+    lens = generator.read_lengths(traffic,
+                                  generator.reads_per_pass(cfg, traffic))
+    return lens[:64], int(cfg["signal"]["k"])
+
+
 def banded_cases(cs, model, dev, cap):
     """(case, banded_fill arguments) of banded-check (chip_smoke phase 2's
-    timed batch) and banded-ea (the captured eventalign launch)."""
+    timed batch), banded-ea (the captured eventalign launch) and banded-cm
+    (the benchmark's heaviest call-methylation launch)."""
     import torch
     from nanopolish_tpu_torch.ops import banded_align as ba
+    keys = ("event_mean", "n_events", "mu", "sigma", "c", "n_kmers",
+            "lp_stay", "lp_step")
     ev, nev, mu, sigma, nk = cs.banded_case(model, 256, 8000, 16000, seed=3)
     x = ba.prepare_banded_inputs(ev, nev, mu, sigma, np.log(sigma), nk,
                                  device=dev)
-    out = [("banded-check", tuple(x[k] for k in (
-        "event_mean", "n_events", "mu", "sigma", "c", "n_kmers", "lp_stay",
-        "lp_step")))]
+    out = [("banded-check", tuple(x[k] for k in keys))]
+    lens, kmer_len = cm_chunk_lengths()
+    nk = (lens - kmer_len + 1).astype(np.int32)
+    ev, nev, mu, sigma, nk = cs.banded_case(
+        model, len(nk), int(nk.max()), int(2 * nk.max()), seed=21,
+        n_events=2 * nk, n_kmers=nk)
+    x = ba.prepare_banded_inputs(ev, nev, mu, sigma, np.log(sigma), nk,
+                                 device=dev)
+    out.append(("banded-cm", tuple(x[k] for k in keys)))
     if cap is not None and "band0" in cap:
         out.append(("banded-ea", tuple(torch.as_tensor(cap[f"band{i}"],
                                                        device=dev)
                                        for i in range(8))))
     return out
+
+
+def chain_bands(run, args) -> int:
+    """The chain bands of one banded fill call: the checkout's
+    cuda_build.CHAIN_BANDS over one run(), or the launch's n_bands where
+    the checkout has no such counter."""
+    from nanopolish_tpu_torch.ops import banded_align as ba
+    from nanopolish_tpu_torch.utils import cuda_build
+    counter = getattr(cuda_build, "CHAIN_BANDS", None)
+    if counter is None:
+        return ba.n_bands_for(args[0].shape[1], args[2].shape[1])
+    before = counter["banded_fill"][1]
+    run()
+    return counter["banded_fill"][1] - before
 
 
 def fill_digest(name, x, out) -> str:
@@ -423,11 +502,12 @@ def main() -> int:
         ea, own = capture(cs, dev, a.capture)
     cap = np.load(a.capture) if a.capture else None
     if a.paths:
-        launches, path_ms = ea or cs.phase_eventalign(dev)[:2]
-        cm_launches, cm_path_ms = cs.phase_call_methylation(dev)
+        launches, path_ms = ea or split_path(cs.phase_eventalign(dev)[0])
+        cm_launches, cm_path_ms = split_path(
+            cs.phase_call_methylation(dev)[0])
         if own is None:
-            own = {"forward_indexed": cs.phase_variants(dev),
-                   "seg_viterbi_fill": cs.phase_polya(dev)}
+            own = {"forward_indexed": split_path(cs.phase_variants(dev)),
+                   "seg_viterbi_fill": split_path(cs.phase_polya(dev))}
             own["seg_backtrack"] = own["seg_viterbi_fill"]
         own["forward_fill"] = (cm_launches, cm_path_ms)
         for k, (ln, pm) in own.items():
@@ -439,7 +519,7 @@ def main() -> int:
     fill = {"viterbi_fill": pv.viterbi_fill, "forward_fill": pf.forward_fill}
     model = PoreModelSet.instance().get_model(
         "r9.4_450bps", "nucleotide", "template", 6)
-    times, walls, digests = {}, {}, {}
+    times, walls, digests, ns_band = {}, {}, {}, {}
     for case, name, xs in fill_cases(cs, model, dev, want, a.step):
         args = [(x["levels"], x["n_events"], x["mu"], x["sigma"], x["c"],
                  x["n_kmers"], x["trans"], x["clips"]) for x in xs]
@@ -486,8 +566,8 @@ def main() -> int:
                f"kernel {times[case]:.4f} ms (call {walls[case]:.4f} ms)")
         del tr
     b_cases = banded_cases(cs, model, dev, cap) if family(
-        "banded-check", "banded-ea", "banded-bt-check", "banded-bt-ea") \
-        else []
+        "banded-check", "banded-ea", "banded-cm", "banded-bt-check",
+        "banded-bt-ea", "banded-bt-cm") else []
     for case, args in b_cases:
         if not (want(case) or want(case.replace("banded-", "banded-bt-"))):
             continue
@@ -497,9 +577,11 @@ def main() -> int:
         digests[case] = sha(*(t.cpu().numpy() for t in run()))
         times[case] = cs.kernel_ms(run, "banded_fill", REPS)
         walls[case] = cs.cuda_ms(run, reps=REPS)
+        ns_band[case] = times[case] * 1e6 / chain_bands(run, args)
         cs.log(f"{case}: {args[0].shape[0]} reads, {args[0].shape[1]} "
                f"events x {args[2].shape[1]} kmers: kernel "
-               f"{times[case]:.4f} ms (call {walls[case]:.4f} ms)")
+               f"{times[case]:.4f} ms (call {walls[case]:.4f} ms), "
+               f"{ns_band[case]:.2f} ns per chain band")
         fill = run()
         tail = (args[0], args[2], args[3], args[4], args[5])
 
@@ -553,7 +635,8 @@ def main() -> int:
         walls[bt] = cs.cuda_ms(run_bt, reps=REPS)
         cs.log(f"{bt}: kernel {times[bt]:.4f} ms (call {walls[bt]:.4f} ms)")
         del bk
-    result.update(ms=times, wall_ms=walls, sha256=digests)
+    result.update(ms=times, wall_ms=walls, sha256=digests,
+                  ns_per_chain_band=ns_band)
     print(json.dumps(result), flush=True)
     if a.json:
         with open(a.json, "w") as fh:
