@@ -34,7 +34,8 @@ Jobs the chain cannot express go back to the host wavefront, which also
 runs on the card: spliced (multi-segment) alignments and reads whose
 closest-event map has holes (``stage_job`` declines them), windows the
 padded shape cannot hold and chains that outrun the round budget (aborted,
-found when the batch is unpacked).  ``CHAIN_STATS`` counts each.
+found when the batch is unpacked).  ``CHAIN_STATS`` counts each, and
+the work of the chain's rounds (see its comment).
 """
 
 from __future__ import annotations
@@ -45,11 +46,13 @@ import numpy as np
 import torch
 
 from ..ops.banded_align import emission_constant
-from ..ops.chain_step import (ACTIVE, DONE, M_COFF, M_FWD, M_K,
+from ..ops.chain_step import (ACTIVE, CELLS_CARRY, DONE, M_COFF, M_FWD, M_K,
                               M_LAST, M_LOFF, M_NCLOSE, M_NLEV, M_NPAIRS,
                               M_NRANK, M_OCAP, M_OOFF, M_POFF, M_REFOFF,
-                              M_ROFF, N_META, N_STATE, PAD_C, S_CURSOR, S_EV,
-                              S_REF, S_STATUS, chain_consume, chain_prepare)
+                              M_ROFF, N_META, N_STATE, PAD_C, S_CELLS,
+                              S_CELLS_HI, S_CURSOR, S_EV, S_REF, S_STATUS,
+                              S_STEPS, S_WINDOWS, chain_consume,
+                              chain_prepare)
 from ..ops.profile_hmm import make_transitions
 from ..ops.profile_hmm_viterbi import viterbi_backtrack, viterbi_fill
 from ..utils.device import resolve_device
@@ -65,9 +68,14 @@ CHAIN_BATCH = 256    # jobs per batch: a 64 KiB trace each
 ROWS_SLACK = 64      # output rows a job may hold beyond its event range
 
 # how many jobs the chain took and sent back to the host wavefront, and
-# why; the batches, rounds and active-count reads it made
+# why; the batches, rounds and active-count reads it made; the work of its
+# rounds, summed over every job's windows (each round in which a job has a
+# window, aborted jobs' up to their abort): the Viterbi fill's DP cells
+# (n_events x n_kmers), the backtracks' path steps (each path's length),
+# the windows, and the job slots the rounds ran (jobs x rounds of a batch)
 CHAIN_STATS = {"chained": 0, "ineligible": 0, "aborted": 0, "batches": 0,
-               "rounds": 0, "checks": 0}
+               "rounds": 0, "checks": 0, "vit_cells": 0, "path_steps": 0,
+               "live_windows": 0, "slot_rounds": 0}
 
 
 def reset_chain_stats() -> None:
@@ -227,8 +235,13 @@ class ChainBatch:
         caps = np.array([d.max_range + ROWS_SLACK for d in djobs], np.int64)
         self.o_off = np.concatenate([[0], np.cumsum(caps)[:-1]])
         self.n_rows = int(caps.sum())
-        if max(len(pairs_ref), len(levels), len(tabs), self.n_rows) >= 1 << 31:
-            raise ValueError("a chain batch holds more than 2^31 rows")
+        self.max_rounds = round_budget(max(d.max_range for d in djobs))
+        # int32 offsets, and a job's path steps over the round budget in
+        # an int32 state column (its DP cells carry into a second one)
+        if max(len(pairs_ref), len(levels), len(tabs), self.n_rows,
+               self.max_rounds * (TP + KP)) >= 1 << 31:
+            raise ValueError("a chain batch holds more than 2^31 rows or "
+                             "path steps")
         meta = np.zeros((B, N_META), np.int64)
         for col, vals in ((M_POFF, p_off), (M_NPAIRS, n_pairs),
                           (M_LOFF, l_off), (M_NLEV, n_lev), (M_ROFF, r_off),
@@ -275,7 +288,6 @@ class ChainBatch:
                                 device=dev)
         self.rows = torch.zeros((3, self.n_rows), dtype=torch.int32,
                                 device=dev)
-        self.max_rounds = round_budget(max(d.max_range for d in djobs))
 
     def prepare(self):
         chain_prepare(self.meta, self.state, *self.statics, self.levels,
@@ -296,21 +308,26 @@ class ChainBatch:
         """The chains still active: one blocking read of the device's
         state (the host waits for the rounds issued so far)."""
         CHAIN_STATS["checks"] += 1
-        return int(timed_fetch((self.state[:, S_STATUS] == ACTIVE).sum()))
+        with profile_scope("ea.chain_check"):
+            return int(timed_fetch((self.state[:, S_STATUS] == ACTIVE).sum()))
 
     def run(self) -> int:
         """Rounds until every chain has ended (read every CHECK_EVERY
         rounds) or the budget is spent; returns the rounds run."""
         rnd = 0
         while rnd < self.max_rounds:
-            self.prepare()
-            self.viterbi()
-            self.consume()
-            rnd += 1
+            n = min(CHECK_EVERY, self.max_rounds - rnd)
+            with profile_scope("ea.chain_rounds"):
+                for _ in range(n):
+                    self.prepare()
+                    self.viterbi()
+                    self.consume()
+            rnd += n
             if rnd % CHECK_EVERY == 0 and self.n_active() == 0:
                 break
         CHAIN_STATS["batches"] += 1
         CHAIN_STATS["rounds"] += rnd
+        CHAIN_STATS["slot_rounds"] += self.B * rnd
         return rnd
 
     def unpack(self) -> List[bool]:
@@ -322,6 +339,11 @@ class ChainBatch:
                                       self.rows.reshape(-1)]))
         st = flat[:B * N_STATE].reshape(B, N_STATE)
         out = flat[B * N_STATE:].reshape(3, self.n_rows)
+        work = st.astype(np.int64).sum(axis=0)
+        CHAIN_STATS["vit_cells"] += int(work[S_CELLS] +
+                                        work[S_CELLS_HI] * CELLS_CARRY)
+        CHAIN_STATS["path_steps"] += int(work[S_STEPS])
+        CHAIN_STATS["live_windows"] += int(work[S_WINDOWS])
         ok = []
         for i, d in enumerate(self.djobs):
             n = int(st[i, S_CURSOR])             # rows kept

@@ -294,7 +294,8 @@ def align_reads_to_ref(
     if live and _device_chain_on(device):
         _run_device_chain(live, device)
         live = [j for j in live if not j.done]
-    _run_wavefront(live, device)
+    with profile_scope("ea.wavefront"):
+        _run_wavefront(live, device)
 
     out = []
     for j in jobs:

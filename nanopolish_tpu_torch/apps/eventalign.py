@@ -345,11 +345,18 @@ def _eventalign(opt, out, device):
     region_end = (proc.clip_end - 1) if (opt.window and proc.clip_end >= 0) \
         else -1
 
-    for batch in proc.batches():
+    batches = proc.batches()
+    while True:
+        with profile_scope("ea.next_batch"):
+            batch = next(batches, None)
+        if batch is None:
+            break
         names = sorted({rec.qname for _, rec in batch})
-        reads = load_squiggle_reads(names, read_db, flags=flags,
-                                    stats=GLOBAL_READ_STATS,
-                                    num_threads=opt.threads, device=device)
+        with profile_scope("ea.load_reads"):
+            reads = load_squiggle_reads(names, read_db, flags=flags,
+                                        stats=GLOBAL_READ_STATS,
+                                        num_threads=opt.threads,
+                                        device=device)
         jobs = []
         meta = []
         for read_idx, rec in batch:
@@ -361,9 +368,10 @@ def _eventalign(opt, out, device):
                     continue
                 jobs.append((sr, rec, strand, read_idx))
                 meta.append((sr, rec, strand, read_idx))
-        results = align_reads_to_ref(jobs, fai, proc.references,
-                                     region_start, region_end,
-                                     columnar=True, device=device)
+        with profile_scope("ea.align"):
+            results = align_reads_to_ref(jobs, fai, proc.references,
+                                         region_start, region_end,
+                                         columnar=True, device=device)
         with profile_scope("ea.emit"):
             for (sr, rec, strand, read_idx), cols in zip(meta, results):
                 alignment = None      # row materialization, on demand only

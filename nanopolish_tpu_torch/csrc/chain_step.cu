@@ -44,9 +44,12 @@ constexpr long long KMER_MASK = (1ll << 30) - 1;
 constexpr int M_POFF = 0, M_NPAIRS = 1, M_LOFF = 2, M_NLEV = 3, M_ROFF = 4,
               M_NRANK = 5, M_COFF = 6, M_NCLOSE = 7, M_LAST = 8, M_FWD = 9,
               M_REFOFF = 10, M_K = 11, M_OOFF = 12, M_OCAP = 13, N_META = 14;
-// state columns
+// state columns; the last four count the work of the job's windows (the
+// rounds with stride != 0): windows, DP cells as lo + hi * 2^30, path steps
 constexpr int S_EV = 0, S_REF = 1, S_PAIR = 2, S_STATUS = 3, S_CURSOR = 4,
-              S_STRIDE = 5, S_LAST = 6, N_STATE = 8;
+              S_STRIDE = 5, S_LAST = 6, S_WINDOWS = 7, S_CELLS = 8,
+              S_CELLS_HI = 9, S_STEPS = 10, N_STATE = 11;
+constexpr int CELLS_CARRY = 1 << 30;
 constexpr int ACTIVE = 0, DONE = 1, ABORTED = 2;
 
 // get_end_pair(pairs, q, hint) on ascending refs: the first index from
@@ -145,6 +148,15 @@ __global__ void chain_step_prepare_kernel(
         s[S_STATUS] = status;
         s[S_STRIDE] = stride;
         s[S_LAST] = last;
+        if (stride != 0) {
+            int cells = s[S_CELLS] + nev * nk;     // nev * nk <= TP * KP
+            if (cells >= CELLS_CARRY) {
+                cells -= CELLS_CARRY;
+                s[S_CELLS_HI] += 1;
+            }
+            s[S_CELLS] = cells;
+            s[S_WINDOWS] += 1;
+        }
     }
 }
 
@@ -199,6 +211,7 @@ __global__ void chain_step_consume_kernel(
     }
     __syncwarp();
     if (lane == 0) {
+        s[S_STEPS] += n;
         if (kept == 0) {
             s[S_STATUS] = DONE;
         } else {

@@ -22,7 +22,11 @@ builds them):
                              k, and its output rows' offset and capacity
   state [B, N_STATE] i32     the chain: start event and ref, pair hint,
                              status, cursor; this round's stride (0: no
-                             window) and last-section flag
+                             window) and last-section flag; and the work
+                             of the job's windows so far: windows, DP
+                             cells (n_events x n_kmers, in two columns:
+                             below and above 2^30) and traceback path
+                             steps
   pairs_ref, pairs_read i32  the aligned pairs (read side flipped for
                              reverse records), refs ascending
   closest i32                ``closest_event_array`` of the job's b2e map
@@ -50,9 +54,14 @@ OUTPUT_STRIDE = 50   # rows kept per window but the last (eventalign.cpp:669)
 (M_POFF, M_NPAIRS, M_LOFF, M_NLEV, M_ROFF, M_NRANK, M_COFF, M_NCLOSE,
  M_LAST, M_FWD, M_REFOFF, M_K, M_OOFF, M_OCAP) = range(14)
 N_META = 14
-# state columns
-S_EV, S_REF, S_PAIR, S_STATUS, S_CURSOR, S_STRIDE, S_LAST = range(7)
-N_STATE = 8
+# state columns; the last four count the work of every round in which the
+# job has a window (stride != 0), aborted jobs up to their abort: the
+# windows, the fill's DP cells (n_events x n_kmers) as lo + hi * 2^30, and
+# the backtrack's path steps (the path's length, K cells included)
+(S_EV, S_REF, S_PAIR, S_STATUS, S_CURSOR, S_STRIDE, S_LAST, S_WINDOWS,
+ S_CELLS, S_CELLS_HI, S_STEPS) = range(11)
+N_STATE = 11
+CELLS_CARRY = 1 << 30
 # job status
 ACTIVE, DONE, ABORTED = 0, 1, 2
 # C entry point's operation
@@ -76,7 +85,9 @@ def chain_prepare(meta, state, pairs_ref, pairs_read, closest, levels_all,
     Viterbi inputs in place: ``levels[b, :n_events[b]]`` and the whole
     ``mu``/``sigma``/``c`` rows (kmers past ``n_kmers[b]`` padded with 0, 1
     and ``PAD_C``) of each job that has a window this round; a job without
-    one gets ``n_events = n_kmers = 1`` and its rows are left as they are."""
+    one gets ``n_events = n_kmers = 1`` and its rows are left as they are.
+    A job with a window adds 1 to its ``S_WINDOWS`` and n_events x n_kmers
+    to its cells (``S_CELLS`` + ``S_CELLS_HI`` x ``CELLS_CARRY``)."""
     if state.device.type == "cpu":
         return chain_prepare_plain(meta, state, pairs_ref, pairs_read,
                                    closest, levels_all, tabs, levels, mu,
@@ -112,7 +123,8 @@ def chain_prepare(meta, state, pairs_ref, pairs_read, closest, levels_all,
 def chain_consume(meta, state, pairs_ref, path, rows):
     """Apply one round's tracebacks (``path`` [B, 1 + T + KP] int64, the
     layout of ``viterbi_backtrack``): write each job's kept rows into
-    ``rows`` at its cursor and re-anchor its chain, updating ``state``."""
+    ``rows`` at its cursor and re-anchor its chain, updating ``state``.
+    A job with a window adds its path's length to ``S_STEPS``."""
     if state.device.type == "cpu":
         return chain_consume_plain(meta, state, pairs_ref, path, rows)
     cuda_build.require_cuda(state)
@@ -229,6 +241,12 @@ def chain_prepare_plain(meta, state, pairs_ref, pairs_read, closest,
     state[:, S_STATUS] = status.to(torch.int32)
     state[:, S_STRIDE] = stride.to(torch.int32)
     state[:, S_LAST] = last.to(torch.int32)
+    cells = s[:, S_CELLS] + torch.where(act, nev * nkr, 0)
+    carry = cells >= CELLS_CARRY
+    state[:, S_WINDOWS] = (s[:, S_WINDOWS] + act.to(i64)).to(torch.int32)
+    state[:, S_CELLS] = torch.where(carry, cells - CELLS_CARRY, cells).to(
+        torch.int32)
+    state[:, S_CELLS_HI] = (s[:, S_CELLS_HI] + carry.to(i64)).to(torch.int32)
 
 
 def chain_consume_plain(meta, state, pairs_ref, path, rows):
@@ -278,4 +296,6 @@ def chain_consume_plain(meta, state, pairs_ref, path, rows):
     state[:, S_REF] = torch.where(upd, last_ref, start_ref).to(torch.int32)
     state[:, S_PAIR] = torch.where(upd, hint, s[:, S_PAIR]).to(torch.int32)
     state[:, S_CURSOR] = torch.where(upd, cursor + kept, cursor).to(
+        torch.int32)
+    state[:, S_STEPS] = (s[:, S_STEPS] + torch.where(go, n, 0)).to(
         torch.int32)

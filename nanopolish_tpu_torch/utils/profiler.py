@@ -52,6 +52,15 @@ The port's own spans:
   meth.load_chunk              a chunk's loading (the loader thread's root)
   meth.resolve                 a chunk's score fetch and site columns (the
                                fetch thread's root)
+  ea.next_batch                eventalign's batch of BAM records decoded
+  ea.load_reads                a batch's reads loaded (parent of the
+                               read_loader and read_builder spans)
+  ea.align                     align_reads_to_ref over a batch's jobs
+  ea.chain_rounds              the device chain's rounds issued between
+                               two active-count reads
+  ea.chain_check               the blocking read of the active count
+  ea.wavefront                 the host wavefront (the jobs the chain
+                               declined or gave back)
   read_loader.load_raw         signal reading and decompression (BLOW5)
   read_builder.detect          host event detection
   read_builder.assemble        the reads' kmer ranks, event tables and

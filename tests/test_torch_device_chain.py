@@ -17,6 +17,10 @@ JAX package.
     budget) is counted in CHAIN_STATS and gives identical output;
   * the active count is read once every CHECK_EVERY rounds, the rows
     fetched once a batch;
+  * under NPT_PROFILE, one eventalign call opens the host path's spans
+    (the batch's decoding, the reads' load, the alignment, the chain's
+    rounds and checks, the host wavefront), each with its parent, and
+    prints the same TSV;
   * scorereads and methyltrain run on the chain's alignments, held on
     each call to the host wavefront's.
 """
@@ -48,6 +52,7 @@ from nanopolish_tpu_torch.models.squiggle import (SquiggleRead,
 from nanopolish_tpu_torch.ops import chain_step as cs
 from nanopolish_tpu_torch.ops.banded_align import emission_constant
 from nanopolish_tpu_torch.ops.profile_hmm import paths_to_segments
+from nanopolish_tpu_torch.utils import profiler
 from nanopolish_tpu_torch.utils.alphabet import DNA_ALPHABET
 from nanopolish_tpu_torch.utils.synthetic import (random_sequence,
                                                   synthetic_raw_signal)
@@ -167,6 +172,41 @@ def test_chain_reads_its_state_once_every_check_rounds(runs):
     # the loop stopped at the first read that saw no active chain
     assert st["rounds"] % dc.CHECK_EVERY == 0
     assert st["rounds"] < dc.round_budget(GENOME_LEN * 10)
+
+
+# eventalign's span -> its parent on the main thread
+EA_SPANS = {"ea.next_batch": "ea.pass", "ea.load_reads": "ea.pass",
+            "ea.align": "ea.pass", "ea.chain_rounds": "ea.align",
+            "ea.chain_check": "ea.align", "ea.wavefront": "ea.align",
+            "read_loader.load_raw": "ea.load_reads",
+            "read_builder.detect": "ea.load_reads",
+            "read_builder.process_chunk": "ea.load_reads"}
+
+
+def test_eventalign_spans_and_their_parents(pipe, runs, monkeypatch,
+                                             tmp_path):
+    for name, value in (("_scopes", {}), ("_self", {}), ("_records", [])):
+        monkeypatch.setattr(profiler, name, value)
+    monkeypatch.setenv("NPT_PROFILE", "1")
+    monkeypatch.setenv("NPT_PROFILE_TRACE", str(tmp_path / "spans.json"))
+    tsv, st = _eventalign(pipe, "1", monkeypatch)
+    assert tsv == runs["chain"]
+    spans = profiler.spans()
+    by_name = {}
+    for s in spans:
+        by_name.setdefault(s.name, []).append(s)
+    (root,) = by_name["ea.pass"]
+    for name, parent in EA_SPANS.items():
+        assert name in by_name, name
+        for s in by_name[name]:
+            assert s.parent.name == parent and s.tid == root.tid, name
+            assert root.start <= s.start <= s.end <= root.end, name
+    # a group of rounds before each active-count read, the last beside
+    assert len(by_name["ea.chain_check"]) == st["checks"] >= 1
+    assert len(by_name["ea.chain_rounds"]) == -(-st["rounds"] //
+                                                dc.CHECK_EVERY)
+    snap = profiler.snapshot()
+    assert snap["ea.pass.self"][1] < snap["ea.pass"][1]
 
 
 def test_goldens_through_the_chain(ea_pipe, monkeypatch):  # noqa: F811
