@@ -29,7 +29,9 @@ Phases (any failure exits non-zero; nothing is caught):
      its plain versions, bit for bit, on every round of the eventalign
      main path's 64 chains (64 reads x 8 kb, forward and reverse, last
      sections, jobs that have ended beside active ones): state, Viterbi
-     inputs and kept rows; then timing on a round of 64 windows;
+     inputs and kept rows; again in 40 slots, each slot freed taking the
+     queue's next chain in the same round (final state and rows equal to
+     the first run's); then timing on a round of 64 windows;
   4. the Forward kernels' log1pf against torch.log1p on every float in
      [0, 1]; the profile-HMM Forward kernel against its plain version, bit
      for bit, on 2,048 call-methylation-shaped segments (17-221 kmers, 30-460
@@ -982,30 +984,121 @@ def chain_jobs(dev):
 
 
 def chain_round_bytes(batch, st_before, st_after):
-    """Bytes one round of chain_step must move: per job with a window, its
-    event levels and kmer rows read and written (4 + 4 bytes an event, 24
-    a kmer of mu, sigma and c, the written rows padded to KP), the round's
-    path read (8 bytes a cell and its length), the kept rows written (12
-    bytes each), the two counts written, and for every job its meta and
-    state read and its state written by each launch."""
+    """Bytes one round of chain_step must move: per slot with a window,
+    its event levels and kmer rows read and written (4 + 4 bytes an
+    event, 24 a kmer of mu, sigma and c, the written rows padded to KP),
+    the round's path read (8 bytes a cell and its length), the kept rows
+    written (12 bytes each), the two counts written, and for every slot
+    its job's meta and state read and its state written by each
+    launch."""
     from nanopolish_tpu_torch.ops import chain_step as cs
-    active = st_after[:, cs.S_STRIDE] != 0        # this round's windows
+    job = batch.sched[1:].cpu().numpy()
+    active = job >= 0                      # the slots with a window
     nev = batch.n_events.cpu().numpy().astype(np.float64)[active]
     nk = batch.n_kmers.cpu().numpy().astype(np.float64)[active]
     cells = batch.path[:, 0].cpu().numpy().astype(np.float64)[active]
-    kept = (st_after[:, cs.S_CURSOR] - st_before[:, cs.S_CURSOR])[active]
+    kept = (st_after[:, cs.S_CURSOR] - st_before[:, cs.S_CURSOR])[
+        job[active]]
     kp = batch.mu.shape[1]
-    per_job = 2 * (4 * cs.N_META + 2 * 4 * cs.N_STATE)
+    per_slot = 2 * (4 * cs.N_META + 2 * 4 * cs.N_STATE)
     return float(np.sum(8 * nev + 12 * nk + 12 * kp + 8 + 8 * (cells + 1)
-                        + 12 * kept) + batch.B * per_job)
+                        + 12 * kept) + batch.S * per_slot)
+
+
+CHAIN_BUFS = ("levels", "mu", "sigma", "c", "n_events", "n_kmers")
+
+
+def chain_inputs_by_job(batch, bufs, sched):
+    """The round's Viterbi inputs (``bufs``: the batch's or a copy's) a
+    row a job with a window, in job order, wherever its slot: the levels
+    past each row's n_events zeroed (a slot's earlier job left them), and
+    the slots without a job (their counts must be 1)."""
+    import torch
+    job = sched[1:].long()
+    held = (job >= 0).nonzero()[:, 0]
+    at = held[torch.argsort(job[held])]
+    out = {n: bufs[n][at] for n in CHAIN_BUFS + ("trans",)}
+    t = torch.arange(out["levels"].shape[1], device=job.device)
+    out["levels"] = torch.where(t[None, :] < out["n_events"][:, None],
+                                out["levels"], 0.0)
+    idle = job < 0
+    out["idle"] = torch.stack([bufs["n_events"][idle],
+                               bufs["n_kmers"][idle]])
+    out["jobs"] = job[at].to(torch.int32)
+    return out
+
+
+def chain_rounds_equal_plain(batch, label):
+    """Every round of ``batch`` on the card beside the plain versions: the
+    prepare's state and queue head, bit for bit, and its Viterbi inputs a
+    job at a time (a warp may take a queued job another slot would in the
+    plain version's slot order); the consume's state and kept rows, bit
+    for bit, from the kernel's slot map.  Returns what the rounds went
+    through and the state and queue of a round in which every slot had a
+    window."""
+    import torch
+    from nanopolish_tpu_torch.ops import chain_step as cs
+    seen = {"rounds": 0, "last": 0, "ended": 0, "refills": 0}
+    snap = None
+    names = CHAIN_BUFS + ("trans",)
+    for _ in range(batch.max_rounds):
+        st0, sched0 = batch.state.clone(), batch.sched.clone()
+        want = {n: getattr(batch, n).clone() for n in names}
+        want_st, want_sched = st0.clone(), sched0.clone()
+        batch.prepare()
+        cs.chain_prepare_plain(batch.meta, want_st, *batch.statics,
+                               batch.trans_all, batch.budget, want["trans"],
+                               want_sched, *(want[n] for n in CHAIN_BUFS))
+        if not (bits_equal(batch.state, want_st) and
+                int(batch.sched[0]) == int(want_sched[0])):
+            fail(f"{label} chain_prepare: state or queue head differs from "
+                 f"plain in round {seen['rounds']}")
+        got = chain_inputs_by_job(
+            batch, {n: getattr(batch, n) for n in names}, batch.sched)
+        ref = chain_inputs_by_job(batch, want, want_sched)
+        for name in got:
+            if not bits_equal(got[name], ref[name]):
+                fail(f"{label} chain_prepare: {name} differs from plain in "
+                     f"round {seen['rounds']}")
+        if not bool((got["idle"] == 1).all()):
+            fail(f"{label} chain_prepare: a slot without a job has counts "
+                 f"other than 1 in round {seen['rounds']}")
+        job = batch.sched[1:].cpu().numpy()
+        held = job >= 0
+        if not held.any():
+            break
+        if snap is None and held.all():
+            snap = (st0, sched0)
+        st = batch.state.cpu().numpy()
+        seen["rounds"] += 1
+        seen["last"] += int((st[job[held], cs.S_LAST] > 0).any())
+        seen["ended"] += int((st[:, cs.S_STATUS] != cs.ACTIVE).any())
+        seen["refills"] += int(batch.sched[0] - sched0[0])
+        batch.viterbi()
+        want_st = batch.state.clone()
+        want_rows = batch.rows.clone()
+        batch.consume()
+        cs.chain_consume_plain(batch.meta, want_st, batch.statics[0],
+                               batch.sched, batch.path, want_rows)
+        if not (bits_equal(batch.state, want_st) and
+                bits_equal(batch.rows, want_rows)):
+            fail(f"{label} chain_consume: state or rows differ from plain "
+                 f"in round {seen['rounds']}")
+    return seen, snap
+
+
+CHAIN_REFILL_SLOTS = 40   # phase 3b's refilled batch: 64 chains, 40 slots
 
 
 def phase_chain(dev, report):
     """chain_step's two entry points against their plain versions, bit for
     bit, on every round of the main corpus's 64 chains (forward and
     reverse reads, last sections, jobs that have ended beside active
-    ones): the state, the Viterbi inputs and the kept rows; then timing
-    on a round where every chain has a window."""
+    ones), first a slot a chain, then in CHAIN_REFILL_SLOTS slots (each
+    slot freed takes the queue's next chain in the same round): the
+    state, the Viterbi inputs and the kept rows, and the refilled batch's
+    final state and rows equal to the first's; then timing on a round
+    where every chain has a window."""
     import torch
     from nanopolish_tpu_torch.alignment import device_chain as dc
     from nanopolish_tpu_torch.ops import chain_step as cs
@@ -1015,79 +1108,71 @@ def phase_chain(dev, report):
     torch.cuda.reset_peak_memory_stats()
     base_mb = torch.cuda.memory_allocated() / 2**20
     batch = dc.ChainBatch(djobs, dev)
-    bufs = ("levels", "mu", "sigma", "c", "n_events", "n_kmers")
-    seen = {"rounds": 0, "last": 0, "ended": 0}
-    snap = None
-    for _ in range(batch.max_rounds):
-        st0 = batch.state.clone()
-        want = {n: getattr(batch, n).clone() for n in bufs}
-        want_st = st0.clone()
-        batch.prepare()
-        cs.chain_prepare_plain(batch.meta, want_st, *batch.statics,
-                               *(want[n] for n in bufs))
-        for name, got, ref in [("state", batch.state, want_st)] + [
-                (n, getattr(batch, n), want[n]) for n in bufs]:
-            if not bits_equal(got, ref):
-                fail(f"chain_prepare: {name} differs from plain in round "
-                     f"{seen['rounds']}")
-        st = batch.state.cpu().numpy()
-        active = st[:, cs.S_STRIDE] != 0
-        if not active.any():
-            break
-        if snap is None and active.all():
-            snap = st0
-        seen["rounds"] += 1
-        seen["last"] += int((active & (st[:, cs.S_LAST] > 0)).any())
-        seen["ended"] += int((~active).any())
-        batch.viterbi()
-        want_st = batch.state.clone()
-        want_rows = batch.rows.clone()
-        batch.consume()
-        cs.chain_consume_plain(batch.meta, want_st, batch.statics[0],
-                               batch.path, want_rows)
-        if not (bits_equal(batch.state, want_st) and
-                bits_equal(batch.rows, want_rows)):
-            fail(f"chain_consume: state or rows differ from plain in round "
-                 f"{seen['rounds']}")
+    seen, snap = chain_rounds_equal_plain(batch, "a slot a chain:")
     ok = batch.unpack()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20 - base_mb
     n_rev = sum(r.is_reverse for r in recs)
-    if not all(ok) or not (seen["last"] and seen["ended"] and 0 < n_rev <
-                           len(recs)):
+    if not all(ok) or seen["refills"] or not (
+            seen["last"] and seen["ended"] and 0 < n_rev < len(recs)):
         fail(f"chain check: {sum(ok)} of {len(ok)} chains ended, rounds "
-             f"{seen} (want last sections, ended jobs, both strands)")
+             f"{seen} (want last sections, ended jobs, both strands, no "
+             f"refill)")
     # timing: the round from snap, prepare -> Viterbi -> consume; only
     # chain_step's two launches are timed
+    final = (batch.state.clone(), batch.rows.clone())
+
     def one_round():
-        batch.state.copy_(snap)
+        batch.state.copy_(snap[0])
+        batch.sched.copy_(snap[1])
         batch.prepare()
         batch.viterbi()
         batch.consume()
 
     one_round()
-    st_before = snap.cpu().numpy()
+    st_before = snap[0].cpu().numpy()
     st_after = batch.state.cpu().numpy()
     nbytes = chain_round_bytes(batch, st_before, st_after)
     ms = kernel_ms(one_round, "chain_step", reps=10)
-    plain_st = snap.clone()
-    plain_bufs = {n: getattr(batch, n).clone() for n in bufs}
+    plain_st, plain_sched = snap[0].clone(), snap[1].clone()
+    plain_bufs = {n: getattr(batch, n).clone() for n in CHAIN_BUFS}
     prep_ms, _ = once_ms(lambda: cs.chain_prepare_plain(
-        batch.meta, plain_st, *batch.statics,
-        *(plain_bufs[n] for n in bufs)))
+        batch.meta, plain_st, *batch.statics, batch.trans_all, batch.budget,
+        batch.trans.clone(), plain_sched,
+        *(plain_bufs[n] for n in CHAIN_BUFS)))
     plain_rows = batch.rows.clone()
     cons_ms, _ = once_ms(lambda: cs.chain_consume_plain(
-        batch.meta, plain_st, batch.statics[0], batch.path, plain_rows))
+        batch.meta, plain_st, batch.statics[0], plain_sched, batch.path,
+        plain_rows))
     bms, by = bound(nbytes, 0.0)
     report["chain_step"].update(ms=ms, plain_ms=prep_ms + cons_ms,
                                 bound_ms=bms, bound_by=by, max_abs_err=0.0)
-    log(f"chain_step {batch.B} chains ({n_rev} reverse): prepare and consume "
+    log(f"chain_step {batch.J} chains ({n_rev} reverse): prepare and consume "
         f"== plain, bit for bit, on all {seen['rounds']} rounds (last "
         f"sections in {seen['last']}, ended jobs beside active ones in "
-        f"{seen['ended']}); a round of {batch.B} windows: {ms:.4f} ms (plain "
+        f"{seen['ended']}); a round of {batch.S} windows: {ms:.4f} ms (plain "
         f"{prep_ms + cons_ms:.1f} ms; bound {bms:.6f} ms, {by}: "
         f"{nbytes:.0f} bytes); the batch's device memory at its peak "
         f"{peak_mb:.1f} MiB (its tensors and the plain versions' copies)")
     del batch
+    slots, dc.CHAIN_BATCH = dc.CHAIN_BATCH, CHAIN_REFILL_SLOTS
+    try:
+        refilled = dc.ChainBatch(djobs, dev)
+    finally:
+        dc.CHAIN_BATCH = slots
+    seen_r, _ = chain_rounds_equal_plain(refilled, "refilled:")
+    if seen_r["refills"] != len(djobs) - CHAIN_REFILL_SLOTS:
+        fail(f"refilled chain check: {seen_r['refills']} refills of "
+             f"{len(djobs) - CHAIN_REFILL_SLOTS} queued chains")
+    if not (bits_equal(refilled.state, final[0]) and
+            bits_equal(refilled.rows, final[1])):
+        fail("refilled chain check: the final state or kept rows differ "
+             "from a slot a chain's")
+    log(f"chain_step {refilled.J} chains in {refilled.S} slots: prepare "
+        f"and consume == plain, bit for bit, on all {seen_r['rounds']} "
+        f"rounds ({seen_r['refills']} refills, last sections in "
+        f"{seen_r['last']}); final state and kept rows == a slot a chain's "
+        f"({seen['rounds']} rounds)")
+    del refilled
     torch.cuda.empty_cache()
 
 

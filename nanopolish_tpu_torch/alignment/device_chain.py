@@ -10,10 +10,15 @@ four launches on the stream, with nothing fetched in between:
   ``chain_prepare`` -> ``viterbi_fill`` -> ``viterbi_backtrack`` ->
   ``chain_consume``
 
-on tensors allocated once per batch (``ops/chain_step.py``,
-``csrc/chain_step.cu``).  The host reads the number of active jobs only
+on tensors allocated once per call (``ops/chain_step.py``,
+``csrc/chain_step.cu``).  A call's jobs (of one kmer size) form one
+queue, longest event range first, and run in up to ``CHAIN_BATCH`` job
+slots: ``chain_prepare`` gives a slot whose job has ended the next job
+from the queue in the same round, so the rounds end with the call's
+longest chain and not with the sum of fixed batches' longest chains.
+The host reads the number of active jobs (queued ones included) only
 every ``CHECK_EVERY`` rounds (a blocking read of one number), and
-fetches the kept rows once, when the batch is done.
+fetches the kept rows once, when the queue is done.
 
 Counterpart of ``nanopolish_tpu/alignment/device_chain.py``, whose chain
 is one jitted while_loop.  Its relay workarounds (the packed f32 input
@@ -33,8 +38,8 @@ path pads a window of <= 64 kmers to 64) changes no path.
 Jobs the chain cannot express go back to the host wavefront, which also
 runs on the card: spliced (multi-segment) alignments and reads whose
 closest-event map has holes (``stage_job`` declines them), windows the
-padded shape cannot hold and chains that outrun the round budget (aborted,
-found when the batch is unpacked).  ``CHAIN_STATS`` counts each, and
+padded shape cannot hold and chains that outrun their budget of windows
+(aborted, found when the queue is unpacked).  ``CHAIN_STATS`` counts each, and
 the work of the chain's rounds (see its comment).
 """
 
@@ -64,23 +69,34 @@ from .segments import _model_tables, read_drift_levels
 TP = 512             # padded event rows of a window
 KP = 128             # padded kmers of a window (l <= 101, so nk <= 96)
 CHECK_EVERY = 32     # rounds between reads of the active count
-CHAIN_BATCH = 256    # jobs per batch: a 64 KiB trace each
+CHAIN_BATCH = 256    # job slots of a call: a 64 KiB trace each
 ROWS_SLACK = 64      # output rows a job may hold beyond its event range
 
 # how many jobs the chain took and sent back to the host wavefront, and
-# why; the batches, rounds and active-count reads it made; the work of its
-# rounds, summed over every job's windows (each round in which a job has a
-# window, aborted jobs' up to their abort): the Viterbi fill's DP cells
-# (n_events x n_kmers), the backtracks' path steps (each path's length),
-# the windows, and the job slots the rounds ran (jobs x rounds of a batch)
+# why; the calls (``batches``: one queue each), rounds and active-count
+# reads it made; the work of its rounds, summed over every job's windows
+# (each round in which a job has a window, aborted jobs' up to their
+# abort): the Viterbi fill's DP cells (n_events x n_kmers), the
+# backtracks' path steps (each path's length), the windows, and the job
+# slots the rounds ran (slots x rounds of a call); and the jobs that took
+# a slot another job had freed (``refills``)
 CHAIN_STATS = {"chained": 0, "ineligible": 0, "aborted": 0, "batches": 0,
                "rounds": 0, "checks": 0, "vit_cells": 0, "path_steps": 0,
-               "live_windows": 0, "slot_rounds": 0}
+               "live_windows": 0, "slot_rounds": 0, "refills": 0}
 
 
 def reset_chain_stats() -> None:
     for k in CHAIN_STATS:
         CHAIN_STATS[k] = 0
+
+
+def chain_lines() -> List[str]:
+    """The NPT_PROFILE report's line of CHAIN_STATS (none if the chain
+    never ran)."""
+    if not CHAIN_STATS["batches"]:
+        return []
+    return ["[profile] device chain: " + ", ".join(
+        f"{v} {k}" for k, v in CHAIN_STATS.items())]
 
 
 def closest_event_array(b2e: np.ndarray) -> np.ndarray:
@@ -170,7 +186,7 @@ def stage_job(job) -> Optional[DeviceJob]:
 
 
 class _Wire:
-    """The batch's inputs as one int32 host array (floats by their bits),
+    """A call's inputs as one int32 host array (floats by their bits),
     uploaded in one copy and cut into views on the device."""
 
     def __init__(self):
@@ -197,36 +213,41 @@ def _flat(arrs):
 
 
 def round_budget(max_range: int) -> int:
-    """Rounds a batch may take before its unfinished chains go back to
-    the host path (the JAX chain's budget)."""
+    """Windows a job may take before it goes back to the host path, from
+    the longest event range of its call (the JAX chain's round budget)."""
     return max_range // 20 + 32
 
 
 def run_device_chain(djobs: List[DeviceJob], device=None) -> List[bool]:
     """Run the staged jobs' chains on ``device`` (``cuda`` unless ``cpu``
-    is asked; the CPU runs the plain versions), in batches of
-    CHAIN_BATCH; fill each underlying host _Job's output columns and mark
-    it done.  Returns per-job success flags (False: the caller re-runs
-    that job on the host wavefront)."""
+    is asked; the CPU runs the plain versions), as one queue in up to
+    CHAIN_BATCH slots; fill each underlying host _Job's output columns and
+    mark it done.  Returns per-job success flags (False: the caller
+    re-runs that job on the host wavefront)."""
     dev = resolve_device(device)
-    ok: List[bool] = []
-    for lo in range(0, len(djobs), CHAIN_BATCH):
-        with profile_scope("ea.chain_build"):
-            batch = ChainBatch(djobs[lo:lo + CHAIN_BATCH], dev)
-        batch.run()
-        with profile_scope("ea.chain_unpack"):
-            ok += batch.unpack()
-    return ok
+    if not djobs:
+        return []
+    with profile_scope("ea.chain_build"):
+        batch = ChainBatch(djobs, dev)
+    batch.run()
+    with profile_scope("ea.chain_unpack"):
+        return batch.unpack()
 
 
 class ChainBatch:
-    """One batch of staged jobs on ``dev``: its inputs, uploaded in one
-    copy, the chains' state and kept rows, and one round's tensors,
-    allocated once (``ops/chain_step.py`` documents the layout)."""
+    """A call's staged jobs on ``dev``, queued longest event range first
+    (stable), in ``S = min(J, CHAIN_BATCH)`` slots: their inputs,
+    uploaded in one copy, the chains' state and kept rows (a row a job,
+    in queue order: ``djobs``; ``order`` maps them to the caller's), the
+    queue (``sched``), and one round's tensors, a row a slot, allocated
+    once (``ops/chain_step.py`` documents the layout)."""
 
     def __init__(self, djobs: List[DeviceJob], dev):
-        self.djobs = djobs
-        B = self.B = len(djobs)
+        self.order = sorted(range(len(djobs)),
+                            key=lambda i: -djobs[i].max_range)
+        djobs = self.djobs = [djobs[i] for i in self.order]
+        J = self.J = len(djobs)
+        S = self.S = min(J, CHAIN_BATCH)
         pairs_ref, p_off, n_pairs = _flat([d.pairs_ref for d in djobs])
         pairs_read = np.concatenate([d.pairs_read for d in djobs])
         closest, c_off, n_close = _flat([d.closest for d in djobs])
@@ -235,14 +256,20 @@ class ChainBatch:
         caps = np.array([d.max_range + ROWS_SLACK for d in djobs], np.int64)
         self.o_off = np.concatenate([[0], np.cumsum(caps)[:-1]])
         self.n_rows = int(caps.sum())
-        self.max_rounds = round_budget(max(d.max_range for d in djobs))
-        # int32 offsets, and a job's path steps over the round budget in
-        # an int32 state column (its DP cells carry into a second one)
+        self.budget = round_budget(djobs[0].max_range)
+        # a safety cap that no run within the budgets reaches, a whole
+        # number of checks: while jobs wait in the queue every slot has a
+        # window a round (so at most J x budget / S such rounds), and then
+        # each slot's job ends within its budget and one more round
+        cap = -(-J * self.budget // S) + self.budget + 2
+        self.max_rounds = -(-cap // CHECK_EVERY) * CHECK_EVERY
+        # int32 offsets, and a job's path steps over its budget in an
+        # int32 state column (its DP cells carry into a second one)
         if max(len(pairs_ref), len(levels), len(tabs), self.n_rows,
-               self.max_rounds * (TP + KP)) >= 1 << 31:
-            raise ValueError("a chain batch holds more than 2^31 rows or "
+               self.budget * (TP + KP)) >= 1 << 31:
+            raise ValueError("a chain call holds more than 2^31 rows or "
                              "path steps")
-        meta = np.zeros((B, N_META), np.int64)
+        meta = np.zeros((J, N_META), np.int64)
         for col, vals in ((M_POFF, p_off), (M_NPAIRS, n_pairs),
                           (M_LOFF, l_off), (M_NLEV, n_lev), (M_ROFF, r_off),
                           (M_NRANK, n_rank), (M_COFF, c_off),
@@ -253,10 +280,11 @@ class ChainBatch:
         meta[:, M_FWD] = [d.forward for d in djobs]
         meta[:, M_REFOFF] = [d.ref_offset for d in djobs]
         meta[:, M_K] = [d.job.model.k for d in djobs]
-        state = np.zeros((B, N_STATE), np.int64)
+        state = np.zeros((J, N_STATE), np.int64)
         state[:, S_EV] = [d.start_ev for d in djobs]
         state[:, S_REF] = [d.start_ref for d in djobs]
         state[:, S_STATUS] = ACTIVE
+        trans = make_transitions(np.array([d.epb for d in djobs], np.float32))
         wire = _Wire()
         wire.add("meta", meta)
         wire.add("state", state)
@@ -265,32 +293,37 @@ class ChainBatch:
         wire.add("closest", closest)
         wire.add("levels", np.asarray(levels, np.float32))
         wire.add("tabs", np.ascontiguousarray(np.asarray(tabs, np.float32).T))
-        wire.add("trans", make_transitions(
-            np.array([d.epb for d in djobs], np.float32)))
+        wire.add("trans_all", trans)
+        wire.add("trans", trans[:S])
+        # the queue's head, then the first S jobs in their slots
+        wire.add("sched", np.r_[S, np.arange(S)])
         x = wire.upload(dev)
         f32 = torch.float32
-        self.meta = x["meta"].view(B, N_META)
-        self.state = x["state"].view(B, N_STATE)
+        self.meta = x["meta"].view(J, N_META)
+        self.state = x["state"].view(J, N_STATE)
         self.statics = (x["pairs_ref"], x["pairs_read"], x["closest"],
                         x["levels"].view(f32), x["tabs"].view(f32).view(3, -1))
-        self.trans = x["trans"].view(f32).view(B, 8)
-        # the round's tensors (values in the rows of jobs without a window
-        # are never read back)
-        self.levels = torch.zeros((B, TP), dtype=f32, device=dev)
-        self.mu = torch.zeros((B, KP), dtype=f32, device=dev)
-        self.sigma = torch.ones((B, KP), dtype=f32, device=dev)
-        self.c = torch.full((B, KP), PAD_C, dtype=f32, device=dev)
-        self.n_events = torch.ones(B, dtype=torch.int32, device=dev)
-        self.n_kmers = torch.ones(B, dtype=torch.int32, device=dev)
-        self.clips = torch.zeros((B, 2), dtype=torch.uint8, device=dev)
-        self.trace = torch.empty((B, TP, KP), dtype=torch.uint8, device=dev)
-        self.path = torch.empty((B, 1 + TP + KP), dtype=torch.int64,
+        self.trans_all = x["trans_all"].view(f32).view(J, 8)
+        self.trans = x["trans"].view(f32).view(S, 8)
+        self.sched = x["sched"]
+        # the round's tensors (values in the rows of slots without a
+        # window are never read back)
+        self.levels = torch.zeros((S, TP), dtype=f32, device=dev)
+        self.mu = torch.zeros((S, KP), dtype=f32, device=dev)
+        self.sigma = torch.ones((S, KP), dtype=f32, device=dev)
+        self.c = torch.full((S, KP), PAD_C, dtype=f32, device=dev)
+        self.n_events = torch.ones(S, dtype=torch.int32, device=dev)
+        self.n_kmers = torch.ones(S, dtype=torch.int32, device=dev)
+        self.clips = torch.zeros((S, 2), dtype=torch.uint8, device=dev)
+        self.trace = torch.empty((S, TP, KP), dtype=torch.uint8, device=dev)
+        self.path = torch.empty((S, 1 + TP + KP), dtype=torch.int64,
                                 device=dev)
         self.rows = torch.zeros((3, self.n_rows), dtype=torch.int32,
                                 device=dev)
 
     def prepare(self):
-        chain_prepare(self.meta, self.state, *self.statics, self.levels,
+        chain_prepare(self.meta, self.state, *self.statics, self.trans_all,
+                      self.budget, self.trans, self.sched, self.levels,
                       self.mu, self.sigma, self.c, self.n_events,
                       self.n_kmers)
 
@@ -301,59 +334,63 @@ class ChainBatch:
                           out=self.path)
 
     def consume(self):
-        chain_consume(self.meta, self.state, self.statics[0], self.path,
-                      self.rows)
+        chain_consume(self.meta, self.state, self.statics[0], self.sched,
+                      self.path, self.rows)
 
     def n_active(self) -> int:
-        """The chains still active: one blocking read of the device's
-        state (the host waits for the rounds issued so far)."""
+        """The chains still active, queued ones included: one blocking
+        read of the device's state (the host waits for the rounds issued
+        so far)."""
         CHAIN_STATS["checks"] += 1
         with profile_scope("ea.chain_check"):
             return int(timed_fetch((self.state[:, S_STATUS] == ACTIVE).sum()))
 
     def run(self) -> int:
-        """Rounds until every chain has ended (read every CHECK_EVERY
-        rounds) or the budget is spent; returns the rounds run."""
+        """Rounds until every chain has ended and the queue is empty (read
+        every CHECK_EVERY rounds) or the safety cap; returns the rounds
+        run."""
         rnd = 0
         while rnd < self.max_rounds:
-            n = min(CHECK_EVERY, self.max_rounds - rnd)
             with profile_scope("ea.chain_rounds"):
-                for _ in range(n):
+                for _ in range(CHECK_EVERY):
                     self.prepare()
                     self.viterbi()
                     self.consume()
-            rnd += n
-            if rnd % CHECK_EVERY == 0 and self.n_active() == 0:
+            rnd += CHECK_EVERY
+            if self.n_active() == 0:
                 break
         CHAIN_STATS["batches"] += 1
         CHAIN_STATS["rounds"] += rnd
-        CHAIN_STATS["slot_rounds"] += self.B * rnd
+        CHAIN_STATS["slot_rounds"] += self.S * rnd
         return rnd
 
     def unpack(self) -> List[bool]:
         """One fetch of the chains' state and kept rows; each finished
         chain's rows go to its _Job, which is marked done.  Returns
-        per-job success flags."""
-        B = self.B
+        per-job success flags, in the caller's order."""
+        J = self.J
         flat = timed_fetch(torch.cat([self.state.reshape(-1),
                                       self.rows.reshape(-1)]))
-        st = flat[:B * N_STATE].reshape(B, N_STATE)
-        out = flat[B * N_STATE:].reshape(3, self.n_rows)
+        st = flat[:J * N_STATE].reshape(J, N_STATE)
+        out = flat[J * N_STATE:].reshape(3, self.n_rows)
         work = st.astype(np.int64).sum(axis=0)
         CHAIN_STATS["vit_cells"] += int(work[S_CELLS] +
                                         work[S_CELLS_HI] * CELLS_CARRY)
         CHAIN_STATS["path_steps"] += int(work[S_STEPS])
         CHAIN_STATS["live_windows"] += int(work[S_WINDOWS])
-        ok = []
+        # a queued job that was taken has had a window or has ended
+        taken = st[self.S:]
+        CHAIN_STATS["refills"] += int(((taken[:, S_STATUS] != ACTIVE) |
+                                       (taken[:, S_WINDOWS] > 0)).sum())
+        ok = [False] * J
         for i, d in enumerate(self.djobs):
             n = int(st[i, S_CURSOR])             # rows kept
             lo = int(self.o_off[i])
             st_bytes = out[2, lo:lo + n]
-            # a chain still active ran out of the round budget
+            # a chain still active was never taken or hit the safety cap
             if st[i, S_STATUS] != DONE or not (
                     (st_bytes == 77) | (st_bytes == 66)).all():
                 CHAIN_STATS["aborted"] += 1
-                ok.append(False)
                 continue
             CHAIN_STATS["chained"] += 1
             job = d.job
@@ -361,5 +398,5 @@ class ChainBatch:
             job.out_ref.append(out[1, lo:lo + n].astype(np.int64))
             job.out_st.append(st_bytes.astype(np.uint8))
             job.done = True
-            ok.append(True)
+            ok[self.order[i]] = True
         return ok

@@ -330,7 +330,7 @@ def _device_chain_on(device) -> bool:
 
 
 def _run_device_chain(live: List[_Job], device) -> None:
-    """Stage each job for the device chain and run the chain, one batch
+    """Stage each job for the device chain and run the chain, one queue
     per kmer size; the jobs it declines or gives back stay not done."""
     by_k: dict = {}
     with profile_scope("ea.stage_jobs"):

@@ -67,8 +67,8 @@ _ARGTYPES = {
     "seg_backtrack": [_P, _I, _I, _P, _P, _P],
     "forward_table": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _F, _F, _F,
                       _P, _I, _P, _P],
-    "chain_step": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P,
-                   _P, _P, _P, _P, _P, _I, _P, _I],
+    "chain_step": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I],
 }
 
 _lock = threading.Lock()

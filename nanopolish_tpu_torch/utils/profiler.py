@@ -7,7 +7,9 @@ Rebuild of the reference's profiling aids:
   (off by default; outputs are byte-identical with it on).  The report
   goes to stderr at exit, one `[profile] name: N calls, S s total, M
   ms/call` line a scope, the slowest first, then the banded fill's chain
-  bands (utils/cuda_build.CHAIN_BANDS) where it ran.
+  bands (utils/cuda_build.CHAIN_BANDS) and eventalign's device chain
+  (alignment/device_chain.CHAIN_STATS: its calls, rounds, work and
+  refilled slots) where they ran.
 - `Progress` elapsed-time bars (src/common/progress.h:16-50; used by
   methyltrain rounds, nanopolish_methyltrain.cpp:788,816-818).
 
@@ -124,7 +126,8 @@ def _report(fp=None) -> None:
                  f"{ns / 1e9:.3f} s total, {ns / max(calls, 1) / 1e6:.3f} "
                  f"ms/call\n")
     from .cuda_build import chain_band_lines   # cuda_build imports this
-    for ln in chain_band_lines():
+    from ..alignment.device_chain import chain_lines    # and so does this
+    for ln in chain_band_lines() + chain_lines():
         fp.write(ln + "\n")
 
 

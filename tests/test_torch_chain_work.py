@@ -3,7 +3,8 @@ the plain chain_step): CHAIN_STATS' ``vit_cells``, ``path_steps`` and
 ``live_windows`` after one eventalign call equal the sums over the plain
 reference chain's own windows (``benchmark/reference/eventalign.py``) for
 the same reads: each window's events x kmers, its Viterbi path's length
-and one; ``slot_rounds`` is the batch's jobs x its rounds.  The reads are
+and one; ``slot_rounds`` is the call's slots x its rounds; with fewer
+slots than jobs, the same windows run in refilled slots.  The reads are
 the benchmark generator's, three of 1-3 kb from one seed."""
 
 import io
@@ -41,10 +42,10 @@ def small_cell():
     return cell
 
 
-def test_chain_counts_equal_the_reference_chains_windows(
-        small_cell, tmp_path, monkeypatch):
-    ds = generator.synthesize(small_cell.config, small_cell.traffic, SEED,
-                              MODELS_NPZ)
+def _counts(cell, tmp_path, monkeypatch):
+    """CHAIN_STATS of one eventalign call through the chain on the cell's
+    reads, and the same counts over the reference chain's windows."""
+    ds = generator.synthesize(cell.config, cell.traffic, SEED, MODELS_NPZ)
     assert len(ds.reads) == 3
     assert 1000 <= min(len(r.basecall) for r in ds.reads) and \
         max(len(r.basecall) for r in ds.reads) <= 3000
@@ -53,11 +54,10 @@ def test_chain_counts_equal_the_reference_chains_windows(
     dc.reset_chain_stats()
     out = io.StringIO()
     ea_app.main(["-r", paths["fastq"], "-b", paths["bam"], "-g",
-                 paths["ref_fa"], *small_cell.config["app"]["flags"],
+                 paths["ref_fa"], *cell.config["app"]["flags"],
                  "--device", "cpu"], stdout=out)
     got = dict(dc.CHAIN_STATS)
     assert got["chained"] == 3 and got["aborted"] == got["ineligible"] == 0
-    assert got["slot_rounds"] == 3 * got["rounds"]
 
     # the reference's chain consumes each of its own windows once (a
     # guessed window off the chain is never consumed)
@@ -74,9 +74,26 @@ def test_chain_counts_equal_the_reference_chains_windows(
     by_index = {r.bam_index: r.name for r in ds.reads}
     lines = {r.name: [] for r in ds.reads}
     for ln in out.getvalue().splitlines()[1:]:
-        lines[small_cell.app.read_key(ln, by_index)].append(ln)
-    ref = check.reference_rows(small_cell, ds, ds.reads, "cpu", lines)
-    assert check.compare(small_cell.app, lines, ref)["rows_differing"] == 0
+        lines[cell.app.read_key(ln, by_index)].append(ln)
+    ref = check.reference_rows(cell, ds, ds.reads, "cpu", lines)
+    assert check.compare(cell.app, lines, ref)["rows_differing"] == 0
     print(f"chain {got}, reference {want}")
     assert want["live_windows"] > 3 * 15
+    return got, want
+
+
+def test_chain_counts_equal_the_reference_chains_windows(
+        small_cell, tmp_path, monkeypatch):
+    got, want = _counts(small_cell, tmp_path, monkeypatch)
+    assert got["slot_rounds"] == 3 * got["rounds"] and got["refills"] == 0
+    assert {k: got[k] for k in want} == want
+
+
+def test_refilled_chain_counts_equal_the_reference_chains_windows(
+        small_cell, tmp_path, monkeypatch):
+    """Two slots for the three jobs: the third takes the first slot
+    freed, and the counts are still the reference's windows."""
+    monkeypatch.setattr(dc, "CHAIN_BATCH", 2)
+    got, want = _counts(small_cell, tmp_path, monkeypatch)
+    assert got["slot_rounds"] == 2 * got["rounds"] and got["refills"] == 1
     assert {k: got[k] for k in want} == want

@@ -70,6 +70,8 @@ PLAN = [("f0", 120, False, 360), ("r0", 900, True, 300),
         ("f1", 1400, False, 260), ("r1", 1900, True, 330)]
 # the jobs of the align-level fallback cases: one forward, one reverse
 SUBSET = ("f1", "r1")
+# job slots of the refilled runs: fewer than the jobs
+REFILL_SLOTS = 2
 
 
 @pytest.fixture(scope="module")
@@ -131,10 +133,13 @@ def runs(pipe):
     with pytest.MonkeyPatch.context() as mp:
         host, _ = _eventalign(pipe, "0", mp)
         chain, stats = _eventalign(pipe, "1", mp)
+        mp.setattr(dc, "CHAIN_BATCH", REFILL_SLOTS)
+        refilled, refilled_stats = _eventalign(pipe, "1", mp)
     want = io.StringIO()
     jax_app.main(["-r", pipe["fastq"], "-b", pipe["bam"], "-g",
                   pipe["ref_fa"], "--print-read-names"], stdout=want)
     return {"host": host, "chain": chain, "stats": stats,
+            "refilled": refilled, "refilled_stats": refilled_stats,
             "jax": want.getvalue()}
 
 
@@ -163,15 +168,35 @@ def test_chain_tsv_equals_host_wavefront_and_jax_app(runs):
     assert runs["chain"] == runs["jax"]
 
 
+def test_refilled_chain_tsv_equals_host_wavefront_and_jax_app(runs):
+    """With fewer job slots than jobs, the queue's jobs take the slots
+    the others free, and the TSV is the same, byte for byte."""
+    st = runs["refilled_stats"]
+    print(f"refilled chain stats: {st}")
+    assert st["chained"] == len(PLAN) and st["aborted"] == 0 and \
+        st["ineligible"] == 0
+    assert st["refills"] == len(PLAN) - REFILL_SLOTS
+    assert runs["stats"]["refills"] == 0
+    # the same windows, in fewer slots
+    for k in ("live_windows", "vit_cells", "path_steps"):
+        assert st[k] == runs["stats"][k], k
+    assert st["slot_rounds"] == REFILL_SLOTS * st["rounds"]
+    assert runs["refilled"] == runs["host"] == runs["jax"]
+
+
 def test_chain_reads_its_state_once_every_check_rounds(runs):
-    """One active-count read every CHECK_EVERY rounds, and the batch's
-    rows in one fetch after its last round."""
-    st = runs["stats"]
-    assert st["batches"] == 1
-    assert st["checks"] == st["rounds"] // dc.CHECK_EVERY
-    # the loop stopped at the first read that saw no active chain
-    assert st["rounds"] % dc.CHECK_EVERY == 0
-    assert st["rounds"] < dc.round_budget(GENOME_LEN * 10)
+    """One active-count read every CHECK_EVERY rounds (queued jobs count
+    as active), and the call's rows in one fetch after its last round,
+    with one slot a job and with refilled slots."""
+    for st in (runs["stats"], runs["refilled_stats"]):
+        assert st["batches"] == 1
+        assert st["checks"] == st["rounds"] // dc.CHECK_EVERY
+        # the loop stopped at the first read that saw no active chain
+        assert st["rounds"] % dc.CHECK_EVERY == 0
+        assert st["rounds"] < dc.round_budget(GENOME_LEN * 10)
+        assert st["slot_rounds"] == st["rounds"] * min(
+            len(PLAN), dc.CHAIN_BATCH if st is runs["stats"]
+            else REFILL_SLOTS)
 
 
 # eventalign's span -> its parent on the main thread
@@ -281,55 +306,82 @@ def host_subset(loaded):
         return _align(loaded, _jobs(loaded, names=SUBSET), "0", mp)[0]
 
 
-def test_plain_rounds_equal_host_prepare_and_consume(loaded):
-    """Round by round on the same jobs: chain_prepare_plain's Viterbi
-    inputs are the host _prepare's segment, the chain's paths (kmer width
-    128) are the host's (bucketed at 64 or 128), and chain_consume_plain
-    keeps the rows _consume keeps and re-anchors where it does."""
+def _rounds_against_host(loaded):
+    """Step a ChainBatch of the pipeline's jobs (in CHAIN_BATCH slots)
+    round by round beside the host _prepare and _consume of the same
+    jobs: each job the round's chain_prepare_plain looked at (the slots'
+    jobs and those it took from the queue) against the host _prepare's
+    segment, in whatever slot holds it; the chain's paths (kmer width 128)
+    against the host's (bucketed at 64 or 128); chain_consume_plain's
+    kept rows and re-anchored chain against _consume's.  Returns what
+    the rounds went through."""
     jobs_in, fai = _jobs(loaded), loaded[2]
     make = lambda: [ea._make_job(*j, fai, ["tig1"], -1, -1)  # noqa: E731
                     for j in jobs_in]
     host, chain = make(), make()
     batch = dc.ChainBatch([dc.stage_job(j) for j in chain],
                           torch.device("cpu"))
-    seen = {"last": 0, "idle": 0, "rounds": 0}
+    host = [host[i] for i in batch.order]        # the batch's job order
+    # idle: the jobs the rounds found without a window (each once, as it
+    # leaves its slot); ended: rounds that left a slot without a job
+    seen = {"last": 0, "idle": 0, "rounds": 0, "refills": 0, "ended": 0,
+            "windows": 0}
     for _ in range(batch.max_rounds):
-        segs = [ea._prepare(j) for j in host]
+        sched0 = batch.sched.numpy().copy()
         batch.prepare()
+        sched = batch.sched.numpy().copy()
         st = batch.state.numpy().copy()
-        if all(s is None for s in segs):
-            assert (st[:, cs.S_STRIDE] == 0).all()
+        taken = list(range(sched0[0], sched[0]))
+        looked = [b for b in sched0[1:] if b >= 0] + taken
+        seen["refills"] += len(taken)
+        segs = {b: ea._prepare(host[b]) for b in looked}
+        seen["idle"] += sum(g is None for g in segs.values())
+        slot_of = {int(b): s for s, b in enumerate(sched[1:]) if b >= 0}
+        assert set(slot_of) == {b for b, g in segs.items() if g is not None}
+        for b in range(batch.J):
+            if b not in looked:                  # queued, or ended before
+                assert st[b, cs.S_STRIDE] == 0
+                assert (st[b, cs.S_STATUS] == cs.ACTIVE) == \
+                    (b >= sched[0]), b
+        if sched[0] < batch.J:                    # the queue fills slots
+            assert len(slot_of) == batch.S
+        if not slot_of:
+            assert sched[0] == batch.J
             break
         seen["rounds"] += 1
-        active = [b for b, s in enumerate(segs) if s is not None]
-        for b, (j, seg) in enumerate(zip(host, segs)):
+        seen["windows"] += len(slot_of)
+        seen["ended"] += int(len(slot_of) < batch.S)
+        for b, seg in segs.items():
             if seg is None:
                 assert st[b, cs.S_STRIDE] == 0
                 assert st[b, cs.S_STATUS] != cs.ACTIVE
-                seen["idle"] += 1
                 continue
+            j, s = host[b], slot_of[b]
             nev, nk = len(seg.levels), len(seg.mu)
-            assert int(batch.n_events[b]) == nev
-            assert int(batch.n_kmers[b]) == nk
+            assert int(batch.n_events[s]) == nev
+            assert int(batch.n_kmers[s]) == nk
             assert st[b, cs.S_STRIDE] == (1 if j.curr_start_event <=
                                           j._event_stop else -1)
             assert st[b, cs.S_LAST] == j._last_section
             seen["last"] += int(j._last_section)
             for got, want in (
-                    (batch.levels[b, :nev], seg.levels),
-                    (batch.mu[b, :nk], seg.mu),
-                    (batch.sigma[b, :nk], seg.sigma),
-                    (batch.c[b, :nk], emission_constant(np.log(seg.sigma)))):
+                    (batch.levels[s, :nev], seg.levels),
+                    (batch.mu[s, :nk], seg.mu),
+                    (batch.sigma[s, :nk], seg.sigma),
+                    (batch.c[s, :nk], emission_constant(np.log(seg.sigma))),
+                    (batch.trans[s], batch.trans_all[b])):
                 np.testing.assert_array_equal(
                     got.numpy().view(np.int32),
                     np.asarray(want, np.float32).view(np.int32))
+        active = sorted(slot_of)
         results = viterbi_segments([segs[b] for b in active], device="cpu")
         batch.viterbi()
         paths = paths_to_segments(batch.path.numpy())
         for b, want in zip(active, results):
-            np.testing.assert_array_equal(paths[b][0], want[0])
-            np.testing.assert_array_equal(paths[b][1], want[1])
-            assert paths[b][2] == want[2]
+            got = paths[slot_of[b]]
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+            assert got[2] == want[2]
         before = [len(j.out_ev) for j in host]
         cur0 = batch.state[:, cs.S_CURSOR].numpy().copy()
         batch.consume()
@@ -351,12 +403,58 @@ def test_plain_rounds_equal_host_prepare_and_consume(loaded):
             assert st[b, cs.S_STATUS] == cs.ACTIVE
             assert (st[b, cs.S_EV], st[b, cs.S_REF], st[b, cs.S_PAIR]) == (
                 j.curr_start_event, j.curr_start_ref, j.curr_pair_idx)
-    print(f"captured rounds: {seen}")
+    assert (batch.state[:, cs.S_STATUS] == cs.DONE).all()
+    assert int(batch.state[:, cs.S_WINDOWS].sum()) == seen["windows"]
+    print(f"captured rounds: {seen}, windows a job "
+          f"{batch.state[:, cs.S_WINDOWS].tolist()}")
+    return batch, seen
+
+
+def test_plain_rounds_equal_host_prepare_and_consume(loaded):
+    """Round by round on the same jobs, one slot a job: the Viterbi
+    inputs, paths, kept rows and re-anchoring equal the host's, through
+    last sections and beside jobs that have ended; the jobs run longest
+    event range first."""
+    batch, seen = _rounds_against_host(loaded)
+    assert batch.S == batch.J == len(PLAN)
+    assert seen["rounds"] == max(batch.state[:, cs.S_WINDOWS].tolist())
+    assert [d.max_range for d in batch.djobs] == sorted(
+        (d.max_range for d in batch.djobs), reverse=True)
     assert seen["rounds"] >= 8 and seen["last"] >= len(PLAN) and \
-        seen["idle"] > 0
+        seen["idle"] == len(PLAN) and seen["ended"] > 0 and \
+        seen["refills"] == 0
 
 
-@pytest.mark.parametrize("fallback", ["window_over_tp", "round_budget"])
+def _list_schedule(windows, slots):
+    """Rounds that jobs of these window counts take, in this order, in
+    ``slots`` slots, each job taking the first slot to come free (its
+    rounds back to back with its slot's last job's)."""
+    free = [0] * slots
+    for w in windows:
+        i = free.index(min(free))
+        free[i] += w
+    return max(free)
+
+
+@pytest.mark.parametrize("slots", [1, 2, 3])
+def test_refilled_plain_rounds_equal_host_prepare_and_consume(
+        loaded, monkeypatch, slots):
+    """As above with fewer slots than jobs: a slot whose job ended takes
+    the queue's next job in the same round, and every job's windows are
+    the host's, whichever round it started in."""
+    monkeypatch.setattr(dc, "CHAIN_BATCH", slots)
+    batch, seen = _rounds_against_host(loaded)
+    assert batch.S == slots
+    assert seen["refills"] == len(PLAN) - slots
+    assert seen["last"] >= len(PLAN) and seen["idle"] == len(PLAN)
+    # a slot takes its next job in the round after its last job's last
+    # window: the rounds are the list schedule's, longest first
+    windows = batch.state[:, cs.S_WINDOWS].tolist()
+    assert seen["rounds"] == _list_schedule(windows, slots)
+
+
+@pytest.mark.parametrize("fallback", ["window_over_tp", "round_budget",
+                                      "queued_round_budget"])
 def test_aborted_chains_fall_back_with_identical_output(loaded, host_subset,
                                                         monkeypatch,
                                                         fallback):
@@ -364,8 +462,15 @@ def test_aborted_chains_fall_back_with_identical_output(loaded, host_subset,
         monkeypatch.setattr(dc, "TP", 8)
     else:
         monkeypatch.setattr(dc, "round_budget", lambda max_range: 2)
+    if fallback == "queued_round_budget":
+        # one slot: the second job waits for the first's abort, then has
+        # its own budget of windows
+        monkeypatch.setattr(dc, "CHAIN_BATCH", 1)
     cols, st = _align(loaded, _jobs(loaded, names=SUBSET), "1", monkeypatch)
     assert st["aborted"] == len(SUBSET) and st["chained"] == 0
+    if fallback != "window_over_tp":
+        assert st["live_windows"] == 2 * len(SUBSET)
+        assert st["refills"] == (fallback == "queued_round_budget")
     _same_columns(cols, host_subset)
 
 

@@ -61,6 +61,12 @@ def test_profile_changes_no_output_and_reports_scopes(ea_pipe,  # noqa: F811
     buf = io.StringIO()
     profiler._report(buf)
     assert "[profile] ea.emit: " in buf.getvalue()
+    chain_line = [ln for ln in buf.getvalue().splitlines()
+                  if ln.startswith("[profile] device chain: ")]
+    if chain == "1":
+        assert len(chain_line) == 1 and " 0 refills" in chain_line[0]
+    else:
+        assert not chain_line
 
 
 def test_sync_counts_are_deterministic(ea_pipe, monkeypatch):  # noqa: F811

@@ -35,8 +35,9 @@ eventalign:
               opening and record reading, the alignment, the chain's
               rounds or, with --chain off, the host wavefront, whose
               rounds no span or counter reports)
-  chain_stats device_chain.CHAIN_STATS: the chain's batches, rounds and
-              active-count reads, and the jobs it gave back
+  chain_stats device_chain.CHAIN_STATS: the chain's calls, rounds,
+              active-count reads and refilled slots, and the jobs it gave
+              back
 call-methylation (ingest and geometry on the loader threads, resolve on
 the fetch threads):
   geometry    meth.collect
